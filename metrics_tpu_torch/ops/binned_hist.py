@@ -1,0 +1,121 @@
+"""Binned per-threshold counts: the CUDA kernel behind the binned PR-curve family.
+
+Counterpart of ``metrics_tpu/ops/binned_hist.py``. :func:`binned_counts` takes
+(N, C) scores, 0/1 targets and a validity mask, and (T,) ascending thresholds,
+and returns ``(tp, fp, pos_tot, neg_tot)`` as int32: ``tp[c, t]`` counts valid
+positives of class ``c`` whose score is ``>= thresholds[t]``, ``fp`` the same
+over negatives (target 0), and the totals count each class's valid positives
+and negatives. A NaN score meets no threshold; so does a NaN threshold.
+
+On a CUDA tensor it launches the kernel of ``csrc/binned_hist.cu``; on a CPU
+tensor it runs :func:`binned_counts_plain`, which is also the kernel's oracle.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from metrics_tpu_torch.ops import _native
+from metrics_tpu_torch.utils.data import bincount
+
+__all__ = ["binned_counts", "binned_counts_plain"]
+
+Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def binned_counts_plain(
+    preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
+) -> Counts:
+    """The plain PyTorch version: bucketize, one histogram per class, suffix sums.
+
+    Bucket ``b`` = #thresholds ``<= score``, so ``score >= thr[t]`` exactly when
+    ``t < b``; a histogram over (C, T + 1) buckets and a suffix sum give every
+    count. Positives and negatives outside the mask go to a dead bin.
+    """
+    num_c = preds.shape[1]
+    len_t = thresholds.shape[0]
+    thr_nan = torch.isnan(thresholds)
+    # NaN thresholds sort last; as +inf they keep the search monotone, and the
+    # clamp to the count of real thresholds keeps +inf scores from meeting them
+    thr = torch.where(thr_nan, torch.inf, thresholds)
+    bucket = torch.searchsorted(thr, preds.contiguous(), right=True)
+    bucket = torch.minimum(bucket, (~thr_nan).sum())
+    bucket = torch.where(torch.isnan(preds), 0, bucket)
+    flat = bucket + (len_t + 1) * torch.arange(num_c, device=preds.device)
+    dead = num_c * (len_t + 1)
+
+    def hist(mask: torch.Tensor) -> torch.Tensor:
+        return bincount(torch.where(mask, flat, dead), dead + 1)[:dead].reshape(num_c, len_t + 1)
+
+    pos_hist = hist(valid & (target01 == 1))
+    neg_hist = hist(valid & (target01 == 0))
+    pos_tot = pos_hist.sum(-1, keepdim=True)
+    neg_tot = neg_hist.sum(-1, keepdim=True)
+    tp = (pos_tot - pos_hist.cumsum(-1))[:, :len_t]
+    fp = (neg_tot - neg_hist.cumsum(-1))[:, :len_t]
+    return tp.int(), fp.int(), pos_tot[:, 0].int(), neg_tot[:, 0].int()
+
+
+def _library() -> ctypes.CDLL:
+    lib = _native.load("binned_hist")
+    p = ctypes.c_void_p
+    lib.binned_counts_launch.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
+    lib.binned_counts_launch.restype = ctypes.c_int
+    return lib
+
+
+def _check_inputs(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> None:
+    if preds.ndim != 2 or target01.shape != preds.shape or valid.shape != preds.shape or thresholds.ndim != 1:
+        raise ValueError(
+            "binned_counts expects preds, target01 and valid of one (N, C) shape and (T,) thresholds, got"
+            f" {tuple(preds.shape)}, {tuple(target01.shape)}, {tuple(valid.shape)} and {tuple(thresholds.shape)}"
+        )
+    want = ((preds, torch.float32, "preds"), (target01, torch.int32, "target01"), (valid, torch.bool, "valid"),
+            (thresholds, torch.float32, "thresholds"))
+    for tensor, dtype, name in want:
+        if tensor.dtype != dtype:
+            raise TypeError(f"binned_counts expects {name} as {dtype}, got {tensor.dtype}")
+        if tensor.device != preds.device:
+            raise ValueError(f"binned_counts expects every input on {preds.device}, got {name} on {tensor.device}")
+        if not tensor.is_contiguous():
+            raise ValueError(f"binned_counts expects contiguous inputs; {name} is not")
+    if preds.shape[1] < 1 or thresholds.shape[0] < 1:
+        raise ValueError("binned_counts needs at least one class and one threshold")
+    if preds.shape[0] >= 2**31:
+        raise ValueError("binned_counts counts in int32: at most 2^31 - 1 rows per call")
+
+
+def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """``(tp, fp, pos_tot, neg_tot)``: the kernel on a CUDA tensor, the plain version on a CPU tensor.
+
+    ``preds`` (N, C) float32, ``target01`` (N, C) int32, ``valid`` (N, C) bool and
+    ``thresholds`` (T,) float32 ascending, all contiguous on one device.
+    """
+    if preds.device.type == "cpu":
+        return binned_counts_plain(preds, target01, valid, thresholds)
+    if preds.device.type != "cuda":
+        raise ValueError(f"binned_counts runs on CUDA or CPU tensors, got {preds.device}")
+    _check_inputs(preds, target01, valid, thresholds)
+    lib = _library()
+    n, num_c = preds.shape
+    len_t = thresholds.shape[0]
+    with torch.cuda.device(preds.device):
+        hist = torch.zeros((2, num_c, len_t + 1), dtype=torch.int32, device=preds.device)
+        tp = torch.empty((num_c, len_t), dtype=torch.int32, device=preds.device)
+        fp = torch.empty_like(tp)
+        pos_tot = torch.empty((num_c,), dtype=torch.int32, device=preds.device)
+        neg_tot = torch.empty_like(pos_tot)
+        rc = lib.binned_counts_launch(
+            preds.data_ptr(), target01.data_ptr(), valid.data_ptr(), thresholds.data_ptr(), n, num_c, len_t,
+            hist.data_ptr(), tp.data_ptr(), fp.data_ptr(), pos_tot.data_ptr(), neg_tot.data_ptr(),
+            torch.cuda.current_stream(preds.device).cuda_stream,
+        )
+    _native.check(lib, rc, "binned_counts kernel")
+    binned_counts.launches += 1
+    return tp, fp, pos_tot, neg_tot
+
+
+binned_counts.launches = 0

@@ -1,0 +1,121 @@
+"""Numeric helpers (counterpart of ``metrics_tpu/utils/compute.py``)."""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+
+def _as_float_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The float type an operand is divided in: integers widen, never truncate.
+
+    64-bit integers go to float64, narrower integers and bools to float32, and
+    floats keep their type. PyTorch would promote ``int64 / float32`` to
+    float32, which rounds counters above 2^24.
+    """
+    if dtype.is_floating_point:
+        return dtype
+    return torch.float64 if dtype in (torch.int64, torch.uint64) else torch.float32
+
+
+def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
+    """Element-wise division with pinned zero-denominator semantics.
+
+    Same contract as the JAX package (``metrics_tpu/utils/compute.py:70-103``):
+
+    * ``x / 0 -> zero_division`` for every ``x``, including ``0 / 0``;
+    * the masked lane divides by 1, so gradients through it stay finite;
+    * the result type is the promotion of both operands' float types and
+      float32, with integers widened as :func:`_as_float_dtype` says.
+
+    >>> _safe_divide(torch.tensor([1.0, 2.0]), torch.tensor([2.0, 0.0]))
+    tensor([0.5000, 0.0000])
+    """
+    num = torch.as_tensor(num)
+    denom = torch.as_tensor(denom, device=num.device)
+    dtype = torch.promote_types(
+        torch.promote_types(_as_float_dtype(num.dtype), _as_float_dtype(denom.dtype)), torch.float32
+    )
+    num = num.to(dtype)
+    denom = denom.to(dtype)
+    zero_mask = denom == 0
+    safe_denom = torch.where(zero_mask, torch.ones((), dtype=dtype, device=denom.device), denom)
+    return torch.where(
+        zero_mask, torch.tensor(zero_division, dtype=dtype, device=denom.device), num / safe_denom
+    )
+
+
+def _adjust_weights_safe_divide(
+    score: torch.Tensor,
+    average: Optional[str],
+    multilabel: bool,
+    tp: torch.Tensor,
+    fp: torch.Tensor,
+    fn: torch.Tensor,
+    top_k: int = 1,
+) -> torch.Tensor:
+    """Apply micro/macro/weighted averaging to per-class scores."""
+    if average is None or average == "none":
+        return score
+    if average == "weighted":
+        weights = tp + fn
+    else:
+        weights = torch.ones_like(score)
+        if not multilabel:
+            present = ((tp + fp + fn) > 0) if top_k == 1 else ((tp + fn) > 0)
+            weights = weights * present
+    return _safe_divide(weights * score, weights.sum(dim=-1, keepdim=True)).sum(-1)
+
+
+def _searchsorted_right(sorted_arr: torch.Tensor, query: torch.Tensor) -> torch.Tensor:
+    """``jnp.searchsorted(sorted_arr, query, side="right")`` step for step.
+
+    JAX runs a fixed number of bisection levels (``_searchsorted_via_scan``).
+    On an array that is not sorted, which :func:`interp` is given by the macro
+    precision-recall curve, the answer depends on those exact steps, so they
+    are repeated here rather than left to ``torch.searchsorted``.
+    """
+    n = sorted_arr.shape[0]
+    low = torch.zeros(query.shape, dtype=torch.int64, device=query.device)
+    high = torch.full(query.shape, n, dtype=torch.int64, device=query.device)
+    for _ in range(int(math.ceil(math.log2(n + 1)))):
+        mid = (low + high) // 2
+        go_left = query < sorted_arr[mid]
+        low = torch.where(go_left, low, mid)
+        high = torch.where(go_left, mid, high)
+    return high
+
+
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """One-dimensional linear interpolation with ``jnp.interp``'s arithmetic."""
+    dtype = torch.promote_types(torch.promote_types(x.dtype, xp.dtype), torch.float32)
+    x, xp = x.to(dtype), xp.to(dtype)
+    fp = fp.to(torch.promote_types(fp.dtype, torch.float32))
+    i = _searchsorted_right(xp, x).clamp(1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(torch.finfo(dtype).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, fp[i - 1], fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def normalize_logits_if_needed(tensor: torch.Tensor, normalization: str) -> torch.Tensor:
+    """Sigmoid/softmax the input iff its values fall outside [0, 1].
+
+    The test is on the min and max of the whole tensor, kept on the device:
+    ``torch.where`` on a 0-d predicate picks the branch with no host read.
+
+    >>> normalize_logits_if_needed(torch.tensor([0.1, 0.5, 0.9]), "sigmoid")
+    tensor([0.1000, 0.5000, 0.9000])
+    """
+    if normalization not in ("sigmoid", "softmax"):
+        raise ValueError(f"Unknown normalization: {normalization}")
+    out_of_bounds = (tensor.min() < 0) | (tensor.max() > 1)
+    normed = torch.sigmoid(tensor) if normalization == "sigmoid" else torch.softmax(tensor, dim=-1)
+    return torch.where(out_of_bounds, normed, tensor)

@@ -28,6 +28,7 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: acceptance-scale runs excluded from the tier-1 `-m 'not slow'` pass"
     )
+    config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips without one (run with -m cuda on the card)")
 
 
 @pytest.fixture(autouse=True)

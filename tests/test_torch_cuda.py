@@ -1,0 +1,100 @@
+"""The CUDA kernels of the port against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips without a CUDA device. The module
+imports neither JAX nor the JAX package, so it also runs where JAX is not
+installed; on the card run it without the JAX rig's conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import metrics_tpu_torch.classification as tc
+from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np
+from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_plain
+from metrics_tpu_torch.ops.ssim_window import ssim_window, ssim_window_plain
+
+# the shapes of tests/test_binned_hist_kernel.py, a main-path shape, and one too wide for shared memory
+BINNED_SHAPES = [(100, 1, 5), (257, 3, 17), (1000, 4, 100), (50, 2, 129), (8, 1, 1), (1 << 16, 10, 200),
+                 (4096, 300, 200)]
+# each output is a sum of 11 + 11 products of values in [0, 1]; the kernel rounds each step as the
+# plain version does, so the only licence is for a compiler's different reading of that order
+SSIM_ATOL = 1e-6
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; on the card run: python -m pytest --noconftest -m cuda tests/test_torch_cuda.py")
+    return torch.device("cuda")
+
+
+def _binned_args(n, c, t, seed, device):
+    rng = np.random.RandomState(seed)
+    preds = torch.from_numpy(rng.rand(n, c).astype(np.float32))
+    target01 = torch.from_numpy(rng.randint(0, 2, (n, c)).astype(np.int32))
+    valid = torch.from_numpy(rng.rand(n, c) > 0.1)
+    return [x.to(device) for x in (preds, target01, valid, _adjust_threshold_arg(t))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("n", "c", "t"), BINNED_SHAPES)
+def test_binned_kernel_matches_plain(cuda_device, n, c, t):
+    args = _binned_args(n, c, t, 7, cuda_device)
+    before = binned_counts.launches
+    got = binned_counts(*args)
+    torch.cuda.synchronize()
+    assert binned_counts.launches == before + 1
+    for g, w in zip(got, binned_counts_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_binned_kernel_matches_plain_on_edge_values(cuda_device):
+    """Threshold ties, NaN and infinite scores, an all-invalid row and a NaN threshold."""
+    preds = torch.tensor([[0.0], [0.25], [0.5], [0.5], [1.0], [float("nan")], [0.75], [float("inf")], [-float("inf")]])
+    target01 = torch.tensor([[0], [1], [1], [0], [1], [1], [1], [1], [0]], dtype=torch.int32)
+    valid = torch.tensor([[True]] * 6 + [[False]] + [[True]] * 2)
+    thresholds = torch.tensor([0.0, 0.25, 0.5, 0.5, 1.0, float("nan")])
+    args = [x.to(cuda_device) for x in (preds, target01, valid, thresholds)]
+    for g, w in zip(binned_counts(*args), binned_counts_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("shape", "kh", "kw"), [((12, 42, 74), 11, 11), ((6, 20, 40), 11, 5), ((3, 100, 97), 1, 64)])
+def test_ssim_kernel_matches_plain(cuda_device, shape, kh, kw):
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(0)).to(cuda_device)
+    taps_h = np.full(kh, 1.0 / kh, np.float32)
+    taps_w = _gaussian_taps_np(kw, 1.5)
+    got = ssim_window(x, taps_h, taps_w)
+    torch.testing.assert_close(got, ssim_window_plain(x, taps_h, taps_w), rtol=0, atol=SSIM_ATOL)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    args = _binned_args(16, 2, 5, 0, cuda_device)
+    with pytest.raises(TypeError, match="target01"):
+        binned_counts(args[0], args[1].long(), args[2], args[3])
+    with pytest.raises(ValueError, match="taps"):
+        ssim_window(torch.rand(2, 80, 80, device=cuda_device), [0.01] * 65, [1.0])
+
+
+@pytest.mark.cuda
+def test_slice_on_card_goes_through_both_kernels(cuda_device):
+    binned_counts.launches = ssim_window.launches = 0
+    rng = np.random.RandomState(0)
+    prc = tc.BinaryPrecisionRecallCurve(thresholds=50, device=cuda_device)
+    prc.update(torch.from_numpy(rng.rand(1000).astype(np.float32)).to(cuda_device),
+               torch.from_numpy(rng.randint(0, 2, 1000)).to(cuda_device))
+    ssim = StructuralSimilarityIndexMeasure(data_range=1.0, device=cuda_device)
+    ssim.update(torch.rand(2, 3, 32, 32, device=cuda_device), torch.rand(2, 3, 32, 32, device=cuda_device))
+    prc.compute()
+    ssim.compute()
+    assert binned_counts.launches == 1 and ssim_window.launches == 1
