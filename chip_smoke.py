@@ -8,15 +8,22 @@ Run from the repository root, with no arguments:
 Phases, in order; any failure exits non-zero and no phase is skipped:
 
 1. print the card's name and power limit (``nvidia-smi``); no CUDA device -> exit 1;
-2. build the kernel libraries from ``metrics_tpu_torch/csrc`` (one ``nvcc`` per source, in parallel);
+2. build the kernel libraries from ``metrics_tpu_torch/csrc`` (one ``nvcc`` per
+   source, in parallel) and print what ``ptxas`` reports for each kernel
+   (registers, spills, shared memory);
 3. hold each kernel against its plain PyTorch version on the card: the binned
-   counts integer-equal, the SSIM window within ``SSIM_RTOL``/``SSIM_ATOL``;
+   counts in both input modes ((N, C) targets and mask; (N,) labels)
+   integer-equal, the SSIM window within ``SSIM_RTOL``/``SSIM_ATOL``;
 4. the main path through the public classes on ``device="cuda"``, each result
-   checked against the same inputs run through the port on the CPU, with every
-   kernel's launch count set to 0 before and read after;
+   checked against the same inputs run through the port on the CPU; every
+   kernel's launch count is set to 0 just before each metric's run and read
+   just after, so the run shows which kernel each metric went through (the
+   multiclass curve through the labels mode);
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes, beside the least time the card
-   could take (``bound_ms``);
+   could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
+   this repository) the older kernels are timed in turns with these, old, new,
+   new, old, each old run in a process of its own started in ``DIR``;
 6. print the kernels' JSON line and, last, the device JSON line.
 
 Inputs come from ``numpy.random.default_rng(seed)``.
@@ -27,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -50,32 +58,6 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def _flush_buffer() -> torch.Tensor:
-    return torch.empty(64 << 20, dtype=torch.float32, device="cuda")  # 256 MB, five times the L2
-
-
-def time_ms(fn, reps: int = 20, flush: torch.Tensor = None) -> float:
-    """Mean device time of ``fn`` with a cold L2, from CUDA events around each call.
-
-    A sleep kernel first holds the stream while the host queues every call, so
-    the host's launch overhead never opens a gap between the events.
-    """
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    if hasattr(torch.cuda, "_sleep"):
-        torch.cuda._sleep(50_000_000)
-    for start, end in events:
-        if flush is not None:
-            flush.zero_()
-        start.record()
-        fn()
-        end.record()
-    torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in events) / reps
-
-
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -88,7 +70,12 @@ def nvidia_smi() -> str:
 def check_kernels(rng: np.random.Generator) -> dict:
     from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
     from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np
-    from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_plain
+    from metrics_tpu_torch.ops.binned_hist import (
+        binned_counts,
+        binned_counts_labels,
+        binned_counts_labels_plain,
+        binned_counts_plain,
+    )
     from metrics_tpu_torch.ops.ssim_window import ssim_window, ssim_window_plain
 
     def binned_args(n, c, t):
@@ -99,6 +86,21 @@ def check_kernels(rng: np.random.Generator) -> dict:
             _adjust_threshold_arg(t, torch.device("cuda")),
         ]
 
+    def labels_args(n, c, t):
+        preds = rng.random((n, c), dtype=np.float32)
+        preds[rng.random((n, c)) < 0.01] = np.nan
+        labels = rng.integers(-1, c + 1, n, dtype=np.int32)  # -1 ignored, c out of range: a negative of every class
+        return [torch.from_numpy(preds).cuda(), torch.from_numpy(labels).cuda(),
+                _adjust_threshold_arg(t, torch.device("cuda"))]
+
+    def compare(name, got, want, shape):
+        err = 0
+        for g, w in zip(got, want):
+            err = max(err, int((g.long() - w.long()).abs().max()))
+            if not torch.equal(g, w):
+                fail(f"{name} differs from its plain version at shape {shape}")
+        return err
+
     nan, inf = float("nan"), float("inf")
     edge = [
         torch.tensor([[0.0], [0.25], [0.5], [0.5], [1.0], [nan], [0.75], [inf], [-inf]]).cuda(),
@@ -106,22 +108,27 @@ def check_kernels(rng: np.random.Generator) -> dict:
         torch.tensor([[True]] * 6 + [[False]] + [[True]] * 2).cuda(),
         torch.tensor([0.0, 0.25, 0.5, 0.5, 1.0, nan]).cuda(),
     ]
-    # the shapes of tests/test_binned_hist_kernel.py, the edge cases, one too wide for shared memory, full size
-    cases = [binned_args(*s) for s in [(100, 1, 5), (257, 3, 17), (1000, 4, 100), (50, 2, 129), (8, 1, 1),
-                                       (4096, 300, 200), (BIN_N, 1, PRC_THRESHOLDS), (MC_N, 10, PRC_THRESHOLDS)]]
+    # the shapes of tests/test_binned_hist_kernel.py, the edge cases, one whose classes are tiled over
+    # blocks (too wide for one block's shared memory), both full sizes
+    shapes = [(100, 1, 5), (257, 3, 17), (1000, 4, 100), (50, 2, 129), (8, 1, 1), (4096, 300, 200),
+              (BIN_N, 1, PRC_THRESHOLDS), (MC_N, 10, PRC_THRESHOLDS)]
     binned_err = 0
-    for args in cases + [edge]:
-        got = binned_counts(*args)
-        for g, w in zip(got, binned_counts_plain(*args)):
-            binned_err = max(binned_err, int((g.long() - w.long()).abs().max()))
-            if not torch.equal(g, w):
-                fail(f"binned_counts differs from its plain version at shape {tuple(args[0].shape)}")
+    for args in [binned_args(*sh) for sh in shapes] + [edge]:
+        binned_err = max(binned_err, compare("binned_counts", binned_counts(*args), binned_counts_plain(*args),
+                                             tuple(args[0].shape)))
+    labels_err = 0
+    for sh in [sh for sh in shapes if sh[1] > 1]:
+        args = labels_args(*sh)
+        labels_err = max(labels_err, compare("binned_counts_labels", binned_counts_labels(*args),
+                                             binned_counts_labels_plain(*args), sh))
     torch.cuda.synchronize()
-    log(f"binned_counts: integer-equal to the plain version on {len(cases) + 1} cases")
+    log(f"binned_counts: integer-equal to the plain version on {len(shapes) + 1} cases; labels mode on"
+        f" {len([sh for sh in shapes if sh[1] > 1])}")
 
     taps = _gaussian_taps_np(11, 1.5)
     ssim_err = 0.0
     for shape, kh, kw in [((12, 42, 74), taps, taps), ((6, 20, 40), taps, _gaussian_taps_np(5, 0.8)),
+                          ((5, 150, 203), taps, taps), ((70_000, 18, 18), taps, taps),
                           ((5 * SSIM_SHAPE[0] * SSIM_SHAPE[1], SSIM_SHAPE[2] + 10, SSIM_SHAPE[3] + 10), taps, taps)]:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
         got, want = ssim_window(x, kh, kw), ssim_window_plain(x, kh, kw)
@@ -130,7 +137,7 @@ def check_kernels(rng: np.random.Generator) -> dict:
         ssim_err = max(ssim_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
     log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}); max |err| {ssim_err}")
-    return {"binned_counts": float(binned_err), "ssim_window": ssim_err}
+    return {"binned_counts": float(binned_err), "binned_counts_labels": float(labels_err), "ssim_window": ssim_err}
 
 
 # ----------------------------------------------------------------------------- phase 4
@@ -141,7 +148,8 @@ def _same_counts(name, port, ref):
             fail(f"{name}: state {key} on the card differs from the CPU run")
 
 
-def main_path(seed: int) -> dict:
+def main_path(seed: int, wrappers: dict) -> dict:
+    """Each metric's run, with every wrapper's launch count set to 0 just before it and read just after."""
     from metrics_tpu_torch.classification import (
         BinaryPrecisionRecallCurve,
         MulticlassAccuracy,
@@ -155,6 +163,8 @@ def main_path(seed: int) -> dict:
     def run(name, make, batches):
         gpu, cpu = make("cuda"), make("cpu")
         update_ms = []
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
         for a, b in batches():
             a_gpu, b_gpu = a.cuda(), b.cuda()
             torch.cuda.synchronize()
@@ -165,9 +175,10 @@ def main_path(seed: int) -> dict:
             cpu.update(a, b)
         got, want = gpu.compute(), cpu.compute()
         torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
         # the first update also pays one-time costs (e.g. the first use of an operator), so it is kept apart
         out[name] = {"updates": gpu.update_count, "first_update_ms": update_ms[0],
-                     "later_update_ms_median": float(np.median(update_ms[1:]))}
+                     "later_update_ms_median": float(np.median(update_ms[1:])), "launches": launches}
         return gpu, cpu, got, want
 
     def acc_batches():
@@ -219,69 +230,106 @@ def main_path(seed: int) -> dict:
 
 
 # ----------------------------------------------------------------------------- phase 5
-def measure(rng: np.random.Generator) -> dict:
+def measure(rng: np.random.Generator, plain: bool = True) -> dict:
+    """Kernel, plain and library times at the main path's shapes; ``plain=False`` times the kernels only."""
     import torch.nn.functional as F
 
     from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
     from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np
-    from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_plain
+    from metrics_tpu_torch.ops.binned_hist import (
+        binned_counts,
+        binned_counts_labels,
+        binned_counts_labels_plain,
+        binned_counts_plain,
+    )
+    from metrics_tpu_torch.ops.profile import flush_buffer, time_ms
     from metrics_tpu_torch.ops.ssim_window import ssim_window, ssim_window_plain
 
-    flush = _flush_buffer()
+    def bound(moved, ops):
+        return {"bound_ms": 1000 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
+                "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"}
+
+    flush = flush_buffer()
     res = {}
+    t = PRC_THRESHOLDS
+    thresholds = _adjust_threshold_arg(t, torch.device("cuda"))
     for label, n, c in [("binary", BIN_N, 1), ("multiclass", MC_N, 10)]:
-        t = PRC_THRESHOLDS
         args = [
             torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
             torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).cuda(),
             torch.ones((n, c), dtype=torch.bool, device="cuda"),
-            _adjust_threshold_arg(t, torch.device("cuda")),
+            thresholds,
         ]
         moved = n * c * (4 + 4 + 1) + 4 * t + 4 * (2 * c * t + 2 * c)
         ops = n * c * math.ceil(math.log2(t + 1))
         res[f"binned_counts[{label}]"] = {
             "shape": [n, c, t],
             "ms": time_ms(lambda: binned_counts(*args), flush=flush),
-            "plain_ms": time_ms(lambda: binned_counts_plain(*args), reps=5, flush=flush),
-            "bound_ms": 1000 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
-            "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
+            "plain_ms": time_ms(lambda: binned_counts_plain(*args), reps=5, flush=flush) if plain else None,
+            **bound(moved, ops),
             "library_ms": None,
         }
+    n, c = MC_N, 10
+    largs = [torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, c, n, dtype=np.int32)).cuda(), thresholds]
+    moved = n * c * 4 + n * 4 + 4 * t + 4 * (2 * c * t + 2 * c)
+    res["binned_counts_labels[multiclass]"] = {
+        "shape": [n, c, t],
+        "ms": time_ms(lambda: binned_counts_labels(*largs), flush=flush),
+        "plain_ms": time_ms(lambda: binned_counts_labels_plain(*largs), reps=5, flush=flush) if plain else None,
+        **bound(moved, n * c * math.ceil(math.log2(t + 1))),
+        "library_ms": None,
+    }
 
     b, ch, h, w = SSIM_SHAPE
     k = _gaussian_taps_np(11, 1.5)
     planes = 5 * b * ch
     x = torch.from_numpy(rng.random((planes, h + 10, w + 10), dtype=np.float32)).cuda()
-    weight = torch.from_numpy(np.outer(k, k).astype(np.float32)).reshape(1, 1, 11, 11).cuda()
-    x4 = x.unsqueeze(1)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    lib_err = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k)).abs().max())
     moved = 4 * planes * ((h + 10) * (w + 10) + h * w)
     ops = 2 * planes * (11 * h * (w + 10) + 11 * h * w)
-    res["ssim_window"] = {
-        "shape": [planes, h + 10, w + 10, 11, 11],
-        "ms": time_ms(lambda: ssim_window(x, k, k), flush=flush),
-        "plain_ms": time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush),
-        "bound_ms": 1000 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
-        "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations",
-        "library_ms": time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush),
-        "library_max_abs_err_vs_plain": lib_err,
-    }
+    row = {"shape": [planes, h + 10, w + 10, 11, 11], "ms": time_ms(lambda: ssim_window(x, k, k), flush=flush),
+           "plain_ms": None, **bound(moved, ops), "library_ms": None}
+    if plain:
+        weight = torch.from_numpy(np.outer(k, k).astype(np.float32)).reshape(1, 1, 11, 11).cuda()
+        x4 = x.unsqueeze(1)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush)
+        row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
+        row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
+                                                    .abs().max())
+    res["ssim_window"] = row
     return res
+
+
+def measure_baseline(directory: str, seed: int) -> dict:
+    """The older tree's own ``measure`` (its kernels only), in a process started in ``directory``."""
+    code = ("import json, sys, numpy as np, chip_smoke; from metrics_tpu_torch.ops import _native; _native.build();"
+            f" res = chip_smoke.measure(np.random.default_rng({seed}));"
+            " print('BASELINE ' + json.dumps({k: v['ms'] for k, v in res.items()}))")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=directory, capture_output=True, text=True, timeout=600,
+                          env=env)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("BASELINE ")]
+    if proc.returncode != 0 or not lines:
+        fail(f"baseline measurement in {directory} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1][len("BASELINE "):])
 
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    seed = parser.parse_args().seed
+    parser.add_argument("--baseline", default=None,
+                        help="an unpacked older tree of this repository whose kernels are timed in turns with these")
+    opts = parser.parse_args()
+    seed = opts.seed
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available; this script measures the port on an NVIDIA GPU",
               file=sys.stderr)
         return 1
     from metrics_tpu_torch.ops import _native
-    from metrics_tpu_torch.ops.binned_hist import binned_counts
+    from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
     from metrics_tpu_torch.ops.ssim_window import ssim_window
 
     smi = nvidia_smi()
@@ -290,36 +338,61 @@ def main() -> int:
     log(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    _native.build()
+    _native.build(ptxas_verbose=True)
     build_s = time.perf_counter() - t0
     log(f"built {len(_native.KERNEL_SOURCES)} kernel libraries in {build_s:.1f} s")
+    for name, text in _native.build_logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"ptxas[{name}]: {line.strip()}")
 
     rng = np.random.default_rng(seed)
     errs = check_kernels(rng)
 
-    binned_counts.launches = ssim_window.launches = 0
+    wrappers = {"binned_counts": binned_counts, "binned_counts_labels": binned_counts_labels,
+                "ssim_window": ssim_window}
     t0 = time.perf_counter()
-    path = main_path(seed)
-    launches = {"binned_counts": binned_counts.launches, "ssim_window": ssim_window.launches}
+    path = main_path(seed, wrappers)
     log(f"main path in {time.perf_counter() - t0:.1f} s: {json.dumps(path)}")
+    expect = {"BinaryPrecisionRecallCurve": {"binned_counts": PRC_STEPS},
+              "MulticlassPrecisionRecallCurve": {"binned_counts_labels": PRC_STEPS},
+              "StructuralSimilarityIndexMeasure": {"ssim_window": SSIM_STEPS}}
+    for metric, want in expect.items():
+        got = {k: v for k, v in path[metric]["launches"].items() if v}
+        if got != want:
+            fail(f"{metric} launched {got}, expected {want}")
+    launches = {name: sum(run["launches"][name] for run in path.values()) for name in wrappers}
     log(f"kernel launches on the main path: {launches}")
     for name, count in launches.items():
         if count < 1:
             fail(f"the main path never launched {name}")
 
+    old = []
+    if opts.baseline:
+        old.append(measure_baseline(opts.baseline, seed))
     timing = measure(rng)
+    if opts.baseline:
+        again = measure(rng, plain=False)
+        old.append(measure_baseline(opts.baseline, seed))
+        for key, row in timing.items():
+            row["ms_runs"] = [row["ms"], again[key]["ms"]]
+            row["baseline_ms_runs"] = [run[key] for run in old if key in run]
     for name, row in timing.items():
         log(f"{name}: {json.dumps(row)}")
 
-    sources = {"binned_counts": ("metrics_tpu_torch/csrc/binned_hist.cu", "metrics_tpu/ops/binned_hist.py:151",
-                                 "binned_counts[binary]"),
-               "ssim_window": ("metrics_tpu_torch/csrc/ssim_window.cu", "metrics_tpu/ops/ssim_window.py:60",
-                               "ssim_window")}
+    sources = {"binned_counts[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                         "metrics_tpu/ops/binned_hist.py:151"),
+               "binned_counts[multiclass]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                             "metrics_tpu/ops/binned_hist.py:151"),
+               "binned_counts_labels[multiclass]": ("binned_counts_labels", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                                    "metrics_tpu/ops/binned_hist.py:151"),
+               "ssim_window": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
+                               "metrics_tpu/ops/ssim_window.py:60")}
     kernels = []
-    for name, (source, replaces, key) in sources.items():
+    for key, (name, source, replaces) in sources.items():
         row = timing[key]
         kernels.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+            "name": key, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
             "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

@@ -19,7 +19,7 @@ class BinaryAccuracy(BinaryStatScores):
     >>> metric = BinaryAccuracy(device="cpu")
     >>> metric.update(torch.tensor([0, 0, 1, 1, 0, 1]), torch.tensor([0, 1, 0, 1, 0, 1]))
     >>> metric.compute()
-    tensor(0.6667, dtype=torch.float64)
+    tensor(0.6667)
     """
 
     is_differentiable = False
@@ -38,7 +38,7 @@ class MulticlassAccuracy(MulticlassStatScores):
     >>> metric = MulticlassAccuracy(num_classes=3, device="cpu")
     >>> metric.update(torch.tensor([2, 1, 0, 1]), torch.tensor([2, 1, 0, 0]))
     >>> metric.compute()
-    tensor(0.8333, dtype=torch.float64)
+    tensor(0.8333)
     """
 
     is_differentiable = False
@@ -74,7 +74,7 @@ class Accuracy(_ClassificationTaskWrapper):
     >>> accuracy = Accuracy(task="multiclass", num_classes=3, device="cpu")
     >>> accuracy.update(torch.tensor([2, 1, 0, 1]), torch.tensor([2, 1, 0, 0]))
     >>> accuracy.compute()
-    tensor(0.7500, dtype=torch.float64)
+    tensor(0.7500)
     """
 
     def __new__(  # type: ignore[misc]

@@ -63,7 +63,7 @@ class BinaryPrecisionRecallCurve(_CurveStates):
     >>> metric.update(torch.tensor([0.0, 0.5, 0.7, 0.8]), torch.tensor([0, 1, 1, 0]))
     >>> precision, recall, thresholds = metric.compute()
     >>> recall
-    tensor([1., 1., 1., 0., 0., 0.], dtype=torch.float64)
+    tensor([1., 1., 1., 0., 0., 0.])
     """
 
     is_differentiable = False

@@ -37,7 +37,7 @@ def binary_accuracy(
     """Accuracy for binary tasks.
 
     >>> binary_accuracy(torch.tensor([0, 0, 1, 1, 0, 1]), torch.tensor([0, 1, 0, 1, 0, 1]))
-    tensor(0.6667, dtype=torch.float64)
+    tensor(0.6667)
     """
     if validate_args:
         _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
@@ -60,7 +60,7 @@ def multiclass_accuracy(
     """Accuracy for multiclass tasks.
 
     >>> multiclass_accuracy(torch.tensor([2, 1, 0, 1]), torch.tensor([2, 1, 0, 0]), num_classes=3)
-    tensor(0.8333, dtype=torch.float64)
+    tensor(0.8333)
     """
     if validate_args:
         _multiclass_stat_scores_arg_validation(num_classes, top_k, average, multidim_average, ignore_index)

@@ -4,8 +4,8 @@ Counterpart of ``metrics_tpu/functional/classification/precision_recall_curve.py
 
 * Binned path (``thresholds`` an int, list or tensor): one update adds a
   (T, ..., 2, 2) confusion tensor built by the binned-counts kernel
-  (:func:`metrics_tpu_torch.ops.binned_hist.binned_counts`); ignored samples
-  are masked, not dropped.
+  (:func:`metrics_tpu_torch.ops.binned_hist.binned_counts`, and its labels
+  mode for the multiclass curve); ignored samples are masked, not dropped.
 * Exact path (``thresholds=None``): the samples are kept and the curve is
   computed over every distinct score at ``compute()``.
 """
@@ -17,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from metrics_tpu_torch.ops.binned_hist import binned_counts
+from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
 from metrics_tpu_torch.utils.checks import _check_same_shape, _unique_values
 from metrics_tpu_torch.utils.compute import _safe_divide, interp, normalize_logits_if_needed
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -57,25 +57,28 @@ def _binary_clf_curve(
     return fps, tps, preds[threshold_idxs]
 
 
-def _linspace_thresholds(num: int) -> np.ndarray:
-    """The float32 values of ``jnp.linspace(0, 1, num)``, bit for bit.
+def _linspace_thresholds(num: int, dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """The values of ``jnp.linspace(0, 1, num)`` in ``dtype``, bit for bit.
 
     XLA turns the division in ``jnp.linspace`` into a product with the
     reciprocal, ``i * fl(1 / (num - 1))``, and the last value is exactly 1.
     ``torch.linspace`` computes another way and differs at some ``num`` (at 100,
     200 and 1000, for instance), which moves a score that lands on a threshold
     into another bin. Computed on the host, so every device gets the same bits.
+    The JAX package builds the grid in its default float type (float32, or
+    float64 under x64); the port's counterpart is ``torch.get_default_dtype()``.
     """
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     if num == 1:
-        return np.zeros(1, np.float32)
-    step = np.float32(1) / np.float32(num - 1)
-    return np.append(np.arange(num - 1, dtype=np.float32) * step, np.float32(1))
+        return np.zeros(1, np_dtype)
+    step = np_dtype(1) / np_dtype(num - 1)
+    return np.append(np.arange(num - 1, dtype=np_dtype) * step, np_dtype(1))
 
 
 def _adjust_threshold_arg(thresholds: Thresholds = None, device: Optional[torch.device] = None) -> Optional[Tensor]:
-    """Thresholds argument to a float32 tensor on ``device``."""
+    """Thresholds argument to a tensor on ``device``: an int grid in the default float type, a list in float32."""
     if isinstance(thresholds, int):
-        return torch.from_numpy(_linspace_thresholds(thresholds)).to(device)
+        return torch.from_numpy(_linspace_thresholds(thresholds, torch.get_default_dtype())).to(device)
     if isinstance(thresholds, list):
         return torch.tensor(thresholds, dtype=torch.float32, device=device)
     if isinstance(thresholds, Tensor):
@@ -152,6 +155,17 @@ def _binary_precision_recall_curve_format(
     return preds, target, _adjust_threshold_arg(thresholds, preds.device)
 
 
+def _confusion_from_counts(counts, order: Tensor) -> Tensor:
+    """``(tp, fp, pos_tot, neg_tot)`` over sorted thresholds to the (T, C, 2, 2) confusion tensor, rows in
+    the caller's threshold order."""
+    tp, fp, pos_tot, neg_tot = counts
+    fn = pos_tot[:, None] - tp
+    tn = neg_tot[:, None] - fp
+    # (C, T, 2, 2) in [y, p >= t] layout, then (T, C, 2, 2) with rows in the caller's order
+    bins = torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)
+    return bins.transpose(0, 1)[torch.argsort(order)]
+
+
 def _binned_confusion_tensor(preds: Tensor, target01: Tensor, valid: Tensor, thresholds: Tensor) -> Tensor:
     """(N, C) scores to the (T, C, 2, 2) multi-threshold confusion tensor, int32.
 
@@ -160,17 +174,23 @@ def _binned_confusion_tensor(preds: Tensor, target01: Tensor, valid: Tensor, thr
     thresholds keep their places).
     """
     order = torch.argsort(thresholds, stable=True)
-    tp, fp, pos_tot, neg_tot = binned_counts(
+    counts = binned_counts(
         preds.float().contiguous(),
         target01.int().contiguous(),
         valid.bool().contiguous(),
         thresholds[order].float().contiguous(),
     )
-    fn = pos_tot[:, None] - tp
-    tn = neg_tot[:, None] - fp
-    # (C, T, 2, 2) in [y, p >= t] layout, then (T, C, 2, 2) with rows in the caller's order
-    bins = torch.stack([torch.stack([tn, fp], -1), torch.stack([fn, tp], -1)], -2)
-    return bins.transpose(0, 1)[torch.argsort(order)]
+    return _confusion_from_counts(counts, order)
+
+
+def _binned_confusion_tensor_labels(preds: Tensor, labels: Tensor, thresholds: Tensor) -> Tensor:
+    """:func:`_binned_confusion_tensor` of the one-vs-rest targets ``labels == c`` and the mask
+    ``labels >= 0``, through the kernel's labels mode: no (N, C) one-hot is built."""
+    order = torch.argsort(thresholds, stable=True)
+    counts = binned_counts_labels(
+        preds.float().contiguous(), labels.int().contiguous(), thresholds[order].float().contiguous()
+    )
+    return _confusion_from_counts(counts, order)
 
 
 def _binary_precision_recall_curve_update(
@@ -318,9 +338,7 @@ def _multiclass_precision_recall_curve_update(
         return preds, target
     if average == "micro":
         return _binary_precision_recall_curve_update(preds, target, thresholds)
-    valid = (target >= 0)[:, None].expand(preds.shape)
-    target_oh = target[:, None] == torch.arange(num_classes, device=target.device)
-    return _binned_confusion_tensor(preds, target_oh, valid, thresholds)
+    return _binned_confusion_tensor_labels(preds, target, thresholds)
 
 
 def _multiclass_precision_recall_curve_compute(

@@ -29,6 +29,7 @@ KERNEL_SOURCES = ("binned_hist", "ssim_window")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+build_logs: Dict[str, str] = {}  # the compiler's output of each library built by this process
 
 
 def _nvcc() -> str:
@@ -50,9 +51,11 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
+def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) -> Dict[str, Path]:
     """Compile every named kernel library that is not built yet, one ``nvcc`` each, in parallel.
 
+    With ``ptxas_verbose`` the compiler also reports each kernel's registers,
+    spills and shared memory (``-Xptxas -v``), kept in :data:`build_logs`.
     Raises ``RuntimeError`` with the compiler's output if any build fails.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -65,12 +68,14 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> Dict[str, Path]:
         # write to a private name and rename: a concurrent build never sees half a file
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if ptxas_verbose else ()), "-I", str(CSRC), "-o", tmp,
+               str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, path, tmp, proc))
     failures = []
     for name, path, tmp, proc in running:
         out, _ = proc.communicate()
+        build_logs[name] = out
         if proc.returncode == 0:
             os.replace(tmp, path)
         else:

@@ -6,9 +6,13 @@ and returns ``(tp, fp, pos_tot, neg_tot)`` as int32: ``tp[c, t]`` counts valid
 positives of class ``c`` whose score is ``>= thresholds[t]``, ``fp`` the same
 over negatives (target 0), and the totals count each class's valid positives
 and negatives. A NaN score meets no threshold; so does a NaN threshold.
+:func:`binned_counts_labels` is the same kernel's labels mode: (N,) int32
+labels stand for the targets ``label == c`` and the mask ``label >= 0``.
 
-On a CUDA tensor it launches the kernel of ``csrc/binned_hist.cu``; on a CPU
-tensor it runs :func:`binned_counts_plain`, which is also the kernel's oracle.
+On a CUDA tensor each launches the kernel of ``csrc/binned_hist.cu``; on a CPU
+tensor it runs its plain version, which is also the kernel's oracle: the
+labels mode's plain version builds the one-hot and calls
+:func:`binned_counts_plain`, so both modes share one oracle.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 from metrics_tpu_torch.ops import _native
 from metrics_tpu_torch.utils.data import bincount
 
-__all__ = ["binned_counts", "binned_counts_plain"]
+__all__ = ["binned_counts", "binned_counts_labels", "binned_counts_labels_plain", "binned_counts_plain"]
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -59,33 +63,67 @@ def binned_counts_plain(
     return tp.int(), fp.int(), pos_tot[:, 0].int(), neg_tot[:, 0].int()
 
 
+def binned_counts_labels_plain(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """The labels mode's plain version: the one-hot and the mask, then :func:`binned_counts_plain`.
+
+    ``target01 = (label == c)`` and ``valid = (label >= 0)``, so a label ``>= C``
+    counts as a negative of every class, as its one-hot row does.
+    """
+    num_c = preds.shape[1]
+    target01 = (labels[:, None] == torch.arange(num_c, device=labels.device)).int()
+    valid = (labels >= 0)[:, None].expand(preds.shape)
+    return binned_counts_plain(preds, target01, valid, thresholds)
+
+
 def _library() -> ctypes.CDLL:
     lib = _native.load("binned_hist")
     p = ctypes.c_void_p
-    lib.binned_counts_launch.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, p, p, p, p, p, p]
-    lib.binned_counts_launch.restype = ctypes.c_int
+    ll = ctypes.c_longlong
+    i = ctypes.c_int
+    lib.binned_counts_workspace.argtypes = [ll, i, i]
+    lib.binned_counts_workspace.restype = ll
+    lib.binned_counts_launch.argtypes = [p, p, p, p, ll, i, i, i, p, ll, p, p, p, p, p]
+    lib.binned_counts_launch.restype = i
     return lib
 
 
-def _check_inputs(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> None:
-    if preds.ndim != 2 or target01.shape != preds.shape or valid.shape != preds.shape or thresholds.ndim != 1:
-        raise ValueError(
-            "binned_counts expects preds, target01 and valid of one (N, C) shape and (T,) thresholds, got"
-            f" {tuple(preds.shape)}, {tuple(target01.shape)}, {tuple(valid.shape)} and {tuple(thresholds.shape)}"
-        )
-    want = ((preds, torch.float32, "preds"), (target01, torch.int32, "target01"), (valid, torch.bool, "valid"),
-            (thresholds, torch.float32, "thresholds"))
-    for tensor, dtype, name in want:
+def _check(tensors, preds: torch.Tensor, thresholds: torch.Tensor, what: str) -> None:
+    for tensor, dtype, name in tensors:
         if tensor.dtype != dtype:
-            raise TypeError(f"binned_counts expects {name} as {dtype}, got {tensor.dtype}")
+            raise TypeError(f"{what} expects {name} as {dtype}, got {tensor.dtype}")
         if tensor.device != preds.device:
-            raise ValueError(f"binned_counts expects every input on {preds.device}, got {name} on {tensor.device}")
+            raise ValueError(f"{what} expects every input on {preds.device}, got {name} on {tensor.device}")
         if not tensor.is_contiguous():
-            raise ValueError(f"binned_counts expects contiguous inputs; {name} is not")
+            raise ValueError(f"{what} expects contiguous inputs; {name} is not")
     if preds.shape[1] < 1 or thresholds.shape[0] < 1:
-        raise ValueError("binned_counts needs at least one class and one threshold")
+        raise ValueError(f"{what} needs at least one class and one threshold")
     if preds.shape[0] >= 2**31:
-        raise ValueError("binned_counts counts in int32: at most 2^31 - 1 rows per call")
+        raise ValueError(f"{what} counts in int32: at most 2^31 - 1 rows per call")
+
+
+def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.Tensor, labels: bool,
+            what: str) -> Counts:
+    """One kernel launch (after a memset of the tickets); outputs and workspace from ``torch.empty``."""
+    lib = _library()
+    n, num_c = preds.shape
+    len_t = thresholds.shape[0]
+    device = preds.device
+    with torch.cuda.device(device):
+        ws_ints = lib.binned_counts_workspace(n, num_c, len_t)
+        if ws_ints < 0:
+            _native.check(lib, int(-ws_ints), f"{what} plan")
+        workspace = torch.empty((ws_ints,), dtype=torch.int32, device=device)
+        tp = torch.empty((num_c, len_t), dtype=torch.int32, device=device)
+        fp = torch.empty_like(tp)
+        pos_tot = torch.empty((num_c,), dtype=torch.int32, device=device)
+        neg_tot = torch.empty_like(pos_tot)
+        rc = lib.binned_counts_launch(
+            preds.data_ptr(), target.data_ptr(), None if valid is None else valid.data_ptr(), thresholds.data_ptr(),
+            n, num_c, len_t, int(labels), workspace.data_ptr(), ws_ints, tp.data_ptr(), fp.data_ptr(),
+            pos_tot.data_ptr(), neg_tot.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    _native.check(lib, rc, f"{what} kernel")
+    return tp, fp, pos_tot, neg_tot
 
 
 def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> Counts:
@@ -98,24 +136,42 @@ def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tens
         return binned_counts_plain(preds, target01, valid, thresholds)
     if preds.device.type != "cuda":
         raise ValueError(f"binned_counts runs on CUDA or CPU tensors, got {preds.device}")
-    _check_inputs(preds, target01, valid, thresholds)
-    lib = _library()
-    n, num_c = preds.shape
-    len_t = thresholds.shape[0]
-    with torch.cuda.device(preds.device):
-        hist = torch.zeros((2, num_c, len_t + 1), dtype=torch.int32, device=preds.device)
-        tp = torch.empty((num_c, len_t), dtype=torch.int32, device=preds.device)
-        fp = torch.empty_like(tp)
-        pos_tot = torch.empty((num_c,), dtype=torch.int32, device=preds.device)
-        neg_tot = torch.empty_like(pos_tot)
-        rc = lib.binned_counts_launch(
-            preds.data_ptr(), target01.data_ptr(), valid.data_ptr(), thresholds.data_ptr(), n, num_c, len_t,
-            hist.data_ptr(), tp.data_ptr(), fp.data_ptr(), pos_tot.data_ptr(), neg_tot.data_ptr(),
-            torch.cuda.current_stream(preds.device).cuda_stream,
+    if preds.ndim != 2 or target01.shape != preds.shape or valid.shape != preds.shape or thresholds.ndim != 1:
+        raise ValueError(
+            "binned_counts expects preds, target01 and valid of one (N, C) shape and (T,) thresholds, got"
+            f" {tuple(preds.shape)}, {tuple(target01.shape)}, {tuple(valid.shape)} and {tuple(thresholds.shape)}"
         )
-    _native.check(lib, rc, "binned_counts kernel")
+    _check(((preds, torch.float32, "preds"), (target01, torch.int32, "target01"), (valid, torch.bool, "valid"),
+            (thresholds, torch.float32, "thresholds")), preds, thresholds, "binned_counts")
+    out = _launch(preds, target01, valid, thresholds, False, "binned_counts")
     binned_counts.launches += 1
-    return tp, fp, pos_tot, neg_tot
+    return out
 
 
 binned_counts.launches = 0
+
+
+def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """The labels mode: :func:`binned_counts` of ``(label == c)`` targets and ``(label >= 0)`` validity.
+
+    ``preds`` (N, C) float32, ``labels`` (N,) int32 and ``thresholds`` (T,)
+    float32 ascending, all contiguous on one device. The kernel reads the labels
+    in place of an (N, C) one-hot and mask; the counts are the same.
+    """
+    if preds.device.type == "cpu":
+        return binned_counts_labels_plain(preds, labels, thresholds)
+    if preds.device.type != "cuda":
+        raise ValueError(f"binned_counts_labels runs on CUDA or CPU tensors, got {preds.device}")
+    if preds.ndim != 2 or labels.shape != preds.shape[:1] or thresholds.ndim != 1:
+        raise ValueError(
+            "binned_counts_labels expects (N, C) preds, (N,) labels and (T,) thresholds, got"
+            f" {tuple(preds.shape)}, {tuple(labels.shape)} and {tuple(thresholds.shape)}"
+        )
+    _check(((preds, torch.float32, "preds"), (labels, torch.int32, "labels"),
+            (thresholds, torch.float32, "thresholds")), preds, thresholds, "binned_counts_labels")
+    out = _launch(preds, labels, None, thresholds, True, "binned_counts_labels")
+    binned_counts_labels.launches += 1
+    return out
+
+
+binned_counts_labels.launches = 0

@@ -3,11 +3,13 @@
 Runs each wrapper at the main path's shapes under ``torch.profiler`` and prints,
 for every CUDA kernel or memset it launched, the mean device time per call. It
 also runs the binned counts on skewed scores (every score inside one threshold
-step), where the shared-memory atomics of a block all hit a few cells.
+step), where the shared-memory atomics of a block all hit a few cells, and the
+binned counts' labels mode at the multiclass curve's shape.
 
     python -m metrics_tpu_torch.ops.profile
 
-Needs a CUDA device.
+Needs a CUDA device. The module also holds the cold-L2 CUDA-event timer that
+``chip_smoke.py`` and :mod:`metrics_tpu_torch.ops.variants` measure with.
 """
 
 from __future__ import annotations
@@ -19,6 +21,33 @@ import numpy as np
 import torch
 
 REPS = 10
+
+
+def flush_buffer() -> torch.Tensor:
+    """256 MB on the card, five times the H100's L2: zeroing it before a timed call leaves the L2 cold."""
+    return torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+
+
+def time_ms(fn, reps: int = 20, flush: torch.Tensor = None) -> float:
+    """Mean device time of ``fn`` with a cold L2 (``flush`` zeroed first), from CUDA events around each call.
+
+    A sleep kernel first holds the stream while the host queues every call, so
+    the host's launch overhead never opens a gap between the events.
+    """
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    if hasattr(torch.cuda, "_sleep"):
+        torch.cuda._sleep(50_000_000)
+    for start, end in events:
+        if flush is not None:
+            flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
 def _profile(fn) -> list:
@@ -44,7 +73,7 @@ def main() -> int:
         return 1
     from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
     from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np
-    from metrics_tpu_torch.ops.binned_hist import binned_counts
+    from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
     from metrics_tpu_torch.ops.ssim_window import ssim_window
 
     rng = np.random.default_rng(0)
@@ -59,6 +88,9 @@ def main() -> int:
         args = [torch.from_numpy(scores).to(cuda), torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).to(cuda),
                 torch.ones((n, c), dtype=torch.bool, device=cuda), thresholds]
         cases[f"binned_counts[{label}]"] = _profile(lambda: binned_counts(*args))
+    preds = torch.from_numpy(rng.random((1 << 20, 10), dtype=np.float32)).to(cuda)
+    labels = torch.from_numpy(rng.integers(0, 10, 1 << 20, dtype=np.int32)).to(cuda)
+    cases["binned_counts_labels[multiclass]"] = _profile(lambda: binned_counts_labels(preds, labels, thresholds))
     taps = _gaussian_taps_np(11, 1.5)
     x = torch.from_numpy(rng.random((300, 266, 266), dtype=np.float32)).to(cuda)
     cases["ssim_window[300x266x266]"] = _profile(lambda: ssim_window(x, taps, taps))

@@ -51,7 +51,7 @@ def _library() -> ctypes.CDLL:
     lib = _native.load("ssim_window")
     p = ctypes.c_void_p
     i = ctypes.c_int
-    lib.ssim_window_launch.argtypes = [p, p, i, i, i, p, i, p, i, p]
+    lib.ssim_window_launch.argtypes = [p, p, ctypes.c_longlong, i, i, p, i, p, i, p]
     lib.ssim_window_launch.restype = ctypes.c_int
     lib.ssim_window_max_taps.restype = ctypes.c_int
     return lib
@@ -70,7 +70,7 @@ def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> to
     kh, kw = [float(v) for v in kh], [float(v) for v in kw]
     if not (1 <= len(kh) <= lib.ssim_window_max_taps() and 1 <= len(kw) <= lib.ssim_window_max_taps()):
         raise ValueError(f"ssim_window takes 1 to {lib.ssim_window_max_taps()} taps per axis, got {len(kh)}, {len(kw)}")
-    if hp < len(kh) or wp < len(kw) or n > 65535:
+    if hp < len(kh) or wp < len(kw):
         raise ValueError(f"ssim_window cannot window planes of shape {tuple(x.shape)} with {len(kh)}x{len(kw)} taps")
     taps_v = (ctypes.c_float * len(kh))(*kh)
     taps_h = (ctypes.c_float * len(kw))(*kw)

@@ -9,18 +9,6 @@ import numpy as np
 import torch
 
 
-def _as_float_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The float type an operand is divided in: integers widen, never truncate.
-
-    64-bit integers go to float64, narrower integers and bools to float32, and
-    floats keep their type. PyTorch would promote ``int64 / float32`` to
-    float32, which rounds counters above 2^24.
-    """
-    if dtype.is_floating_point:
-        return dtype
-    return torch.float64 if dtype in (torch.int64, torch.uint64) else torch.float32
-
-
 def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
     """Element-wise division with pinned zero-denominator semantics.
 
@@ -28,24 +16,37 @@ def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
 
     * ``x / 0 -> zero_division`` for every ``x``, including ``0 / 0``;
     * the masked lane divides by 1, so gradients through it stay finite;
-    * the result type is the promotion of both operands' float types and
-      float32, with integers widened as :func:`_as_float_dtype` says.
+    * the result type is the promotion of float32, the float operands' types
+      and, for each integer or bool operand, ``torch.get_default_dtype()``:
+      float32 for counters unless the user set float64, the counterpart of the
+      JAX package's x32 default and its x64 switch.
+
+    Integer and bool operands are divided in float64, so int64 counters are
+    never rounded before the division; the quotient of two exact integers,
+    rounded once to float32, is the correctly rounded float32 quotient
+    (53 >= 2 * 24 + 2), so below 2^24 it is bit-equal to the JAX package's
+    float32 division.
 
     >>> _safe_divide(torch.tensor([1.0, 2.0]), torch.tensor([2.0, 0.0]))
     tensor([0.5000, 0.0000])
+    >>> _safe_divide(torch.tensor([1, 2]), torch.tensor([3, 0])).dtype
+    torch.float32
     """
     num = torch.as_tensor(num)
     denom = torch.as_tensor(denom, device=num.device)
-    dtype = torch.promote_types(
-        torch.promote_types(_as_float_dtype(num.dtype), _as_float_dtype(denom.dtype)), torch.float32
-    )
-    num = num.to(dtype)
-    denom = denom.to(dtype)
+    out_dtype = torch.float32
+    for operand in (num, denom):
+        kind = operand.dtype if operand.dtype.is_floating_point else torch.get_default_dtype()
+        out_dtype = torch.promote_types(out_dtype, kind)
+    work = out_dtype
+    if not (num.dtype.is_floating_point and denom.dtype.is_floating_point):
+        work = torch.promote_types(out_dtype, torch.float64)
+    num = num.to(work)
+    denom = denom.to(work)
     zero_mask = denom == 0
-    safe_denom = torch.where(zero_mask, torch.ones((), dtype=dtype, device=denom.device), denom)
-    return torch.where(
-        zero_mask, torch.tensor(zero_division, dtype=dtype, device=denom.device), num / safe_denom
-    )
+    safe_denom = torch.where(zero_mask, torch.ones((), dtype=work, device=denom.device), denom)
+    quotient = torch.where(zero_mask, torch.tensor(zero_division, dtype=work, device=denom.device), num / safe_denom)
+    return quotient.to(out_dtype)
 
 
 def _adjust_weights_safe_divide(

@@ -2,11 +2,14 @@
 
 Stat scores and binned confusion counts must be integer-equal (int64 in the
 port, int32 in the JAX package: values, not dtypes, are compared); accuracy and
-curve values must agree within rtol 1e-6.
+curve values must agree within rtol 1e-6, and scores have the JAX package's
+dtypes: float32 under the defaults, float64 with torch's default dtype set to
+float64 and JAX's x64 on.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -295,3 +298,60 @@ def test_curve_argument_validation():
         tf.binary_precision_recall_curve(torch.rand(4), torch.tensor([0, 1, 2, 1]))
     with pytest.raises(NotImplementedError, match="multilabel"):
         tf.precision_recall_curve(torch.rand(4, 2), torch.ones(4, 2, dtype=torch.long), task="multilabel")
+
+
+# ----------------------------------------------------------------------------- score dtypes
+def _dtype_case_inputs(inputs):
+    rng = np.random.RandomState(50)
+    if inputs == "binary":
+        return rng.rand(N).astype(np.float32), rng.randint(0, 2, N)
+    if inputs == "multiclass":
+        return rng.rand(N, C).astype(np.float32), rng.randint(0, C, N)
+    return rng.rand(N, C).astype(np.float32), rng.randint(0, 2, (N, C))
+
+
+def _run_both(port_cls, ref_cls, kwargs, inputs):
+    preds, target = _dtype_case_inputs(inputs)
+    port = port_cls(device="cpu", **kwargs)
+    ref = ref_cls(**kwargs)
+    port.update(_t(preds), _t(target))
+    ref.update(_j(preds), _j(target))
+    got, want = port.compute(), ref.compute()
+    return (list(got), list(want)) if isinstance(got, tuple) else ([got], [want])
+
+
+@pytest.mark.parametrize(
+    ("port_cls", "ref_cls", "kwargs", "inputs"),
+    [
+        (tc.BinaryAccuracy, jc.BinaryAccuracy, {}, "binary"),
+        *[(tc.MulticlassAccuracy, jc.MulticlassAccuracy, {"num_classes": C, "average": a}, "multiclass")
+          for a in ("micro", "macro", "weighted")],
+        *[(tc.MultilabelAccuracy, jc.MultilabelAccuracy, {"num_labels": C, "average": a}, "multilabel")
+          for a in ("micro", "macro", "weighted")],
+        (tc.BinaryPrecisionRecallCurve, jc.BinaryPrecisionRecallCurve, {"thresholds": 20}, "binary"),
+        (tc.MulticlassPrecisionRecallCurve, jc.MulticlassPrecisionRecallCurve, {"num_classes": C, "thresholds": 20},
+         "multiclass"),
+        (tc.MulticlassPrecisionRecallCurve, jc.MulticlassPrecisionRecallCurve,
+         {"num_classes": C, "thresholds": 20, "average": "macro"}, "multiclass"),
+    ],
+    ids=["binary-acc", "multiclass-acc-micro", "multiclass-acc-macro", "multiclass-acc-weighted",
+         "multilabel-acc-micro", "multilabel-acc-macro", "multilabel-acc-weighted", "binary-prc", "multiclass-prc",
+         "multiclass-prc-macro"],
+)
+def test_scores_have_the_reference_dtype(port_cls, ref_cls, kwargs, inputs):
+    """float32 scores under the defaults (the JAX package's x32); float64 with torch's default dtype set to
+    float64, as the JAX package gives under x64."""
+    got, want = _run_both(port_cls, ref_cls, kwargs, inputs)
+    assert [str(g.dtype).replace("torch.", "") for g in got] == [str(w.dtype) for w in want]
+    assert all(g.dtype == torch.float32 for g in got)
+    _assert_same(got, want)
+    previous = torch.get_default_dtype()
+    try:
+        torch.set_default_dtype(torch.float64)
+        with jax.enable_x64(True):
+            got, want = _run_both(port_cls, ref_cls, kwargs, inputs)
+    finally:
+        torch.set_default_dtype(previous)
+    assert [str(g.dtype).replace("torch.", "") for g in got] == [str(w.dtype) for w in want]
+    assert got[0].dtype == torch.float64
+    _assert_same(got, want)

@@ -2,8 +2,9 @@
 state transfer and the device rule.
 
 Inputs come from seeded numpy and go through both packages; counts must agree
-exactly and scores within rtol 1e-6 (the port divides int64 counters in float64,
-the JAX package int32 counters in float32).
+exactly and scores within rtol 1e-6 (the port divides its int64 counters in
+float64 and rounds the quotient once to float32, the JAX package divides int32
+counters in float32; both return float32).
 """
 
 from __future__ import annotations

@@ -25,8 +25,13 @@ from metrics_tpu.ops.binned_hist import binned_counts_pallas
 from metrics_tpu.ops.ssim_window import ssim_window_pallas
 from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure as TSSIM
 from metrics_tpu_torch.interop import load_reference_state
-from metrics_tpu_torch.ops import _native
-from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_plain
+from metrics_tpu_torch.ops import _native, variants
+from metrics_tpu_torch.ops.binned_hist import (
+    binned_counts,
+    binned_counts_labels,
+    binned_counts_labels_plain,
+    binned_counts_plain,
+)
 from metrics_tpu_torch.ops.ssim_window import ssim_window, ssim_window_plain, windowed_sum_nchw
 
 BINNED_SHAPES = [(100, 1, 5), (257, 3, 17), (1000, 4, 100), (50, 2, 129), (8, 1, 1)]
@@ -57,8 +62,8 @@ def _pallas_counts(preds, target01, valid, thresholds):
     return [np.asarray(o) for o in out]
 
 
-def _torch_args(preds, target01, valid, thresholds, device="cpu"):
-    return [torch.from_numpy(np.array(a)).to(device) for a in (preds, target01, valid, thresholds)]
+def _torch_args(*arrays, device="cpu"):
+    return [torch.from_numpy(np.array(a)).to(device) for a in arrays]
 
 
 # ----------------------------------------------------------------------------- B1 plain vs Pallas
@@ -86,6 +91,29 @@ def test_binned_wrapper_runs_plain_version_on_cpu_without_counting():
     assert binned_counts.launches == before
     with pytest.raises(ValueError, match="CUDA or CPU"):
         binned_counts(*[x.to("meta") for x in inputs])
+
+
+@pytest.mark.parametrize(("n", "c", "t"), [(100, 2, 5), (257, 3, 17), (1000, 4, 100), (50, 10, 129)])
+def test_binned_labels_plain_matches_pallas_kernel_on_the_one_hot(n, c, t):
+    """Labels mode: ignored labels (-1), labels >= C (negatives of every class) and NaN scores."""
+    rng = np.random.RandomState(n + c)
+    preds = rng.rand(n, c).astype(np.float32)
+    preds[rng.rand(n, c) < 0.05] = np.nan
+    labels = rng.randint(-1, c + 1, n).astype(np.int32)  # -1 ignored, c out of range
+    thresholds = np.asarray(_adjust_threshold_arg(t))
+    target01 = (labels[:, None] == np.arange(c)).astype(np.int32)
+    valid = np.broadcast_to((labels >= 0)[:, None], (n, c)).copy()
+    want = _pallas_counts(preds, target01, valid, thresholds)
+    got = binned_counts_labels_plain(*_torch_args(preds, labels, thresholds))
+    for g, w, name in zip(got, want, ("tp", "fp", "pos_tot", "neg_tot")):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), w, err_msg=name)
+    before = binned_counts_labels.launches
+    for g, w in zip(binned_counts_labels(*_torch_args(preds, labels, thresholds)), got):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    assert binned_counts_labels.launches == before
+    with pytest.raises(ValueError, match="CUDA or CPU"):
+        binned_counts_labels(*[x.to("meta") for x in _torch_args(preds, labels, thresholds)])
 
 
 # ----------------------------------------------------------------------------- B2 plain vs Pallas
@@ -142,9 +170,20 @@ def test_build_without_nvcc_raises_clearly(tmp_path, monkeypatch):
         _native.build()
 
 
+def test_kernel_variants_apply_to_the_sources():
+    """Every variant that ``ops/variants.py`` times finds the constant or line it changes in the committed source."""
+    for name, table in (("ssim_window", variants.SSIM), ("binned_hist", variants.BINNED)):
+        committed = (_native.CSRC / f"{name}.cu").read_text()
+        for subs, _ in table.values():
+            assert (variants.variant_source(name, subs) == committed) == (not subs)
+    with pytest.raises(ValueError, match="not found"):
+        variants.variant_source("ssim_window", {"kNoSuchConstant": 1})
+
+
 def test_port_imports_no_jax():
     code = (
         "import sys, metrics_tpu_torch.ops.ssim_window, metrics_tpu_torch.ops.binned_hist;"
+        "import metrics_tpu_torch.ops.profile, metrics_tpu_torch.ops.variants;"
         "import metrics_tpu_torch.classification, metrics_tpu_torch.image, metrics_tpu_torch.interop;"
         "import metrics_tpu_torch.functional.classification, metrics_tpu_torch.functional.image;"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'metrics_tpu.')) or m == 'metrics_tpu'];"
