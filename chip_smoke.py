@@ -18,7 +18,11 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    checked against the same inputs run through the port on the CPU; every
    kernel's launch count is set to 0 just before each metric's run and read
    just after, so the run shows which kernel each metric went through (the
-   multiclass curve through the labels mode);
+   multiclass curve through the labels mode). Its metrics: accuracy, the
+   binary and multiclass PR curves, SSIM, then the binned curve family:
+   multilabel mAP over the 80 MS-COCO labels, binary and multiclass AUROC,
+   the exact binary AUROC below a ``max_fpr``, and every curve class through
+   its task wrapper for each task;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes, beside the least time the card
    could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
@@ -48,6 +52,11 @@ SSIM_RTOL, SSIM_ATOL = 1e-5, 1e-6  # window sums of values in [0, 1]; the kernel
 ACC_BATCH, ACC_CLASSES, ACC_STEPS = 1 << 20, 10, 50
 PRC_THRESHOLDS, BIN_N, MC_N, PRC_STEPS = 200, 1 << 22, 1 << 20, 3
 SSIM_SHAPE, SSIM_STEPS = (20, 3, 256, 256), 3
+# multilabel mAP over the 80 MS-COCO labels (the usual score of multilabel image classifiers); 2^18 images per
+# update, about 6.5 COCO val2014 sets; about 2.9 of the 80 labels are present per image (3.6 %)
+ML_N, ML_LABELS, ML_POSITIVE = 1 << 18, 80, 0.036
+EXACT_N, WRAPPED_N = 1 << 20, 1 << 16
+CURVE_RTOL, CURVE_ATOL = 1e-5, 1e-6  # float32 sums of up to T + 1 trapezoids or steps, in another order
 
 
 def log(msg: str) -> None:
@@ -109,9 +118,10 @@ def check_kernels(rng: np.random.Generator) -> dict:
         torch.tensor([0.0, 0.25, 0.5, 0.5, 1.0, nan]).cuda(),
     ]
     # the shapes of tests/test_binned_hist_kernel.py, the edge cases, one whose classes are tiled over
-    # blocks (too wide for one block's shared memory), both full sizes
+    # blocks (too wide for one block's shared memory), the three full sizes (the multilabel one tiles its
+    # 80 labels over two blocks too)
     shapes = [(100, 1, 5), (257, 3, 17), (1000, 4, 100), (50, 2, 129), (8, 1, 1), (4096, 300, 200),
-              (BIN_N, 1, PRC_THRESHOLDS), (MC_N, 10, PRC_THRESHOLDS)]
+              (BIN_N, 1, PRC_THRESHOLDS), (MC_N, 10, PRC_THRESHOLDS), (ML_N, ML_LABELS, PRC_THRESHOLDS)]
     binned_err = 0
     for args in [binned_args(*sh) for sh in shapes] + [edge]:
         binned_err = max(binned_err, compare("binned_counts", binned_counts(*args), binned_counts_plain(*args),
@@ -141,9 +151,11 @@ def check_kernels(rng: np.random.Generator) -> dict:
 
 
 # ----------------------------------------------------------------------------- phase 4
-def _same_counts(name, port, ref):
-    for key in port.metric_state:
-        a, b = getattr(port, key), getattr(ref, key)
+def _same_states(name, gpu, cpu):
+    """Counters integer-equal; the exact path's kept samples equal."""
+    for key in gpu.metric_state:
+        a, b = getattr(gpu, key), getattr(cpu, key)
+        a, b = (torch.cat(a), torch.cat(b)) if isinstance(a, list) else (a, b)
         if not torch.equal(a.cpu(), b):
             fail(f"{name}: state {key} on the card differs from the CPU run")
 
@@ -178,7 +190,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
         launches = {k: w.launches for k, w in wrappers.items()}
         # the first update also pays one-time costs (e.g. the first use of an operator), so it is kept apart
         out[name] = {"updates": gpu.update_count, "first_update_ms": update_ms[0],
-                     "later_update_ms_median": float(np.median(update_ms[1:])), "launches": launches}
+                     "later_update_ms_median": float(np.median(update_ms[1:])) if len(update_ms) > 1 else None,
+                     "launches": launches}
         return gpu, cpu, got, want
 
     def acc_batches():
@@ -188,7 +201,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
 
     gpu, cpu, got, want = run("MulticlassAccuracy", lambda d: MulticlassAccuracy(
         num_classes=ACC_CLASSES, average="micro", device=d), acc_batches)
-    _same_counts("MulticlassAccuracy", gpu, cpu)
+    _same_states("MulticlassAccuracy", gpu, cpu)
     if not (torch.isfinite(got) and float(got) == float(want)):
         fail(f"MulticlassAccuracy {float(got)} on the card, {float(want)} on the CPU")
     out["MulticlassAccuracy"]["value"] = float(got)
@@ -208,7 +221,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
             num_classes=10, thresholds=PRC_THRESHOLDS, device=d), MC_N, 10),
     ]:
         gpu, cpu, got, want = run(name, make, prc_batches(n, c))
-        _same_counts(name, gpu, cpu)
+        _same_states(name, gpu, cpu)
         for g, w in zip(got, want):
             if g.shape != w.shape or not bool(torch.isfinite(g).all()) or not torch.allclose(g.cpu(), w, rtol=1e-6):
                 fail(f"{name}: curve on the card differs from the CPU run")
@@ -226,7 +239,84 @@ def main_path(seed: int, wrappers: dict) -> dict:
         fail(f"SSIM {float(got)} on the card, {float(want)} on the CPU")
     out["StructuralSimilarityIndexMeasure"]["value"] = float(got)
     out["StructuralSimilarityIndexMeasure"]["abs_diff_vs_cpu"] = abs(float(got) - float(want))
+    curve_family(rng, run, out)
     return out
+
+
+def _agree(name, got, want, exact):
+    """Finite values of the CPU run's shapes; equal, or within CURVE_RTOL / CURVE_ATOL. Returns the largest
+    absolute difference."""
+    if isinstance(want, (list, tuple)):
+        if not isinstance(got, (list, tuple)) or len(got) != len(want):
+            fail(f"{name}: the card returned another structure than the CPU run")
+        return max([_agree(name, g, w, exact) for g, w in zip(got, want)] + [0.0])
+    got = got.cpu()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{name}: {got.dtype} {tuple(got.shape)} on the card, {want.dtype} {tuple(want.shape)} on the CPU")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{name}: non-finite values on the card")
+    if exact and not torch.equal(got, want):
+        fail(f"{name}: the card's values differ from the CPU run's")
+    if not torch.allclose(got, want, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+        fail(f"{name}: the card's values differ from the CPU run's beyond rtol {CURVE_RTOL}, atol {CURVE_ATOL}")
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+def curve_family(rng: np.random.Generator, run, out: dict) -> None:
+    """The binned curve family on the main path: multilabel mAP at the 80 COCO labels, AUROC in each mode of
+    the binned-counts kernel and on the exact path, and every curve class through its task wrapper."""
+    from metrics_tpu_torch import classification as tc
+
+    def multilabel(n, labels):
+        target = (rng.random((n, labels)) < ML_POSITIVE).astype(np.int64)
+        # informative scores: positives lean high
+        preds = ((rng.random((n, labels), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def binary(n):
+        target = rng.integers(0, 2, n)
+        preds = ((rng.random(n, dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def multiclass(n, classes):
+        return (torch.from_numpy(rng.random((n, classes), dtype=np.float32)),
+                torch.from_numpy(rng.integers(0, classes, n)))
+
+    def batches(make, steps):
+        return lambda: (make() for _ in range(steps))
+
+    runs = [
+        ("MultilabelAveragePrecision", lambda d: tc.MultilabelAveragePrecision(
+            num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, average="macro", device=d),
+         batches(lambda: multilabel(ML_N, ML_LABELS), PRC_STEPS), False),
+        ("BinaryAUROC", lambda d: tc.BinaryAUROC(thresholds=PRC_THRESHOLDS, device=d),
+         batches(lambda: binary(BIN_N), PRC_STEPS), False),
+        ("MulticlassAUROC", lambda d: tc.MulticlassAUROC(num_classes=10, thresholds=PRC_THRESHOLDS, device=d),
+         batches(lambda: multiclass(MC_N, 10), PRC_STEPS), False),
+        ("BinaryAUROC[exact,max_fpr=0.5]", lambda d: tc.BinaryAUROC(thresholds=None, max_fpr=0.5, device=d),
+         batches(lambda: binary(EXACT_N), 1), False),
+    ]
+    # every curve class through its task wrapper, for each task: (class, extra arguments, exact agreement)
+    wrapped = [(tc.PrecisionRecallCurve, {}, True), (tc.ROC, {}, True), (tc.AveragePrecision, {}, False),
+               (tc.LogAUC, {}, False), (tc.SensitivityAtSpecificity, {"min_specificity": 0.5}, True),
+               (tc.SpecificityAtSensitivity, {"min_sensitivity": 0.5}, True),
+               (tc.PrecisionAtFixedRecall, {"min_recall": 0.5}, True),
+               (tc.RecallAtFixedPrecision, {"min_precision": 0.5}, True)]
+    tasks = {"binary": ({}, lambda: binary(WRAPPED_N)),
+             "multiclass": ({"num_classes": 10}, lambda: multiclass(WRAPPED_N, 10)),
+             "multilabel": ({"num_labels": ML_LABELS}, lambda: multilabel(WRAPPED_N, ML_LABELS))}
+    for cls, extra, exact in wrapped:
+        for task, (size, make) in tasks.items():
+            def factory(d, cls=cls, task=task, size=size, extra=extra):
+                return cls(task=task, thresholds=PRC_THRESHOLDS, device=d, **size, **extra)
+            runs.append((f"{cls.__name__}[{task}]", factory, batches(make, 1), exact))
+
+    for name, make, feed, exact in runs:
+        gpu, cpu, got, want = run(name, make, feed)
+        _same_states(name, gpu, cpu)
+        out[name]["max_abs_diff_vs_cpu"] = _agree(name, got, want, exact)
+        if isinstance(got, torch.Tensor) and got.numel() == 1:
+            out[name]["value"] = float(got)
 
 
 # ----------------------------------------------------------------------------- phase 5
@@ -253,7 +343,7 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     res = {}
     t = PRC_THRESHOLDS
     thresholds = _adjust_threshold_arg(t, torch.device("cuda"))
-    for label, n, c in [("binary", BIN_N, 1), ("multiclass", MC_N, 10)]:
+    for label, n, c in [("binary", BIN_N, 1), ("multiclass", MC_N, 10), ("multilabel", ML_N, ML_LABELS)]:
         args = [
             torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
             torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).cuda(),
@@ -356,7 +446,17 @@ def main() -> int:
     log(f"main path in {time.perf_counter() - t0:.1f} s: {json.dumps(path)}")
     expect = {"BinaryPrecisionRecallCurve": {"binned_counts": PRC_STEPS},
               "MulticlassPrecisionRecallCurve": {"binned_counts_labels": PRC_STEPS},
-              "StructuralSimilarityIndexMeasure": {"ssim_window": SSIM_STEPS}}
+              "StructuralSimilarityIndexMeasure": {"ssim_window": SSIM_STEPS},
+              "MultilabelAveragePrecision": {"binned_counts": PRC_STEPS},
+              "BinaryAUROC": {"binned_counts": PRC_STEPS},
+              "MulticlassAUROC": {"binned_counts_labels": PRC_STEPS},
+              "BinaryAUROC[exact,max_fpr=0.5]": {}}
+    for metric in path:
+        task = metric.rsplit("[", 1)[-1].rstrip("]")
+        if task in ("binary", "multilabel"):
+            expect[metric] = {"binned_counts": 1}
+        elif task == "multiclass":
+            expect[metric] = {"binned_counts_labels": 1}
     for metric, want in expect.items():
         got = {k: v for k, v in path[metric]["launches"].items() if v}
         if got != want:
@@ -383,6 +483,8 @@ def main() -> int:
     sources = {"binned_counts[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                          "metrics_tpu/ops/binned_hist.py:151"),
                "binned_counts[multiclass]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                             "metrics_tpu/ops/binned_hist.py:151"),
+               "binned_counts[multilabel]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                              "metrics_tpu/ops/binned_hist.py:151"),
                "binned_counts_labels[multiclass]": ("binned_counts_labels", "metrics_tpu_torch/csrc/binned_hist.cu",
                                                     "metrics_tpu/ops/binned_hist.py:151"),

@@ -1,9 +1,44 @@
 """Classification metrics."""
 
 from metrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
+from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
+from metrics_tpu_torch.classification.average_precision import (
+    AveragePrecision,
+    BinaryAveragePrecision,
+    MulticlassAveragePrecision,
+    MultilabelAveragePrecision,
+)
+from metrics_tpu_torch.classification.logauc import BinaryLogAUC, LogAUC, MulticlassLogAUC, MultilabelLogAUC
+from metrics_tpu_torch.classification.precision_fixed_recall import (
+    BinaryPrecisionAtFixedRecall,
+    MulticlassPrecisionAtFixedRecall,
+    MultilabelPrecisionAtFixedRecall,
+    PrecisionAtFixedRecall,
+)
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+    PrecisionRecallCurve,
+)
+from metrics_tpu_torch.classification.recall_fixed_precision import (
+    BinaryRecallAtFixedPrecision,
+    MulticlassRecallAtFixedPrecision,
+    MultilabelRecallAtFixedPrecision,
+    RecallAtFixedPrecision,
+)
+from metrics_tpu_torch.classification.roc import ROC, BinaryROC, MulticlassROC, MultilabelROC
+from metrics_tpu_torch.classification.sensitivity_specificity import (
+    BinarySensitivityAtSpecificity,
+    MulticlassSensitivityAtSpecificity,
+    MultilabelSensitivityAtSpecificity,
+    SensitivityAtSpecificity,
+)
+from metrics_tpu_torch.classification.specificity_sensitivity import (
+    BinarySpecificityAtSensitivity,
+    MulticlassSpecificityAtSensitivity,
+    MultilabelSpecificityAtSensitivity,
+    SpecificityAtSensitivity,
 )
 from metrics_tpu_torch.classification.stat_scores import (
     BinaryStatScores,
@@ -13,14 +48,48 @@ from metrics_tpu_torch.classification.stat_scores import (
 )
 
 __all__ = [
+    "AUROC",
     "Accuracy",
+    "AveragePrecision",
+    "BinaryAUROC",
     "BinaryAccuracy",
+    "BinaryAveragePrecision",
+    "BinaryLogAUC",
+    "BinaryPrecisionAtFixedRecall",
     "BinaryPrecisionRecallCurve",
+    "BinaryROC",
+    "BinaryRecallAtFixedPrecision",
+    "BinarySensitivityAtSpecificity",
+    "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "LogAUC",
+    "MulticlassAUROC",
     "MulticlassAccuracy",
+    "MulticlassAveragePrecision",
+    "MulticlassLogAUC",
+    "MulticlassPrecisionAtFixedRecall",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassROC",
+    "MulticlassRecallAtFixedPrecision",
+    "MulticlassSensitivityAtSpecificity",
+    "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
+    "MultilabelAUROC",
     "MultilabelAccuracy",
+    "MultilabelAveragePrecision",
+    "MultilabelLogAUC",
+    "MultilabelPrecisionAtFixedRecall",
+    "MultilabelPrecisionRecallCurve",
+    "MultilabelROC",
+    "MultilabelRecallAtFixedPrecision",
+    "MultilabelSensitivityAtSpecificity",
+    "MultilabelSpecificityAtSensitivity",
     "MultilabelStatScores",
+    "PrecisionAtFixedRecall",
+    "PrecisionRecallCurve",
+    "ROC",
+    "RecallAtFixedPrecision",
+    "SensitivityAtSpecificity",
+    "SpecificityAtSensitivity",
     "StatScores",
 ]

@@ -11,6 +11,7 @@ from typing import Any, List, Optional, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     Thresholds,
     _adjust_threshold_arg,
@@ -24,9 +25,15 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _multiclass_precision_recall_curve_format,
     _multiclass_precision_recall_curve_tensor_validation,
     _multiclass_precision_recall_curve_update,
+    _multilabel_precision_recall_curve_arg_validation,
+    _multilabel_precision_recall_curve_compute,
+    _multilabel_precision_recall_curve_format,
+    _multilabel_precision_recall_curve_tensor_validation,
+    _multilabel_precision_recall_curve_update,
 )
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.data import dim_zero_cat
+from metrics_tpu_torch.utils.enums import ClassificationTask
 
 Tensor = torch.Tensor
 
@@ -137,3 +144,81 @@ class MulticlassPrecisionRecallCurve(_CurveStates):
         return _multiclass_precision_recall_curve_compute(
             self._final_state(), self.num_classes, self.thresholds, self.average
         )
+
+
+class MultilabelPrecisionRecallCurve(_CurveStates):
+    """Precision-recall curve for multilabel tasks (one curve per label).
+
+    On the binned path every update is one launch of the binned-counts kernel
+    over the (N, L) scores, with targets above 1 counted as positives.
+
+    >>> metric = MultilabelPrecisionRecallCurve(num_labels=2, thresholds=3, device="cpu")
+    >>> metric.update(torch.tensor([[0.75, 0.05], [0.45, 0.75], [0.05, 0.55]]), torch.tensor([[1, 0], [0, 1], [0, 1]]))
+    >>> precision, recall, thresholds = metric.compute()
+    >>> precision
+    tensor([[0.3333, 1.0000, 0.0000, 1.0000],
+            [0.6667, 1.0000, 0.0000, 1.0000]])
+    """
+
+    is_differentiable = False
+    higher_is_better = None
+    full_state_update = False
+
+    def __init__(
+        self,
+        num_labels: int,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        if validate_args:
+            _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        self.num_labels = num_labels
+        self.ignore_index = ignore_index
+        self.validate_args = validate_args
+        self._create_curve_state(thresholds, (num_labels, 2, 2))
+
+    def update(self, preds: Tensor, target: Tensor) -> None:
+        """Update state with predictions and targets."""
+        if self.validate_args:
+            _multilabel_precision_recall_curve_tensor_validation(preds, target, self.num_labels, self.ignore_index)
+        preds, target, _ = _multilabel_precision_recall_curve_format(
+            preds, target, self.num_labels, self.thresholds, self.ignore_index
+        )
+        self._add_to_state(_multilabel_precision_recall_curve_update(preds, target, self.num_labels, self.thresholds))
+
+    def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+        """Per-label precision, recall and thresholds."""
+        return _multilabel_precision_recall_curve_compute(
+            self._final_state(), self.num_labels, self.thresholds, self.ignore_index
+        )
+
+
+class PrecisionRecallCurve(_ClassificationTaskWrapper):
+    """Task-dispatching precision-recall curve: returns the binary, multiclass or multilabel metric."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        thresholds: Thresholds = None,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTask.from_str(task)
+        kwargs.update({"thresholds": thresholds, "ignore_index": ignore_index, "validate_args": validate_args})
+        if task == ClassificationTask.BINARY:
+            return BinaryPrecisionRecallCurve(**kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
+            return MulticlassPrecisionRecallCurve(num_classes, **kwargs)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
+            return MultilabelPrecisionRecallCurve(num_labels, **kwargs)
+        raise ValueError(f"Not handled value: {task}")

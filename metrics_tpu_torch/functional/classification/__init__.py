@@ -6,10 +6,49 @@ from metrics_tpu_torch.functional.classification.accuracy import (
     multiclass_accuracy,
     multilabel_accuracy,
 )
+from metrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
+from metrics_tpu_torch.functional.classification.average_precision import (
+    average_precision,
+    binary_average_precision,
+    multiclass_average_precision,
+    multilabel_average_precision,
+)
+from metrics_tpu_torch.functional.classification.logauc import (
+    binary_logauc,
+    logauc,
+    multiclass_logauc,
+    multilabel_logauc,
+)
+from metrics_tpu_torch.functional.classification.precision_fixed_recall import (
+    binary_precision_at_fixed_recall,
+    multiclass_precision_at_fixed_recall,
+    multilabel_precision_at_fixed_recall,
+    precision_at_fixed_recall,
+)
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
+    multilabel_precision_recall_curve,
     precision_recall_curve,
+)
+from metrics_tpu_torch.functional.classification.recall_fixed_precision import (
+    binary_recall_at_fixed_precision,
+    multiclass_recall_at_fixed_precision,
+    multilabel_recall_at_fixed_precision,
+    recall_at_fixed_precision,
+)
+from metrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
+from metrics_tpu_torch.functional.classification.sensitivity_specificity import (
+    binary_sensitivity_at_specificity,
+    multiclass_sensitivity_at_specificity,
+    multilabel_sensitivity_at_specificity,
+    sensitivity_at_specificity,
+)
+from metrics_tpu_torch.functional.classification.specificity_sensitivity import (
+    binary_specificity_at_sensitivity,
+    multiclass_specificity_at_sensitivity,
+    multilabel_specificity_at_sensitivity,
+    specificity_at_sensitivity,
 )
 from metrics_tpu_torch.functional.classification.stat_scores import (
     binary_stat_scores,
@@ -20,14 +59,47 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
 
 __all__ = [
     "accuracy",
+    "auroc",
+    "average_precision",
     "binary_accuracy",
+    "binary_auroc",
+    "binary_average_precision",
+    "binary_logauc",
+    "binary_precision_at_fixed_recall",
     "binary_precision_recall_curve",
+    "binary_recall_at_fixed_precision",
+    "binary_roc",
+    "binary_sensitivity_at_specificity",
+    "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "logauc",
     "multiclass_accuracy",
+    "multiclass_auroc",
+    "multiclass_average_precision",
+    "multiclass_logauc",
+    "multiclass_precision_at_fixed_recall",
     "multiclass_precision_recall_curve",
+    "multiclass_recall_at_fixed_precision",
+    "multiclass_roc",
+    "multiclass_sensitivity_at_specificity",
+    "multiclass_specificity_at_sensitivity",
     "multiclass_stat_scores",
     "multilabel_accuracy",
+    "multilabel_auroc",
+    "multilabel_average_precision",
+    "multilabel_logauc",
+    "multilabel_precision_at_fixed_recall",
+    "multilabel_precision_recall_curve",
+    "multilabel_recall_at_fixed_precision",
+    "multilabel_roc",
+    "multilabel_sensitivity_at_specificity",
+    "multilabel_specificity_at_sensitivity",
     "multilabel_stat_scores",
+    "precision_at_fixed_recall",
     "precision_recall_curve",
+    "recall_at_fixed_precision",
+    "roc",
+    "sensitivity_at_specificity",
+    "specificity_at_sensitivity",
     "stat_scores",
 ]

@@ -1,4 +1,4 @@
-"""Precision-recall curves for binary and multiclass tasks.
+"""Precision-recall curves for binary, multiclass and multilabel tasks.
 
 Counterpart of ``metrics_tpu/functional/classification/precision_recall_curve.py``.
 
@@ -6,6 +6,8 @@ Counterpart of ``metrics_tpu/functional/classification/precision_recall_curve.py
   (T, ..., 2, 2) confusion tensor built by the binned-counts kernel
   (:func:`metrics_tpu_torch.ops.binned_hist.binned_counts`, and its labels
   mode for the multiclass curve); ignored samples are masked, not dropped.
+  Multilabel targets above 1 count as positives there (clamped to 1), as in
+  the JAX package.
 * Exact path (``thresholds=None``): the samples are kept and the curve is
   computed over every distinct score at ``compute()``.
 """
@@ -46,7 +48,8 @@ def _binary_clf_curve(
     threshold_idxs = torch.cat(
         [distinct_value_indices, torch.tensor([target.shape[0] - 1], device=preds.device)]
     )
-    target = (target == pos_label).float()
+    # the JAX package's int-times-float cumsum runs in its default float type (float64 under x64)
+    target = (target == pos_label).to(torch.get_default_dtype())
     if sample_weights is not None:
         weight = sample_weights[desc]
         tps = torch.cumsum(target * weight, dim=0)[threshold_idxs]
@@ -110,6 +113,17 @@ def _binary_precision_recall_curve_arg_validation(
         raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
 
 
+def _check_binary_target_values(target: Tensor, ignore_index: Optional[int]) -> None:
+    """Raise unless every target is 0, 1 or ``ignore_index`` (one host read of the distinct values)."""
+    allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
+    found = _unique_values(target)
+    if not set(found).issubset(allowed):
+        raise RuntimeError(
+            f"Detected the following values in `target`: {found} but expected only"
+            f" the following values {sorted(allowed)}."
+        )
+
+
 def _binary_precision_recall_curve_tensor_validation(
     preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
 ) -> None:
@@ -122,13 +136,7 @@ def _binary_precision_recall_curve_tensor_validation(
         )
     if target.is_floating_point():
         raise ValueError("Expected argument `target` to be an int tensor, but got float")
-    allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
-    found = _unique_values(target)
-    if not set(found).issubset(allowed):
-        raise RuntimeError(
-            f"Detected the following values in `target`: {found} but expected only"
-            f" the following values {sorted(allowed)}."
-        )
+    _check_binary_target_values(target, ignore_index)
 
 
 # --------------------------------------------------------------------------- binary
@@ -166,6 +174,21 @@ def _confusion_from_counts(counts, order: Tensor) -> Tensor:
     return bins.transpose(0, 1)[torch.argsort(order)]
 
 
+def _float32_thresholds(thresholds: Tensor) -> Tensor:
+    """The kernel's float32 thresholds, each met by exactly the float32 scores that meet the original.
+
+    A float64 threshold (an int grid under a float64 default) is rounded up,
+    not to nearest: for a float32 score ``s``, ``s >= t`` holds exactly when
+    ``s >= t`` rounded up to float32. So the counts are those of the JAX
+    package, which compares in float64 under x64.
+    """
+    if thresholds.dtype != torch.float64:
+        return thresholds.float().contiguous()
+    t32 = thresholds.float()
+    rounded_down = t32.double() < thresholds
+    return torch.where(rounded_down, torch.nextafter(t32, torch.full_like(t32, torch.inf)), t32).contiguous()
+
+
 def _binned_confusion_tensor(preds: Tensor, target01: Tensor, valid: Tensor, thresholds: Tensor) -> Tensor:
     """(N, C) scores to the (T, C, 2, 2) multi-threshold confusion tensor, int32.
 
@@ -178,7 +201,7 @@ def _binned_confusion_tensor(preds: Tensor, target01: Tensor, valid: Tensor, thr
         preds.float().contiguous(),
         target01.int().contiguous(),
         valid.bool().contiguous(),
-        thresholds[order].float().contiguous(),
+        _float32_thresholds(thresholds[order]),
     )
     return _confusion_from_counts(counts, order)
 
@@ -188,7 +211,7 @@ def _binned_confusion_tensor_labels(preds: Tensor, labels: Tensor, thresholds: T
     ``labels >= 0``, through the kernel's labels mode: no (N, C) one-hot is built."""
     order = torch.argsort(thresholds, stable=True)
     counts = binned_counts_labels(
-        preds.float().contiguous(), labels.int().contiguous(), thresholds[order].float().contiguous()
+        preds.float().contiguous(), labels.int().contiguous(), _float32_thresholds(thresholds[order])
     )
     return _confusion_from_counts(counts, order)
 
@@ -405,16 +428,135 @@ def multiclass_precision_recall_curve(
     return _multiclass_precision_recall_curve_compute(state, num_classes, thresholds, average)
 
 
+# --------------------------------------------------------------------------- multilabel
+def _multilabel_precision_recall_curve_arg_validation(
+    num_labels: int,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> None:
+    """Validate non-tensor args."""
+    if not isinstance(num_labels, int) or num_labels < 2:
+        raise ValueError(f"Expected argument `num_labels` to be an integer larger than 1, but got {num_labels}")
+    _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
+
+
+def _multilabel_precision_recall_curve_tensor_validation(
+    preds: Tensor, target: Tensor, num_labels: int, ignore_index: Optional[int] = None
+) -> None:
+    """Validate tensor inputs (reads the target's distinct values on the host)."""
+    _check_same_shape(preds, target)
+    if preds.shape[1] != num_labels:
+        raise ValueError(
+            "Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels"
+            f" but got {preds.shape[1]} and {num_labels}"
+        )
+    if not preds.is_floating_point():
+        raise ValueError(f"Expected `preds` to be a float tensor, but got {preds.dtype}")
+    _check_binary_target_values(target, ignore_index)
+
+
+def _multilabel_precision_recall_curve_format(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Optional[Tensor]]:
+    """Reshape to (M, L), sigmoid if needed, ignored targets to -1 (on both paths)."""
+    preds = preds.movedim(1, -1).reshape(-1, num_labels)
+    target = target.int().movedim(1, -1).reshape(-1, num_labels)
+    preds = normalize_logits_if_needed(preds, "sigmoid")
+    if ignore_index is not None:
+        target = torch.where(target == ignore_index, -1, target)
+    return preds, target, _adjust_threshold_arg(thresholds, preds.device)
+
+
+def _multilabel_precision_recall_curve_update(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Optional[Tensor],
+) -> Union[Tensor, Tuple[Tensor, Tensor]]:
+    """The samples (exact path) or the (T, L, 2, 2) confusion tensor of this batch (binned path)."""
+    if thresholds is None:
+        return preds, target
+    return _binned_confusion_tensor(preds, target.clamp(0, 1), target >= 0, thresholds)
+
+
+def _multilabel_precision_recall_curve_compute(
+    state: Union[Tensor, Tuple[Tensor, Tensor]],
+    num_labels: int,
+    thresholds: Optional[Tensor],
+    ignore_index: Optional[int] = None,
+) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+    """Per-label curves: stacked on the binned path, lists on the exact path (ignored samples dropped per label)."""
+    if not isinstance(state, tuple) and thresholds is not None:
+        tps = state[:, :, 1, 1]
+        fps = state[:, :, 0, 1]
+        fns = state[:, :, 1, 0]
+        precision = _safe_divide(tps, tps + fps)
+        recall = _safe_divide(tps, tps + fns)
+        precision = torch.cat([precision, precision.new_ones((1, num_labels))])
+        recall = torch.cat([recall, recall.new_zeros((1, num_labels))])
+        return precision.T, recall.T, thresholds
+
+    precision_list, recall_list, thres_list = [], [], []
+    for i in range(num_labels):
+        preds_i, target_i = _label_samples(state, i, ignore_index)
+        res = _binary_precision_recall_curve_compute((preds_i, target_i), thresholds=None)
+        precision_list.append(res[0])
+        recall_list.append(res[1])
+        thres_list.append(res[2])
+    return precision_list, recall_list, thres_list
+
+
+def _label_samples(state: Tuple[Tensor, Tensor], i: int, ignore_index: Optional[int]) -> Tuple[Tensor, Tensor]:
+    """Label ``i``'s kept scores and targets, without the ignored ones when there is an ``ignore_index``."""
+    preds_i, target_i = state[0][:, i], state[1][:, i]
+    if ignore_index is not None:
+        keep = (target_i != ignore_index) & (target_i >= 0)
+        preds_i, target_i = preds_i[keep], target_i[keep]
+    return preds_i, target_i
+
+
+def multilabel_precision_recall_curve(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    thresholds: Thresholds = None,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
+    """The precision-recall curve for multilabel tasks (one curve per label).
+
+    >>> preds = torch.tensor([[0.75, 0.05], [0.45, 0.75], [0.05, 0.55]])
+    >>> target = torch.tensor([[1, 0], [0, 1], [0, 1]])
+    >>> precision, recall, thresholds = multilabel_precision_recall_curve(preds, target, num_labels=2, thresholds=3)
+    >>> recall
+    tensor([[1., 1., 0., 0.],
+            [1., 1., 0., 0.]])
+    """
+    if validate_args:
+        _multilabel_precision_recall_curve_arg_validation(num_labels, thresholds, ignore_index)
+        _multilabel_precision_recall_curve_tensor_validation(preds, target, num_labels, ignore_index)
+    preds, target, thresholds = _multilabel_precision_recall_curve_format(
+        preds, target, num_labels, thresholds, ignore_index
+    )
+    state = _multilabel_precision_recall_curve_update(preds, target, num_labels, thresholds)
+    return _multilabel_precision_recall_curve_compute(state, num_labels, thresholds, ignore_index)
+
+
 def precision_recall_curve(
     preds: Tensor,
     target: Tensor,
     task: str,
     thresholds: Thresholds = None,
     num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
     ignore_index: Optional[int] = None,
     validate_args: bool = True,
 ) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
-    """Task-dispatching precision-recall curve (binary and multiclass; multilabel is not ported yet)."""
+    """Task-dispatching precision-recall curve."""
     task = ClassificationTask.from_str(task)
     if task == ClassificationTask.BINARY:
         return binary_precision_recall_curve(preds, target, thresholds, ignore_index, validate_args)
@@ -424,4 +566,6 @@ def precision_recall_curve(
         return multiclass_precision_recall_curve(
             preds, target, num_classes, thresholds, None, ignore_index, validate_args
         )
-    raise NotImplementedError("The multilabel precision-recall curve is not ported yet.")
+    if not isinstance(num_labels, int):
+        raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
+    return multilabel_precision_recall_curve(preds, target, num_labels, thresholds, ignore_index, validate_args)

@@ -3,7 +3,8 @@
 Runs each wrapper at the main path's shapes under ``torch.profiler`` and prints,
 for every CUDA kernel or memset it launched, the mean device time per call. It
 also runs the binned counts on skewed scores (every score inside one threshold
-step), where the shared-memory atomics of a block all hit a few cells, and the
+step), where the shared-memory atomics of a block all hit a few cells, the
+(N, C) mode at the multilabel curve's 80 labels (two class chunks), and the
 binned counts' labels mode at the multiclass curve's shape.
 
     python -m metrics_tpu_torch.ops.profile
@@ -81,7 +82,7 @@ def main() -> int:
     thresholds = _adjust_threshold_arg(200, cuda)
     cases = {}
     for label, n, c, skew in [("binary", 1 << 22, 1, False), ("multiclass", 1 << 20, 10, False),
-                              ("binary-skewed", 1 << 22, 1, True)]:
+                              ("multilabel", 1 << 18, 80, False), ("binary-skewed", 1 << 22, 1, True)]:
         scores = rng.random((n, c), dtype=np.float32)
         if skew:
             scores = (0.5 + 0.004 * scores).astype(np.float32)  # all inside one threshold step

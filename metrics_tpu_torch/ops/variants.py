@@ -8,7 +8,7 @@ committed library for the public wrapper, checked against the plain version
 where its result should be unchanged, and timed with the cold-L2 timer of
 :mod:`metrics_tpu_torch.ops.profile` in two rounds, the second in reverse
 order. Reference rows time a trivial kernel, a 16-byte memset and
-``torch.sum`` over the binary curve's scores the same way.
+``torch.sum`` over the binary and the multilabel curves' scores the same way.
 
     python -m metrics_tpu_torch.ops.variants [--out FILE.json]
 
@@ -130,6 +130,8 @@ def main() -> int:
               torch.from_numpy(rng.integers(0, 10, 1 << 20, dtype=np.int32)).to(cuda), thr]
     binned_cases = {"binary 2^22 x 1": (binned_counts, binned_counts_plain, nc_case(1 << 22, 1)),
                     "(N, C) 2^20 x 10": (binned_counts, binned_counts_plain, nc_case(1 << 20, 10)),
+                    # 80 labels: two class chunks, so the one-element-at-a-time loop
+                    "(N, C) 2^18 x 80": (binned_counts, binned_counts_plain, nc_case(1 << 18, 80)),
                     "labels 2^20 x 10": (binned_counts_labels, binned_counts_labels_plain, labels),
                     "binary 1,024 x 1": (binned_counts, binned_counts_plain, nc_case(1024, 1))}
     taps = _gaussian_taps_np(11, 1.5)
@@ -162,9 +164,11 @@ def main() -> int:
     small = torch.zeros(1, device=cuda)
     ticket = torch.empty(4, dtype=torch.int32, device=cuda)
     scores = binned_cases["binary 2^22 x 1"][2][0]
+    ml_scores = binned_cases["(N, C) 2^18 x 80"][2][0]
     reference = {"trivial kernel (add_ on one float)": lambda: small.add_(1),
                  "16-byte memset": lambda: ticket.zero_(),
-                 "torch.sum over the binary scores (16.8 MB)": lambda: scores.sum()}
+                 "torch.sum over the binary scores (16.8 MB)": lambda: scores.sum(),
+                 "torch.sum over the multilabel scores (83.9 MB)": lambda: ml_scores.sum()}
     for name, fn in reference.items():
         times[("reference", "", name)] = [time_ms(fn, flush=flush) for _ in range(2)]
 

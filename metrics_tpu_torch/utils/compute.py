@@ -17,9 +17,11 @@ def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
     * ``x / 0 -> zero_division`` for every ``x``, including ``0 / 0``;
     * the masked lane divides by 1, so gradients through it stay finite;
     * the result type is the promotion of float32, the float operands' types
-      and, for each integer or bool operand, ``torch.get_default_dtype()``:
-      float32 for counters unless the user set float64, the counterpart of the
-      JAX package's x32 default and its x64 switch.
+      and, for each int64 operand, ``torch.get_default_dtype()``: float32 for
+      counters unless the user set float64, the counterpart of the JAX
+      package's x32 default and its x64 switch. Narrower integer and bool
+      operands count as float32, as they do in the JAX package under x64 too
+      (its binned counts are int32 there, its counter states int64).
 
     Integer and bool operands are divided in float64, so int64 counters are
     never rounded before the division; the quotient of two exact integers,
@@ -36,7 +38,10 @@ def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
     denom = torch.as_tensor(denom, device=num.device)
     out_dtype = torch.float32
     for operand in (num, denom):
-        kind = operand.dtype if operand.dtype.is_floating_point else torch.get_default_dtype()
+        if operand.dtype.is_floating_point:
+            kind = operand.dtype
+        else:
+            kind = torch.get_default_dtype() if operand.dtype == torch.int64 else torch.float32
         out_dtype = torch.promote_types(out_dtype, kind)
     work = out_dtype
     if not (num.dtype.is_floating_point and denom.dtype.is_floating_point):
@@ -69,6 +74,37 @@ def _adjust_weights_safe_divide(
             present = ((tp + fp + fn) > 0) if top_k == 1 else ((tp + fn) > 0)
             weights = weights * present
     return _safe_divide(weights * score, weights.sum(dim=-1, keepdim=True)).sum(-1)
+
+
+def _auc_compute_without_check(x: torch.Tensor, y: torch.Tensor, direction: float, axis: int = -1) -> torch.Tensor:
+    """Trapezoidal area under ``y(x)`` along ``axis``, summed in the operands' type, for monotone ``x``."""
+    dx = torch.diff(x, dim=axis)
+    n = y.shape[axis]
+    y_avg = (y.narrow(axis, 1, n - 1) + y.narrow(axis, 0, n - 1)) / 2.0
+    return torch.sum(dx * y_avg, dim=axis) * direction
+
+
+def _auc_compute(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """Trapezoidal area, optionally after sorting by ``x``; the sign follows the direction of ``x``.
+
+    The JAX package takes the direction from the sign of the whole span of
+    ``x`` (``x[-1] >= x[0]``) rather than checking that ``x`` is monotone; so
+    does the port.
+    """
+    if reorder:
+        order = torch.argsort(x, stable=True)
+        x, y = x[order], y[order]
+    area = _auc_compute_without_check(x, y, 1.0)
+    return area * torch.where(x[-1] >= x[0], 1.0, -1.0).to(area.dtype)
+
+
+def auc(x: torch.Tensor, y: torch.Tensor, reorder: bool = False) -> torch.Tensor:
+    """Area under the curve ``y(x)`` by the trapezoidal rule.
+
+    >>> auc(torch.tensor([0.0, 0.5, 1.0]), torch.tensor([0.0, 1.0, 1.0]))
+    tensor(0.7500)
+    """
+    return _auc_compute(x, y, reorder=reorder)
 
 
 def _searchsorted_right(sorted_arr: torch.Tensor, query: torch.Tensor) -> torch.Tensor:

@@ -296,8 +296,12 @@ def test_curve_argument_validation():
         tc.MulticlassPrecisionRecallCurve(num_classes=3, average="weighted", device="cpu")
     with pytest.raises(RuntimeError, match="Detected the following values"):
         tf.binary_precision_recall_curve(torch.rand(4), torch.tensor([0, 1, 2, 1]))
-    with pytest.raises(NotImplementedError, match="multilabel"):
+    # the multilabel curve is ported: without num_labels it refuses, as the JAX package's dispatcher does
+    with pytest.raises(ValueError, match="num_labels"):
         tf.precision_recall_curve(torch.rand(4, 2), torch.ones(4, 2, dtype=torch.long), task="multilabel")
+    precision, _, _ = tf.precision_recall_curve(torch.rand(4, 2), torch.ones(4, 2, dtype=torch.long),
+                                                task="multilabel", thresholds=5, num_labels=2)
+    assert precision.shape == (2, 6)
 
 
 # ----------------------------------------------------------------------------- score dtypes

@@ -62,6 +62,27 @@ def test_binned_kernel_matches_plain(cuda_device, n, c, t):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
 
 
+@pytest.mark.cuda
+def test_binned_kernel_matches_plain_at_the_multilabel_width(cuda_device):
+    """80 labels at 200 thresholds: the labels are tiled over two blocks (one block's histogram holds 40),
+    which takes the one-element-at-a-time loop; -1 targets are masked out and some scores are NaN, as in the
+    multilabel curve's update."""
+    rng = np.random.RandomState(21)
+    n, c = 1 << 16, 80
+    preds = rng.rand(n, c).astype(np.float32)
+    preds[rng.rand(n, c) < 0.02] = np.nan
+    target = np.where(rng.rand(n, c) < 0.1, -1, (rng.rand(n, c) < 0.036).astype(np.int64))
+    target = torch.from_numpy(target).to(cuda_device)
+    args = [torch.from_numpy(preds).to(cuda_device), target.clamp(0, 1).int().contiguous(),
+            (target >= 0).contiguous(), _adjust_threshold_arg(200).to(cuda_device)]
+    before = binned_counts.launches
+    got = binned_counts(*args)
+    torch.cuda.synchronize()
+    assert binned_counts.launches == before + 1
+    for g, w in zip(got, binned_counts_plain(*args)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
 def _labels_args(n, c, t, seed, device):
     rng = np.random.RandomState(seed)
     preds = rng.rand(n, c).astype(np.float32)
@@ -189,3 +210,10 @@ def test_slice_on_card_goes_through_both_kernels(cuda_device):
     ssim.compute()
     mc.compute()
     assert binned_counts.launches == 1 and ssim_window.launches == 1 and binned_counts_labels.launches == 1
+    binned_counts.launches = binned_counts_labels.launches = 0
+    ml = tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, device=cuda_device)
+    for _ in range(2):
+        ml.update(torch.from_numpy(rng.rand(300, 80).astype(np.float32)).to(cuda_device),
+                  torch.from_numpy(rng.randint(0, 2, (300, 80))).to(cuda_device))
+    assert bool(torch.isfinite(ml.compute()))
+    assert binned_counts.launches == 2 and binned_counts_labels.launches == 0
