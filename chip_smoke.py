@@ -13,7 +13,9 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (registers, spills, shared memory);
 3. hold each kernel against its plain PyTorch version on the card: the binned
    counts in both input modes ((N, C) targets and mask; (N,) labels)
-   integer-equal, the SSIM window within ``SSIM_RTOL``/``SSIM_ATOL``;
+   integer-equal, in float32 and in float64 (scores on the float64 grid and
+   within half a float32 ulp of it), the SSIM window within
+   ``SSIM_RTOL``/``SSIM_ATOL``;
 4. the main path through the public classes on ``device="cuda"``, each result
    checked against the same inputs run through the port on the CPU; every
    kernel's launch count is set to 0 just before each metric's run and read
@@ -22,7 +24,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    binary and multiclass PR curves, SSIM, then the binned curve family:
    multilabel mAP over the 80 MS-COCO labels, binary and multiclass AUROC,
    the exact binary AUROC below a ``max_fpr``, and every curve class through
-   its task wrapper for each task;
+   its task wrapper for each task; then the stat-score and confusion-matrix
+   family, which launches no kernel: an ImageNet-1k evaluation (1000 classes,
+   the 50,000 validation images in 5 updates of 10,000: precision, recall,
+   F1, the confusion matrix, Matthews, Jaccard, top-5 precision and the
+   15-bin ECE), F1, Hamming, exact match and the three ranking metrics on the
+   COCO-80 multilabel inputs, quadratic-weighted kappa over 5 grades, a
+   float64 binary AUROC under torch's float64 default (the float64 binned
+   counts), and every new class through its task wrapper for each task;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes, beside the least time the card
    could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
@@ -57,6 +66,12 @@ SSIM_SHAPE, SSIM_STEPS = (20, 3, 256, 256), 3
 ML_N, ML_LABELS, ML_POSITIVE = 1 << 18, 80, 0.036
 EXACT_N, WRAPPED_N = 1 << 20, 1 << 16
 CURVE_RTOL, CURVE_ATOL = 1e-5, 1e-6  # float32 sums of up to T + 1 trapezoids or steps, in another order
+# ImageNet-1k evaluation: the 50,000 validation images in 5 updates of 10,000 x 1000 float32 logits, about
+# 75 % of them right at top-1
+IN_CLASSES, IN_BATCH, IN_STEPS, IN_TOP1 = 1000, 10_000, 5, 0.75
+KAPPA_N, KAPPA_GRADES = 1 << 16, 5  # quadratic-weighted kappa over 5 grades (diabetic-retinopathy grading)
+STAT_RTOL, STAT_ATOL = 1e-5, 1e-6  # scores from equal counters, reduced on the card in another order
+SUM_RTOL, SUM_ATOL = 1e-4, 1e-6  # ECE and hinge: float sums over 10^4-10^5 samples in another order
 
 
 def log(msg: str) -> None:
@@ -135,6 +150,25 @@ def check_kernels(rng: np.random.Generator) -> dict:
     log(f"binned_counts: integer-equal to the plain version on {len(shapes) + 1} cases; labels mode on"
         f" {len([sh for sh in shapes if sh[1] > 1])}")
 
+    # the float64 instantiation: scores on the float64 grid or within half a float32 ulp of it, compared in
+    # float64 by the kernel and by its plain version (float64 searchsorted)
+    f64_err = 0
+    f64_shapes = [(100, 1, 5), (257, 3, 17), (50, 2, 129), (4096, 300, 200), (3000, 2, 20000),
+                  (BIN_N, 1, PRC_THRESHOLDS), (MC_N, 10, PRC_THRESHOLDS), (ML_N, ML_LABELS, PRC_THRESHOLDS)]
+    for n, c, t in f64_shapes:
+        preds, grid = float64_near_grid(rng, (n, c), t)
+        preds, grid = torch.from_numpy(preds).cuda(), torch.from_numpy(grid).cuda()
+        target01 = torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).cuda()
+        valid = torch.from_numpy(rng.random((n, c)) > 0.1).cuda()
+        f64_err = max(f64_err, compare("binned_counts[float64]", binned_counts(preds, target01, valid, grid),
+                                       binned_counts_plain(preds, target01, valid, grid), (n, c, t)))
+        if c > 1:
+            labels = torch.from_numpy(rng.integers(-1, c + 1, n, dtype=np.int32)).cuda()
+            f64_err = max(f64_err, compare("binned_counts_labels[float64]", binned_counts_labels(preds, labels, grid),
+                                           binned_counts_labels_plain(preds, labels, grid), (n, c, t)))
+    torch.cuda.synchronize()
+    log(f"binned_counts float64: integer-equal to the plain version in both modes on {len(f64_shapes)} shapes")
+
     taps = _gaussian_taps_np(11, 1.5)
     ssim_err = 0.0
     for shape, kh, kw in [((12, 42, 74), taps, taps), ((6, 20, 40), taps, _gaussian_taps_np(5, 0.8)),
@@ -147,16 +181,40 @@ def check_kernels(rng: np.random.Generator) -> dict:
         ssim_err = max(ssim_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
     log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}); max |err| {ssim_err}")
-    return {"binned_counts": float(binned_err), "binned_counts_labels": float(labels_err), "ssim_window": ssim_err}
+    return {"binned_counts": float(binned_err), "binned_counts_labels": float(labels_err), "ssim_window": ssim_err,
+            "binned_counts_f64": float(f64_err)}
+
+
+def float64_near_grid(rng: np.random.Generator, shape, t: int):
+    """float64 scores: a third uniform, a third on the float64 grid of ``t`` thresholds, a third within half a
+    float32 ulp of it (above and below), and 1 % NaN; with that grid."""
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds
+
+    grid = _linspace_thresholds(t, torch.float64)
+    on = grid[rng.integers(0, t, shape)]
+    near = on + rng.choice([-1.0, 1.0], shape) * np.spacing(on.astype(np.float32)).astype(np.float64) / 2 \
+        * rng.uniform(0.1, 0.9, shape)
+    which = rng.integers(0, 3, shape)
+    preds = np.where(which == 0, rng.random(shape), np.where(which == 1, on, near))
+    preds[rng.random(shape) < 0.01] = np.nan
+    return preds, grid
 
 
 # ----------------------------------------------------------------------------- phase 4
-def _same_states(name, gpu, cpu):
-    """Counters integer-equal; the exact path's kept samples equal."""
+def _same_states(name, gpu, cpu, rtol=0.0, atol=0.0):
+    """Counters integer-equal; the exact path's kept samples equal; float states (sums over samples, the
+    calibration confidences after a softmax) within ``rtol``/``atol``."""
     for key in gpu.metric_state:
         a, b = getattr(gpu, key), getattr(cpu, key)
-        a, b = (torch.cat(a), torch.cat(b)) if isinstance(a, list) else (a, b)
-        if not torch.equal(a.cpu(), b):
+        a, b = (torch.cat([torch.atleast_1d(x) for x in a]), torch.cat([torch.atleast_1d(x) for x in b])) \
+            if isinstance(a, list) else (a, b)
+        a = a.cpu()
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"{name}: state {key} is {a.dtype} {tuple(a.shape)} on the card, {b.dtype} {tuple(b.shape)} on"
+                 " the CPU")
+        same = torch.equal(a, b) if not a.is_floating_point() or (rtol == 0 and atol == 0) \
+            else torch.allclose(a, b, rtol=rtol, atol=atol)
+        if not same:
             fail(f"{name}: state {key} on the card differs from the CPU run")
 
 
@@ -172,7 +230,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
     out = {}
     rng = np.random.default_rng(seed)
 
-    def run(name, make, batches):
+    def run(name, make, batches, expect=None):
+        """``expect``: the launches per wrapper this run must show (absent wrappers: none)."""
         gpu, cpu = make("cuda"), make("cpu")
         update_ms = []
         for wrapper in wrappers.values():
@@ -192,6 +251,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
         out[name] = {"updates": gpu.update_count, "first_update_ms": update_ms[0],
                      "later_update_ms_median": float(np.median(update_ms[1:])) if len(update_ms) > 1 else None,
                      "launches": launches}
+        if expect is not None:
+            out[name]["expected_launches"] = expect
         return gpu, cpu, got, want
 
     def acc_batches():
@@ -240,16 +301,17 @@ def main_path(seed: int, wrappers: dict) -> dict:
     out["StructuralSimilarityIndexMeasure"]["value"] = float(got)
     out["StructuralSimilarityIndexMeasure"]["abs_diff_vs_cpu"] = abs(float(got) - float(want))
     curve_family(rng, run, out)
+    stat_family(rng, run, out)
     return out
 
 
-def _agree(name, got, want, exact):
-    """Finite values of the CPU run's shapes; equal, or within CURVE_RTOL / CURVE_ATOL. Returns the largest
+def _agree(name, got, want, exact, rtol=CURVE_RTOL, atol=CURVE_ATOL):
+    """Finite values of the CPU run's shapes and dtypes; equal, or within ``rtol``/``atol``. Returns the largest
     absolute difference."""
     if isinstance(want, (list, tuple)):
         if not isinstance(got, (list, tuple)) or len(got) != len(want):
             fail(f"{name}: the card returned another structure than the CPU run")
-        return max([_agree(name, g, w, exact) for g, w in zip(got, want)] + [0.0])
+        return max([_agree(name, g, w, exact, rtol, atol) for g, w in zip(got, want)] + [0.0])
     got = got.cpu()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{name}: {got.dtype} {tuple(got.shape)} on the card, {want.dtype} {tuple(want.shape)} on the CPU")
@@ -257,8 +319,8 @@ def _agree(name, got, want, exact):
         fail(f"{name}: non-finite values on the card")
     if exact and not torch.equal(got, want):
         fail(f"{name}: the card's values differ from the CPU run's")
-    if not torch.allclose(got, want, rtol=CURVE_RTOL, atol=CURVE_ATOL):
-        fail(f"{name}: the card's values differ from the CPU run's beyond rtol {CURVE_RTOL}, atol {CURVE_ATOL}")
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        fail(f"{name}: the card's values differ from the CPU run's beyond rtol {rtol}, atol {atol}")
     return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
 
 
@@ -319,6 +381,136 @@ def curve_family(rng: np.random.Generator, run, out: dict) -> None:
             out[name]["value"] = float(got)
 
 
+def stat_family(rng: np.random.Generator, run, out: dict) -> None:
+    """The stat-score and confusion-matrix family on the main path. None of it launches a kernel: counters and
+    confusion matrices are plain tensor ops, so each run must show no launch; the float64 AUROC goes through
+    the float64 binned counts, one ``binned_counts`` launch per update."""
+    from metrics_tpu_torch import classification as tc
+
+    def imagenet_batch():
+        """10,000 x 1000 float32 logits whose top-1 is the target for about 75 % of the rows."""
+        target = rng.integers(0, IN_CLASSES, IN_BATCH)
+        guess = np.where(rng.random(IN_BATCH) < IN_TOP1, target, rng.integers(0, IN_CLASSES, IN_BATCH))
+        logits = rng.standard_normal((IN_BATCH, IN_CLASSES), dtype=np.float32)
+        logits[np.arange(IN_BATCH), guess] += 6.0  # above the row's other 999 normal draws
+        return torch.from_numpy(logits), torch.from_numpy(target)
+
+    imagenet = [imagenet_batch() for _ in range(IN_STEPS)]
+    top1 = float(np.mean([float((p.argmax(1) == t).float().mean()) for p, t in imagenet]))
+    log(f"ImageNet-1k inputs: {IN_STEPS} x {IN_BATCH} x {IN_CLASSES}, top-1 {top1:.4f}")
+
+    def coco_batch():
+        target = (rng.random((ML_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)
+        preds = ((rng.random((ML_N, ML_LABELS), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    coco = [coco_batch() for _ in range(PRC_STEPS)]
+
+    def grades():
+        target = rng.integers(0, KAPPA_GRADES, KAPPA_N)
+        preds = np.clip(target + rng.integers(-1, 2, KAPPA_N) * (rng.random(KAPPA_N) < 0.4), 0, KAPPA_GRADES - 1)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def binary64():
+        target = rng.integers(0, 2, BIN_N)
+        preds = (rng.random(BIN_N) + 0.5 * target) / 1.5  # float64
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    def shared(batches):
+        return lambda: iter(batches)
+
+    def batches(make, steps):
+        return lambda: (make() for _ in range(steps))
+
+    # (name, factory, batches, exact, rtol, atol, expected launches)
+    runs = [
+        ("ImageNet MulticlassPrecision", lambda d: tc.MulticlassPrecision(num_classes=IN_CLASSES, device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("ImageNet MulticlassRecall", lambda d: tc.MulticlassRecall(num_classes=IN_CLASSES, device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("ImageNet MulticlassF1Score", lambda d: tc.MulticlassF1Score(num_classes=IN_CLASSES, average="macro",
+                                                                      device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("ImageNet MulticlassConfusionMatrix", lambda d: tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES,
+                                                                                      device=d),
+         shared(imagenet), True, 0, 0, {}),
+        ("ImageNet MulticlassMatthewsCorrCoef", lambda d: tc.MulticlassMatthewsCorrCoef(num_classes=IN_CLASSES,
+                                                                                        device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("ImageNet MulticlassJaccardIndex", lambda d: tc.MulticlassJaccardIndex(num_classes=IN_CLASSES, device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("ImageNet MulticlassCalibrationError", lambda d: tc.MulticlassCalibrationError(
+            num_classes=IN_CLASSES, n_bins=15, norm="l1", device=d), shared(imagenet), False, SUM_RTOL, SUM_ATOL, {}),
+        ("ImageNet MulticlassPrecision[top_k=5]", lambda d: tc.MulticlassPrecision(num_classes=IN_CLASSES, top_k=5,
+                                                                                   device=d),
+         shared(imagenet), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelF1Score", lambda d: tc.MultilabelF1Score(num_labels=ML_LABELS, average="macro", device=d),
+         shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelHammingDistance", lambda d: tc.MultilabelHammingDistance(num_labels=ML_LABELS, device=d),
+         shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelExactMatch", lambda d: tc.MultilabelExactMatch(num_labels=ML_LABELS, device=d),
+         shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelCoverageError", lambda d: tc.MultilabelCoverageError(num_labels=ML_LABELS, device=d),
+         shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelRankingAveragePrecision", lambda d: tc.MultilabelRankingAveragePrecision(
+            num_labels=ML_LABELS, device=d), shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("COCO MultilabelRankingLoss", lambda d: tc.MultilabelRankingLoss(num_labels=ML_LABELS, device=d),
+         shared(coco), False, STAT_RTOL, STAT_ATOL, {}),
+        ("MulticlassCohenKappa[quadratic]", lambda d: tc.MulticlassCohenKappa(
+            num_classes=KAPPA_GRADES, weights="quadratic", device=d), batches(grades, PRC_STEPS), False,
+         STAT_RTOL, STAT_ATOL, {}),
+    ]
+    # every new class through its task wrapper for each task it has, on 2^16 rows
+    sizes = {"binary": {}, "multiclass": {"num_classes": 10}, "multilabel": {"num_labels": ML_LABELS}}
+
+    def logits(task):
+        if task == "binary":
+            return lambda: (torch.from_numpy(rng.standard_normal(WRAPPED_N, dtype=np.float32)),
+                            torch.from_numpy(rng.integers(0, 2, WRAPPED_N)))
+        if task == "multiclass":
+            return lambda: (torch.from_numpy(rng.standard_normal((WRAPPED_N, 10), dtype=np.float32)),
+                            torch.from_numpy(rng.integers(0, 10, WRAPPED_N)))
+        return lambda: (torch.from_numpy(rng.standard_normal((WRAPPED_N, ML_LABELS), dtype=np.float32)),
+                        torch.from_numpy((rng.random((WRAPPED_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)))
+
+    three = ("binary", "multiclass", "multilabel")
+    wrapped = [(tc.Precision, {}, three), (tc.Recall, {}, three), (tc.FBetaScore, {"beta": 2.0}, three),
+               (tc.F1Score, {}, three), (tc.Specificity, {}, three), (tc.NegativePredictiveValue, {}, three),
+               (tc.HammingDistance, {}, three), (tc.ConfusionMatrix, {}, three), (tc.JaccardIndex, {}, three),
+               (tc.MatthewsCorrCoef, {}, three), (tc.ExactMatch, {}, ("multiclass", "multilabel")),
+               (tc.CohenKappa, {}, ("binary", "multiclass")), (tc.CalibrationError, {}, ("binary", "multiclass")),
+               (tc.HingeLoss, {}, ("binary", "multiclass"))]
+    for cls, extra, tasks in wrapped:
+        for task in tasks:
+            def factory(d, cls=cls, task=task, extra=extra):
+                return cls(task=task, device=d, **sizes[task], **extra)
+            summed = cls in (tc.CalibrationError, tc.HingeLoss)
+            runs.append((f"{cls.__name__}[{task}]", factory, batches(logits(task), 1), cls is tc.ConfusionMatrix,
+                         SUM_RTOL if summed else STAT_RTOL, SUM_ATOL if summed else STAT_ATOL, {}))
+    runs.append(("Dice[multiclass,macro]", lambda d: tc.Dice(average="macro", num_classes=10, device=d),
+                 batches(logits("multiclass"), 1), False, STAT_RTOL, STAT_ATOL, {}))
+
+    for name, make, feed, exact, rtol, atol, expect in runs:
+        gpu, cpu, got, want = run(name, make, feed, expect)
+        _same_states(name, gpu, cpu, rtol, atol)
+        out[name]["max_abs_diff_vs_cpu"] = _agree(name, got, want, exact, rtol, atol)
+        if isinstance(got, torch.Tensor) and got.numel() == 1:
+            out[name]["value"] = float(got)
+
+    # float64 scores under torch's float64 default: the float64 binned counts, compared in float64
+    previous = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        name = "BinaryAUROC[float64]"
+        gpu, cpu, got, want = run(name, lambda d: tc.BinaryAUROC(thresholds=PRC_THRESHOLDS, device=d),
+                                  batches(binary64, PRC_STEPS), {"binned_counts": PRC_STEPS})
+        _same_states(name, gpu, cpu)
+        out[name]["max_abs_diff_vs_cpu"] = _agree(name, got, want, False)
+        out[name]["value"] = float(got)
+    finally:
+        torch.set_default_dtype(previous)
+
+
 # ----------------------------------------------------------------------------- phase 5
 def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     """Kernel, plain and library times at the main path's shapes; ``plain=False`` times the kernels only."""
@@ -368,6 +560,20 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         "ms": time_ms(lambda: binned_counts_labels(*largs), flush=flush),
         "plain_ms": time_ms(lambda: binned_counts_labels_plain(*largs), reps=5, flush=flush) if plain else None,
         **bound(moved, n * c * math.ceil(math.log2(t + 1))),
+        "library_ms": None,
+    }
+
+    # the float64 instantiation: binary scores of 8 bytes with float64 thresholds
+    n = BIN_N
+    preds64, grid64 = float64_near_grid(rng, (n, 1), t)
+    args64 = [torch.from_numpy(preds64).cuda(), torch.from_numpy(rng.integers(0, 2, (n, 1), dtype=np.int32)).cuda(),
+              torch.ones((n, 1), dtype=torch.bool, device="cuda"), torch.from_numpy(grid64).cuda()]
+    moved = n * (8 + 4 + 1) + 8 * t + 4 * (2 * t + 2)
+    res["binned_counts_f64[binary]"] = {
+        "shape": [n, 1, t],
+        "ms": time_ms(lambda: binned_counts(*args64), flush=flush),
+        "plain_ms": time_ms(lambda: binned_counts_plain(*args64), reps=5, flush=flush) if plain else None,
+        **bound(moved, n * math.ceil(math.log2(t + 1))),
         "library_ms": None,
     }
 
@@ -453,7 +659,9 @@ def main() -> int:
               "BinaryAUROC[exact,max_fpr=0.5]": {}}
     for metric in path:
         task = metric.rsplit("[", 1)[-1].rstrip("]")
-        if task in ("binary", "multilabel"):
+        if "expected_launches" in path[metric]:
+            expect[metric] = path[metric]["expected_launches"]
+        elif task in ("binary", "multilabel"):
             expect[metric] = {"binned_counts": 1}
         elif task == "multiclass":
             expect[metric] = {"binned_counts_labels": 1}
@@ -488,14 +696,17 @@ def main() -> int:
                                              "metrics_tpu/ops/binned_hist.py:151"),
                "binned_counts_labels[multiclass]": ("binned_counts_labels", "metrics_tpu_torch/csrc/binned_hist.cu",
                                                     "metrics_tpu/ops/binned_hist.py:151"),
+               "binned_counts_f64[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                             "metrics_tpu/ops/binned_hist.py:151"),
                "ssim_window": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
                                "metrics_tpu/ops/ssim_window.py:60")}
     kernels = []
     for key, (name, source, replaces) in sources.items():
         row = timing[key]
+        err = errs["binned_counts_f64" if key.startswith("binned_counts_f64") else name]
         kernels.append({
             "name": key, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
-            "max_abs_err": errs[name], "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
 

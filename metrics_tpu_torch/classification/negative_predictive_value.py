@@ -1,0 +1,109 @@
+"""Negative predictive value metrics.
+
+Counterpart of ``metrics_tpu/classification/negative_predictive_value.py``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import torch
+
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.stat_scores import BinaryStatScores, MulticlassStatScores, MultilabelStatScores
+from metrics_tpu_torch.functional.classification._reduce import _negative_predictive_value_reduce
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.enums import ClassificationTask
+
+Tensor = torch.Tensor
+
+
+class BinaryNegativePredictiveValue(BinaryStatScores):
+    """Compute NPV for binary tasks.
+
+    >>> target = torch.tensor([0, 1, 0, 1, 0, 1])
+    >>> preds = torch.tensor([0, 0, 1, 1, 0, 1])
+    >>> metric = BinaryNegativePredictiveValue(device="cpu")
+    >>> metric.update(preds, target)
+    >>> metric.compute()
+    tensor(0.6667)
+    """
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def compute(self) -> Tensor:
+        """Compute metric."""
+        tp, fp, tn, fn = self._final_state()
+        return _negative_predictive_value_reduce(
+            tp, fp, tn, fn, average="binary", multidim_average=self.multidim_average
+        )
+
+
+class MulticlassNegativePredictiveValue(MulticlassStatScores):
+    """Compute NPV for multiclass tasks."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def compute(self) -> Tensor:
+        """Compute metric."""
+        tp, fp, tn, fn = self._final_state()
+        return _negative_predictive_value_reduce(
+            tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average, top_k=self.top_k
+        )
+
+
+class MultilabelNegativePredictiveValue(MultilabelStatScores):
+    """Compute NPV for multilabel tasks."""
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def compute(self) -> Tensor:
+        """Compute metric."""
+        tp, fp, tn, fn = self._final_state()
+        return _negative_predictive_value_reduce(
+            tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average, multilabel=True
+        )
+
+
+class NegativePredictiveValue(_ClassificationTaskWrapper):
+    """Task-dispatching NPV."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        threshold: float = 0.5,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        average: Optional[str] = "micro",
+        multidim_average: str = "global",
+        top_k: Optional[int] = 1,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        """Initialize task metric."""
+        task = ClassificationTask.from_str(task)
+        kwargs.update({
+            "multidim_average": multidim_average,
+            "ignore_index": ignore_index,
+            "validate_args": validate_args,
+        })
+        if task == ClassificationTask.BINARY:
+            return BinaryNegativePredictiveValue(threshold, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            if not isinstance(num_classes, int):
+                raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
+            if not isinstance(top_k, int):
+                raise ValueError(f"`top_k` is expected to be `int` but `{type(top_k)}` was passed.")
+            return MulticlassNegativePredictiveValue(num_classes, top_k, average, **kwargs)
+        if task == ClassificationTask.MULTILABEL:
+            if not isinstance(num_labels, int):
+                raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
+            return MultilabelNegativePredictiveValue(num_labels, threshold, average, **kwargs)
+        raise ValueError(f"Not handled value: {task}")

@@ -43,9 +43,14 @@
 //      memset on the caller's stream before the launch.
 //   Where a (2, C, T+1) histogram does not fit a block's shared memory, the
 //   classes are tiled over blockIdx.y, and where one class's row does not fit
-//   either, the buckets too; thresholds beyond 12K stay in global memory.
+//   either, the buckets too; thresholds beyond 48 KB (12K floats, 6K doubles)
+//   stay in global memory.
 // Int32 counts are exact up to 2^31 - 1 rows, which removes the TPU kernel's
 // f32 bound of 2^24.
+// Scores and thresholds are float32, or float64 compared in float64 (the
+// JAX package's searchsorted branch under x64): one kernel templated on the
+// score type, a 16-byte load carrying four floats or two doubles, and a C
+// entry point per type (the `_f64` ones for double).
 // What still holds it back (H100, cold L2, CUDA events): a call of 1,024 rows
 // takes about 0.0145 ms, a trivial kernel 0.0053 ms, so about 0.009 ms of
 // every call is the ticket memset, the cluster launch and the tail after the
@@ -67,7 +72,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kCluster = 8;
 constexpr int kBlocksPerSm = 2;          // 64 registers a thread
 constexpr int kHistBudget = 64 * 1024;   // bytes of histogram per block: two blocks fit an SM
-constexpr int kThrInSmem = 12 * 1024;    // thresholds kept in shared memory up to this many
+constexpr int kThrSmemBytes = 48 * 1024;  // thresholds kept in shared memory up to this many bytes
 constexpr int kMinUnitsPerThread = 4;    // 16-byte loads per thread before another cluster is added
 
 struct Plan {
@@ -80,11 +85,26 @@ struct Plan {
   long long workspace_ints;  // tickets (class_chunks, padded to 4) + partials (clusters_x, 2, C, T + 1)
 };
 
+// +inf and NaN of the score type
+template <typename S>
+struct Lim;
+template <>
+struct Lim<float> {
+  static __device__ __forceinline__ float inf() { return CUDART_INF_F; }
+  static __device__ __forceinline__ float nan() { return CUDART_NAN_F; }
+};
+template <>
+struct Lim<double> {
+  static __device__ __forceinline__ double inf() { return CUDART_INF; }
+  static __device__ __forceinline__ double nan() { return CUDART_NAN; }
+};
+
+template <typename S>
 struct Args {
-  const float* preds;
+  const S* preds;
   const int32_t* target;  // (N, C) 0/1 targets, or (N,) labels
   const uint8_t* valid;   // (N, C), unused with labels
-  const float* thr;
+  const S* thr;
   long long n_rows;
   int num_c, t;
   Plan plan;
@@ -95,22 +115,24 @@ struct Args {
 
 // #thresholds <= p: a guess, probed against thr[b - 1] and thr[b]. A wrong
 // guess ends in a binary search over what the probes left open.
+template <typename S>
 struct Guess {  // bucket ~ (score - lo) * scale + 1 on an evenly spaced grid
-  float lo, scale;
+  S lo, scale;
   int t;
-  __device__ Guess(const float* thr, int t_) : t(t_) {
+  __device__ Guess(const S* thr, int t_) : t(t_) {
     lo = thr[0];
-    const float span = thr[t - 1] - lo;
-    scale = (t > 1 && span > 0.f && span < CUDART_INF_F) ? static_cast<float>(t - 1) / span : 0.f;
+    const S span = thr[t - 1] - lo;
+    scale = (t > 1 && span > S(0) && span < Lim<S>::inf()) ? static_cast<S>(t - 1) / span : S(0);
   }
-  __device__ __forceinline__ int operator()(float p) const {
-    const float g = (p - lo) * scale + 1.0f;
-    return g > 0.f ? (g < static_cast<float>(t) ? static_cast<int>(g) : t) : 0;  // NaN -> 0
+  __device__ __forceinline__ int operator()(S p) const {
+    const S g = (p - lo) * scale + S(1);
+    return g > S(0) ? (g < static_cast<S>(t) ? static_cast<int>(g) : t) : 0;  // NaN -> 0
   }
 };
 
 // First b in [lo, hi) with !(thr[b] <= p), else hi.
-__device__ __noinline__ int search(float p, const float* thr, int lo, int hi) {
+template <typename S>
+__device__ __noinline__ int search(S p, const S* thr, int lo, int hi) {
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
     if (thr[mid] <= p) {
@@ -123,7 +145,8 @@ __device__ __noinline__ int search(float p, const float* thr, int lo, int hi) {
 }
 
 // The bucket from its guess b and the thresholds just below and at it (thr[b - 1], thr[b]).
-__device__ __forceinline__ int settle(float p, int b, float below_thr, float at_thr, const float* thr, int t) {
+template <typename S>
+__device__ __forceinline__ int settle(S p, int b, S below_thr, S at_thr, const S* thr, int t) {
   const bool below = !(below_thr <= p);  // the answer is < b
   const bool above = at_thr <= p;        // the answer is > b
   if (!(below || above)) return b;
@@ -140,10 +163,10 @@ struct Counter {
   }
 };
 
-template <bool kSmemThr, int kN>
-__device__ __forceinline__ void buckets(const float (&p)[kN], int (&b)[kN], const float* ext, const Guess& guess,
-                                        const Args& a) {
-  float below[kN], at[kN];
+template <bool kSmemThr, typename S, int kN>
+__device__ __forceinline__ void buckets(const S (&p)[kN], int (&b)[kN], const S* ext, const Guess<S>& guess,
+                                        const Args<S>& a) {
+  S below[kN], at[kN];
 #pragma unroll
   for (int j = 0; j < kN; ++j) b[j] = guess(p[j]);
 #pragma unroll
@@ -152,8 +175,8 @@ __device__ __forceinline__ void buckets(const float (&p)[kN], int (&b)[kN], cons
       below[j] = ext[b[j]];
       at[j] = ext[b[j] + 1];
     } else {
-      below[j] = b[j] > 0 ? __ldg(a.thr + b[j] - 1) : -CUDART_INF_F;
-      at[j] = b[j] < a.t ? __ldg(a.thr + b[j]) : CUDART_NAN_F;
+      below[j] = b[j] > 0 ? __ldg(a.thr + b[j] - 1) : -Lim<S>::inf();
+      at[j] = b[j] < a.t ? __ldg(a.thr + b[j]) : Lim<S>::nan();
     }
   }
 #pragma unroll
@@ -175,16 +198,34 @@ struct RowClass {
 };
 
 // Four consecutive elements of the flat (N, C) array and what they are counted with.
+template <typename S>
 struct Unit {
-  float4 p;
+  S p[4];
   int4 y;       // (N, C) mode: targets
   uchar4 v;     // (N, C) mode: validity
   int lab0, lab1;  // labels mode: the labels of the unit's first row and the next
 };
 
-template <bool kLabels>
-__device__ __forceinline__ void load_unit(Unit& u, long long q, long long row, const Args& a) {
-  u.p = __ldcs(reinterpret_cast<const float4*>(a.preds) + q);
+// The q-th four scores: one 16-byte load of floats, two of doubles.
+__device__ __forceinline__ void load_scores(float (&p)[4], const float* preds, long long q) {
+  const float4 v = __ldcs(reinterpret_cast<const float4*>(preds) + q);
+  p[0] = v.x;
+  p[1] = v.y;
+  p[2] = v.z;
+  p[3] = v.w;
+}
+__device__ __forceinline__ void load_scores(double (&p)[4], const double* preds, long long q) {
+  const double2 lo = __ldcs(reinterpret_cast<const double2*>(preds) + 2 * q);
+  const double2 hi = __ldcs(reinterpret_cast<const double2*>(preds) + 2 * q + 1);
+  p[0] = lo.x;
+  p[1] = lo.y;
+  p[2] = hi.x;
+  p[3] = hi.y;
+}
+
+template <bool kLabels, typename S>
+__device__ __forceinline__ void load_unit(Unit<S>& u, long long q, long long row, const Args<S>& a) {
+  load_scores(u.p, a.preds, q);
   if constexpr (kLabels) {
     u.lab0 = __ldg(a.target + row);
     u.lab1 = row + 1 < a.n_rows ? __ldg(a.target + row + 1) : -1;
@@ -194,9 +235,15 @@ __device__ __forceinline__ void load_unit(Unit& u, long long q, long long row, c
   }
 }
 
-template <bool kLabels, bool kVec, bool kSmemThr>
+// Shared-memory ints that hold the t thresholds and their two guards, rounded up to 16 bytes.
+template <typename S>
+__host__ __device__ __forceinline__ int thr_smem_ints(int t) {
+  return ((t + 2) * static_cast<int>(sizeof(S) / 4) + 3) & ~3;
+}
+
+template <typename S, bool kLabels, bool kVec, bool kSmemThr>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBlocksPerSm)
-    binned_counts_kernel(Args a) {
+    binned_counts_kernel(Args<S> a) {
   extern __shared__ __align__(16) int smem[];
   __shared__ int s_last;
   const Plan& pl = a.plan;
@@ -207,16 +254,16 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBl
   const int b0 = bchunk * pl.bw;
   const int bw = min(pl.bw, a.t + 1 - b0);
 
-  float* ext = reinterpret_cast<float*>(smem);  // t + 2 floats when kSmemThr
-  int* hist = smem + (kSmemThr ? ((a.t + 2 + 3) & ~3) : 0);
+  S* ext = reinterpret_cast<S*>(smem);  // t + 2 scores when kSmemThr
+  int* hist = smem + (kSmemThr ? thr_smem_ints<S>(a.t) : 0);
   if constexpr (kSmemThr) {
     for (int i = threadIdx.x; i < a.t + 2; i += kThreads) {
-      ext[i] = i == 0 ? -CUDART_INF_F : (i <= a.t ? a.thr[i - 1] : CUDART_NAN_F);
+      ext[i] = i == 0 ? -Lim<S>::inf() : (i <= a.t ? a.thr[i - 1] : Lim<S>::nan());
     }
   }
   for (int i = threadIdx.x; i < pl.hist_ints; i += kThreads) hist[i] = 0;
   __syncthreads();
-  const Guess guess(kSmemThr ? ext + 1 : a.thr, a.t);
+  const Guess<S> guess(kSmemThr ? ext + 1 : a.thr, a.t);
 
   const Counter counter{hist, pl.cc, pl.bw, b0};
   const long long first = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -229,15 +276,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBl
     const long long d_row = (stride * 4) / num_c;
     const int d_ci = static_cast<int>((stride * 4) % num_c);
     RowClass rc{(first * 4) / num_c, static_cast<int>((first * 4) % num_c)};
-    Unit cur, nxt;
+    Unit<S> cur, nxt;
     if (first < units) load_unit<kLabels>(cur, first, rc.row, a);
     for (long long q = first; q < units; q += stride) {
       RowClass rn = rc;
       rn.advance(d_row, d_ci, num_c);
       if (q + stride < units) load_unit<kLabels>(nxt, q + stride, rn.row, a);  // in flight while this is bucketed
-      const float p[4] = {cur.p.x, cur.p.y, cur.p.z, cur.p.w};
       int b[4];
-      buckets<kSmemThr>(p, b, ext, guess, a);
+      buckets<kSmemThr>(cur.p, b, ext, guess, a);
       // element k's class: a unit's four classes wrap at most once past num_c, for num_c >= 2 (a unit
       // starts at a multiple of 4, so at class 0 when num_c == 2); with one class it is always 0
       if constexpr (kLabels) {  // num_c >= 2: a unit spans at most two rows
@@ -264,7 +310,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBl
       const long long el = units * 4 + first;
       const long long row = el / num_c;
       const int ci = static_cast<int>(el - row * num_c);
-      const float p[1] = {a.preds[el]};
+      const S p[1] = {a.preds[el]};
       int b[1];
       buckets<kSmemThr>(p, b, ext, guess, a);
       if constexpr (kLabels) {
@@ -281,7 +327,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBl
     const int d_ci = static_cast<int>(stride % cc);
     for (long long q = first; q < total; q += stride) {
       const long long el = rc.row * num_c + c_lo + rc.ci;
-      const float p[1] = {a.preds[el]};
+      const S p[1] = {a.preds[el]};
       int b[1];
       buckets<kSmemThr>(p, b, ext, guess, a);
       if constexpr (kLabels) {
@@ -385,9 +431,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, kBl
   }
 }
 
-template <bool kLabels, bool kVec, bool kSmemThr>
-cudaError_t launch_kernel(const Args& a, cudaStream_t stream) {
-  auto kernel = binned_counts_kernel<kLabels, kVec, kSmemThr>;
+template <typename S, bool kLabels, bool kVec, bool kSmemThr>
+cudaError_t launch_kernel(const Args<S>& a, cudaStream_t stream) {
+  auto kernel = binned_counts_kernel<S, kLabels, kVec, kSmemThr>;
   if (a.plan.smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                                  static_cast<int>(a.plan.smem));
@@ -398,6 +444,7 @@ cudaError_t launch_kernel(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename S>
 cudaError_t make_plan(long long n_rows, int num_c, int t, Plan* pl) {
   const long long row_bytes = 2LL * (t + 1) * 4;
   Plan p = {};
@@ -414,15 +461,15 @@ cudaError_t make_plan(long long n_rows, int num_c, int t, Plan* pl) {
   p.class_chunks = (num_c + p.cc - 1) / p.cc;
   p.bucket_chunks = (t + 1 + p.bw - 1) / p.bw;
   p.hist_ints = 2 * p.cc * p.bw;
-  p.thr_smem = t <= kThrInSmem;
-  p.smem = (p.thr_smem ? 4 * static_cast<size_t>((t + 2 + 3) & ~3) : 0) + 4 * static_cast<size_t>(p.hist_ints);
+  p.thr_smem = static_cast<long long>(t) * sizeof(S) <= kThrSmemBytes;
+  p.smem = 4 * static_cast<size_t>((p.thr_smem ? thr_smem_ints<S>(t) : 0) + p.hist_ints);
 
   // clusters: as many as stay resident, but no more than the work needs
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(kCluster, 1, 1);
   config.blockDim = dim3(kThreads, 1, 1);
   config.dynamicSmemBytes = p.smem;
-  auto probe = binned_counts_kernel<false, true, true>;
+  auto probe = binned_counts_kernel<S, false, true, true>;
   if (p.smem > 48 * 1024) {
     const cudaError_t err =
         cudaFuncSetAttribute(probe, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(p.smem));
@@ -443,27 +490,20 @@ cudaError_t make_plan(long long n_rows, int num_c, int t, Plan* pl) {
   return cudaSuccess;
 }
 
-}  // namespace
-
-// The int32 workspace a call with these sizes needs, or -(CUDA error) if the plan failed.
-extern "C" long long binned_counts_workspace(long long n_rows, int num_c, int t) {
+template <typename S>
+long long plan_workspace(long long n_rows, int num_c, int t) {
   Plan p;
-  const cudaError_t err = make_plan(n_rows, num_c, t, &p);
+  const cudaError_t err = make_plan<S>(n_rows, num_c, t, &p);
   return err == cudaSuccess ? p.workspace_ints : -static_cast<long long>(err);
 }
 
-// preds (N, C) f32; with labels == 0, target (N, C) int32 and valid (N, C) bool;
-// with labels != 0, target (N,) int32 labels and valid unused. thr (T,) f32
-// ascending; all contiguous on one device. workspace: binned_counts_workspace()
-// int32s, any contents. Outputs tp, fp (C, T) and pos_tot, neg_tot (C,), int32.
-// Returns cudaGetLastError() of the launch.
-extern "C" int binned_counts_launch(const float* preds, const int32_t* target, const uint8_t* valid, const float* thr,
-                                    long long n_rows, int num_c, int t, int labels, int* workspace,
-                                    long long workspace_ints, int* tp, int* fp, int* pos_tot, int* neg_tot,
-                                    void* stream_handle) {
+template <typename S>
+int launch(const S* preds, const int32_t* target, const uint8_t* valid, const S* thr, long long n_rows, int num_c,
+           int t, int labels, int* workspace, long long workspace_ints, int* tp, int* fp, int* pos_tot, int* neg_tot,
+           void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  Args a = {};
-  cudaError_t err = make_plan(n_rows, num_c, t, &a.plan);
+  Args<S> a = {};
+  cudaError_t err = make_plan<S>(n_rows, num_c, t, &a.plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (workspace_ints < a.plan.workspace_ints) return static_cast<int>(cudaErrorInvalidValue);
   a.preds = preds;
@@ -488,16 +528,51 @@ extern "C" int binned_counts_launch(const float* preds, const int32_t* target, c
   const bool smem_thr = a.plan.thr_smem != 0;
   if (labels) {
     if (vec) {
-      err = smem_thr ? launch_kernel<true, true, true>(a, stream) : launch_kernel<true, true, false>(a, stream);
+      err = smem_thr ? launch_kernel<S, true, true, true>(a, stream) : launch_kernel<S, true, true, false>(a, stream);
     } else {
-      err = smem_thr ? launch_kernel<true, false, true>(a, stream) : launch_kernel<true, false, false>(a, stream);
+      err = smem_thr ? launch_kernel<S, true, false, true>(a, stream)
+                     : launch_kernel<S, true, false, false>(a, stream);
     }
   } else {
     if (vec) {
-      err = smem_thr ? launch_kernel<false, true, true>(a, stream) : launch_kernel<false, true, false>(a, stream);
+      err = smem_thr ? launch_kernel<S, false, true, true>(a, stream)
+                     : launch_kernel<S, false, true, false>(a, stream);
     } else {
-      err = smem_thr ? launch_kernel<false, false, true>(a, stream) : launch_kernel<false, false, false>(a, stream);
+      err = smem_thr ? launch_kernel<S, false, false, true>(a, stream)
+                     : launch_kernel<S, false, false, false>(a, stream);
     }
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// The int32 workspace a call with these sizes needs, or -(CUDA error) if the plan failed.
+extern "C" long long binned_counts_workspace(long long n_rows, int num_c, int t) {
+  return plan_workspace<float>(n_rows, num_c, t);
+}
+extern "C" long long binned_counts_workspace_f64(long long n_rows, int num_c, int t) {
+  return plan_workspace<double>(n_rows, num_c, t);
+}
+
+// preds (N, C) f32; with labels == 0, target (N, C) int32 and valid (N, C) bool;
+// with labels != 0, target (N,) int32 labels and valid unused. thr (T,) f32
+// ascending; all contiguous on one device. workspace: binned_counts_workspace()
+// int32s, any contents. Outputs tp, fp (C, T) and pos_tot, neg_tot (C,), int32.
+// Returns cudaGetLastError() of the launch.
+extern "C" int binned_counts_launch(const float* preds, const int32_t* target, const uint8_t* valid, const float* thr,
+                                    long long n_rows, int num_c, int t, int labels, int* workspace,
+                                    long long workspace_ints, int* tp, int* fp, int* pos_tot, int* neg_tot,
+                                    void* stream_handle) {
+  return launch<float>(preds, target, valid, thr, n_rows, num_c, t, labels, workspace, workspace_ints, tp, fp,
+                       pos_tot, neg_tot, stream_handle);
+}
+
+// The same with f64 preds and thresholds (and binned_counts_workspace_f64() int32s of workspace).
+extern "C" int binned_counts_launch_f64(const double* preds, const int32_t* target, const uint8_t* valid,
+                                        const double* thr, long long n_rows, int num_c, int t, int labels,
+                                        int* workspace, long long workspace_ints, int* tp, int* fp, int* pos_tot,
+                                        int* neg_tot, void* stream_handle) {
+  return launch<double>(preds, target, valid, thr, n_rows, num_c, t, labels, workspace, workspace_ints, tp, fp,
+                        pos_tot, neg_tot, stream_handle);
 }

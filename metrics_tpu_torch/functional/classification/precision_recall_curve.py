@@ -189,20 +189,34 @@ def _float32_thresholds(thresholds: Tensor) -> Tensor:
     return torch.where(rounded_down, torch.nextafter(t32, torch.full_like(t32, torch.inf)), t32).contiguous()
 
 
+def _kernel_operands(preds: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+    """Scores and sorted thresholds in the type the kernel compares them in.
+
+    The compare runs in the promoted type of the two, as the JAX package's
+    ``searchsorted`` branch does under x64: float64 scores go to the kernel's
+    float64 instantiation with their thresholds widened to float64 (exact for
+    a float32 grid). float32 scores stay float32 with any grid, through
+    :func:`_float32_thresholds`, which is exact for them; float16 and bfloat16
+    scores are widened to float32. Under torch's default float32 the JAX
+    package turns float64 input into float32, so it has no float64 compare to
+    match; the port still compares a caller's float64 tensor in float64.
+    """
+    if preds.dtype == torch.float64:
+        return preds.contiguous(), thresholds.double().contiguous()
+    return preds.float().contiguous(), _float32_thresholds(thresholds)
+
+
 def _binned_confusion_tensor(preds: Tensor, target01: Tensor, valid: Tensor, thresholds: Tensor) -> Tensor:
     """(N, C) scores to the (T, C, 2, 2) multi-threshold confusion tensor, int32.
 
     The kernel needs ascending thresholds; the rows come back in the caller's
     threshold order (a stable sort and its inverse permutation, so tied
-    thresholds keep their places).
+    thresholds keep their places). Scores and thresholds are compared as
+    :func:`_kernel_operands` says.
     """
     order = torch.argsort(thresholds, stable=True)
-    counts = binned_counts(
-        preds.float().contiguous(),
-        target01.int().contiguous(),
-        valid.bool().contiguous(),
-        _float32_thresholds(thresholds[order]),
-    )
+    scores, thr = _kernel_operands(preds, thresholds[order])
+    counts = binned_counts(scores, target01.int().contiguous(), valid.bool().contiguous(), thr)
     return _confusion_from_counts(counts, order)
 
 
@@ -210,9 +224,8 @@ def _binned_confusion_tensor_labels(preds: Tensor, labels: Tensor, thresholds: T
     """:func:`_binned_confusion_tensor` of the one-vs-rest targets ``labels == c`` and the mask
     ``labels >= 0``, through the kernel's labels mode: no (N, C) one-hot is built."""
     order = torch.argsort(thresholds, stable=True)
-    counts = binned_counts_labels(
-        preds.float().contiguous(), labels.int().contiguous(), _float32_thresholds(thresholds[order])
-    )
+    scores, thr = _kernel_operands(preds, thresholds[order])
+    counts = binned_counts_labels(scores, labels.int().contiguous(), thr)
     return _confusion_from_counts(counts, order)
 
 

@@ -8,6 +8,8 @@ over negatives (target 0), and the totals count each class's valid positives
 and negatives. A NaN score meets no threshold; so does a NaN threshold.
 :func:`binned_counts_labels` is the same kernel's labels mode: (N,) int32
 labels stand for the targets ``label == c`` and the mask ``label >= 0``.
+Scores and thresholds are both float32 or both float64, and are compared in
+that type; any other pairing raises.
 
 On a CUDA tensor each launches the kernel of ``csrc/binned_hist.cu``; on a CPU
 tensor it runs its plain version, which is also the kernel's oracle: the
@@ -35,9 +37,10 @@ def binned_counts_plain(
 ) -> Counts:
     """The plain PyTorch version: bucketize, one histogram per class, suffix sums.
 
-    Bucket ``b`` = #thresholds ``<= score``, so ``score >= thr[t]`` exactly when
-    ``t < b``; a histogram over (C, T + 1) buckets and a suffix sum give every
-    count. Positives and negatives outside the mask go to a dead bin.
+    Bucket ``b`` = #thresholds ``<= score`` (compared in the scores' own type),
+    so ``score >= thr[t]`` exactly when ``t < b``; a histogram over (C, T + 1)
+    buckets and a suffix sum give every count. Positives and negatives outside
+    the mask go to a dead bin.
     """
     num_c = preds.shape[1]
     len_t = thresholds.shape[0]
@@ -75,16 +78,29 @@ def binned_counts_labels_plain(preds: torch.Tensor, labels: torch.Tensor, thresh
     return binned_counts_plain(preds, target01, valid, thresholds)
 
 
+_SCORE_TYPES = (torch.float32, torch.float64)
+
+
 def _library() -> ctypes.CDLL:
     lib = _native.load("binned_hist")
     p = ctypes.c_void_p
     ll = ctypes.c_longlong
     i = ctypes.c_int
-    lib.binned_counts_workspace.argtypes = [ll, i, i]
-    lib.binned_counts_workspace.restype = ll
-    lib.binned_counts_launch.argtypes = [p, p, p, p, ll, i, i, i, p, ll, p, p, p, p, p]
-    lib.binned_counts_launch.restype = i
+    for suffix in ("", "_f64"):
+        getattr(lib, "binned_counts_workspace" + suffix).argtypes = [ll, i, i]
+        getattr(lib, "binned_counts_workspace" + suffix).restype = ll
+        getattr(lib, "binned_counts_launch" + suffix).argtypes = [p, p, p, p, ll, i, i, i, p, ll, p, p, p, p, p]
+        getattr(lib, "binned_counts_launch" + suffix).restype = i
     return lib
+
+
+def _check_score_types(preds: torch.Tensor, thresholds: torch.Tensor, what: str) -> None:
+    """Raise unless scores and thresholds are both float32 or both float64 (checked on every device)."""
+    if preds.dtype not in _SCORE_TYPES or thresholds.dtype != preds.dtype:
+        raise TypeError(
+            f"{what} expects float32 preds with float32 thresholds or float64 with float64,"
+            f" got {preds.dtype} and {thresholds.dtype}"
+        )
 
 
 def _check(tensors, preds: torch.Tensor, thresholds: torch.Tensor, what: str) -> None:
@@ -105,11 +121,12 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
             what: str) -> Counts:
     """One kernel launch (after a memset of the tickets); outputs and workspace from ``torch.empty``."""
     lib = _library()
+    suffix = "_f64" if preds.dtype == torch.float64 else ""
     n, num_c = preds.shape
     len_t = thresholds.shape[0]
     device = preds.device
     with torch.cuda.device(device):
-        ws_ints = lib.binned_counts_workspace(n, num_c, len_t)
+        ws_ints = getattr(lib, "binned_counts_workspace" + suffix)(n, num_c, len_t)
         if ws_ints < 0:
             _native.check(lib, int(-ws_ints), f"{what} plan")
         workspace = torch.empty((ws_ints,), dtype=torch.int32, device=device)
@@ -117,7 +134,7 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
         fp = torch.empty_like(tp)
         pos_tot = torch.empty((num_c,), dtype=torch.int32, device=device)
         neg_tot = torch.empty_like(pos_tot)
-        rc = lib.binned_counts_launch(
+        rc = getattr(lib, "binned_counts_launch" + suffix)(
             preds.data_ptr(), target.data_ptr(), None if valid is None else valid.data_ptr(), thresholds.data_ptr(),
             n, num_c, len_t, int(labels), workspace.data_ptr(), ws_ints, tp.data_ptr(), fp.data_ptr(),
             pos_tot.data_ptr(), neg_tot.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
@@ -129,9 +146,12 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
 def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> Counts:
     """``(tp, fp, pos_tot, neg_tot)``: the kernel on a CUDA tensor, the plain version on a CPU tensor.
 
-    ``preds`` (N, C) float32, ``target01`` (N, C) int32, ``valid`` (N, C) bool and
-    ``thresholds`` (T,) float32 ascending, all contiguous on one device.
+    ``preds`` (N, C) float32 or float64, ``target01`` (N, C) int32, ``valid``
+    (N, C) bool and ``thresholds`` (T,) ascending in the type of ``preds``, all
+    contiguous on one device. A float64 call counts under this wrapper's
+    ``launches`` too.
     """
+    _check_score_types(preds, thresholds, "binned_counts")
     if preds.device.type == "cpu":
         return binned_counts_plain(preds, target01, valid, thresholds)
     if preds.device.type != "cuda":
@@ -141,8 +161,8 @@ def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tens
             "binned_counts expects preds, target01 and valid of one (N, C) shape and (T,) thresholds, got"
             f" {tuple(preds.shape)}, {tuple(target01.shape)}, {tuple(valid.shape)} and {tuple(thresholds.shape)}"
         )
-    _check(((preds, torch.float32, "preds"), (target01, torch.int32, "target01"), (valid, torch.bool, "valid"),
-            (thresholds, torch.float32, "thresholds")), preds, thresholds, "binned_counts")
+    _check(((preds, preds.dtype, "preds"), (target01, torch.int32, "target01"), (valid, torch.bool, "valid"),
+            (thresholds, preds.dtype, "thresholds")), preds, thresholds, "binned_counts")
     out = _launch(preds, target01, valid, thresholds, False, "binned_counts")
     binned_counts.launches += 1
     return out
@@ -154,10 +174,12 @@ binned_counts.launches = 0
 def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
     """The labels mode: :func:`binned_counts` of ``(label == c)`` targets and ``(label >= 0)`` validity.
 
-    ``preds`` (N, C) float32, ``labels`` (N,) int32 and ``thresholds`` (T,)
-    float32 ascending, all contiguous on one device. The kernel reads the labels
-    in place of an (N, C) one-hot and mask; the counts are the same.
+    ``preds`` (N, C) float32 or float64, ``labels`` (N,) int32 and
+    ``thresholds`` (T,) ascending in the type of ``preds``, all contiguous on
+    one device. The kernel reads the labels in place of an (N, C) one-hot and
+    mask; the counts are the same.
     """
+    _check_score_types(preds, thresholds, "binned_counts_labels")
     if preds.device.type == "cpu":
         return binned_counts_labels_plain(preds, labels, thresholds)
     if preds.device.type != "cuda":
@@ -167,8 +189,8 @@ def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: 
             "binned_counts_labels expects (N, C) preds, (N,) labels and (T,) thresholds, got"
             f" {tuple(preds.shape)}, {tuple(labels.shape)} and {tuple(thresholds.shape)}"
         )
-    _check(((preds, torch.float32, "preds"), (labels, torch.int32, "labels"),
-            (thresholds, torch.float32, "thresholds")), preds, thresholds, "binned_counts_labels")
+    _check(((preds, preds.dtype, "preds"), (labels, torch.int32, "labels"),
+            (thresholds, preds.dtype, "thresholds")), preds, thresholds, "binned_counts_labels")
     out = _launch(preds, labels, None, thresholds, True, "binned_counts_labels")
     binned_counts_labels.launches += 1
     return out

@@ -84,3 +84,18 @@ def bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     tensor([1, 0, 2, 0, 0, 1])
     """
     return torch.bincount(x.reshape(-1), minlength=minlength)[:minlength]
+
+
+def bincount_weighted(x: torch.Tensor, weights: torch.Tensor, minlength: int) -> torch.Tensor:
+    """Sums of ``weights`` by the value of ``x`` in ``[0, minlength)``, in the weights' type.
+
+    Every value of ``x`` must lie in ``[0, minlength)``. The sums are float sums:
+    their order differs from the JAX package's, and on a CUDA device from one
+    run to the next, so they agree to rounding, not bit for bit.
+
+    >>> bincount_weighted(torch.tensor([0, 2, 2]), torch.tensor([0.5, 1.0, 2.0]), minlength=3)
+    tensor([0.5000, 0.0000, 3.0000])
+    """
+    weights = weights.reshape(-1)
+    out = torch.zeros(minlength, dtype=weights.dtype, device=weights.device)
+    return out.index_add_(0, x.reshape(-1), weights)

@@ -47,3 +47,25 @@ class ClassificationTask(EnumStr):
     BINARY = "binary"
     MULTICLASS = "multiclass"
     MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoBinary(EnumStr):
+    """The classification tasks but binary."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    MULTICLASS = "multiclass"
+    MULTILABEL = "multilabel"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """The classification tasks but multilabel."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Classification"
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"

@@ -185,11 +185,72 @@ def test_ssim_kernel_matches_plain_on_unaligned_planes(cuda_device):
     torch.testing.assert_close(ssim_window(x, taps, taps), ssim_window_plain(x, taps, taps), rtol=0, atol=SSIM_ATOL)
 
 
+def _float64_near_thresholds(shape, t, seed):
+    """float64 scores: a third uniform, a third on the float64 grid, a third within half a float32 ulp of it
+    (above and below), and a few NaNs; with the (T,) float64 grid."""
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds
+
+    rng = np.random.RandomState(seed)
+    grid = _linspace_thresholds(t, torch.float64)
+    on = grid[rng.randint(0, t, shape)]
+    half_ulp = np.spacing(np.abs(on).astype(np.float32)).astype(np.float64) / 4
+    near = on + np.where(rng.rand(*shape) < 0.5, -1, 1) * half_ulp * rng.rand(*shape)
+    which = rng.randint(0, 3, shape)
+    preds = np.where(which == 0, rng.rand(*shape), np.where(which == 1, on, near))
+    preds[rng.rand(*shape) < 0.01] = np.nan
+    return torch.from_numpy(preds), torch.from_numpy(grid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("n", "c", "t"), [(1000, 1, 5), (257, 3, 17), (1 << 16, 10, 200), (4096, 300, 200),
+                                           (3000, 2, 20000), (1 << 18, 80, 200), (1 << 22, 1, 200)])
+def test_binned_kernel_float64_matches_plain_in_both_modes(cuda_device, n, c, t):
+    """The float64 instantiation compares in float64: scores on a threshold and within half a float32 ulp of
+    one count as the plain version (float64 searchsorted) counts them, in the (N, C) and the labels mode."""
+    preds, thresholds = _float64_near_thresholds((n, c), t, 5)
+    preds, thresholds = preds.to(cuda_device), thresholds.to(cuda_device)
+    rng = np.random.RandomState(6)
+    target01 = torch.from_numpy(rng.randint(0, 2, (n, c)).astype(np.int32)).to(cuda_device)
+    valid = torch.from_numpy(rng.rand(n, c) > 0.1).to(cuda_device)
+    before = binned_counts.launches
+    got = binned_counts(preds, target01, valid, thresholds)
+    torch.cuda.synchronize()
+    assert binned_counts.launches == before + 1
+    for g, w in zip(got, binned_counts_plain(preds, target01, valid, thresholds)):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    if c > 1:
+        labels = torch.from_numpy(rng.randint(-1, c + 1, n).astype(np.int32)).to(cuda_device)
+        before = binned_counts_labels.launches
+        got = binned_counts_labels(preds, labels, thresholds)
+        torch.cuda.synchronize()
+        assert binned_counts_labels.launches == before + 1
+        for g, w in zip(got, binned_counts_labels_plain(preds, labels, thresholds)):
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_binned_kernel_float64_differs_from_float32_where_it_should(cuda_device):
+    """Scores just below a threshold, by less than half a float32 ulp: float64 does not count them, a
+    float32 compare of the rounded scores would; the kernel gives the float64 counts."""
+    thresholds = torch.tensor([0.1, 0.3, 0.7], dtype=torch.float64, device=cuda_device)
+    preds = (thresholds - 1e-12).repeat(5)[:, None]
+    target01 = torch.ones_like(preds, dtype=torch.int32)
+    valid = torch.ones_like(preds, dtype=torch.bool)
+    tp = binned_counts(preds, target01, valid, thresholds)[0]
+    tp32 = binned_counts_plain(preds.float(), target01, valid, thresholds.float())[0]
+    assert tp.cpu().tolist() == [[10, 5, 0]]
+    assert tp32.tolist() == [[15, 10, 5]]
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_what_they_do_not_take(cuda_device):
     args = _binned_args(16, 2, 5, 0, cuda_device)
     with pytest.raises(TypeError, match="target01"):
         binned_counts(args[0], args[1].long(), args[2], args[3])
+    with pytest.raises(TypeError, match="float64 with float64"):
+        binned_counts(args[0].double(), args[1], args[2], args[3])
+    with pytest.raises(TypeError, match="float64 with float64"):
+        binned_counts_labels(args[0], args[1][:, 0].contiguous(), args[3].double())
     with pytest.raises(ValueError, match="taps"):
         ssim_window(torch.rand(2, 80, 80, device=cuda_device), [0.01] * 65, [1.0])
 
@@ -217,3 +278,65 @@ def test_slice_on_card_goes_through_both_kernels(cuda_device):
                   torch.from_numpy(rng.randint(0, 2, (300, 80))).to(cuda_device))
     assert bool(torch.isfinite(ml.compute()))
     assert binned_counts.launches == 2 and binned_counts_labels.launches == 0
+
+
+@pytest.mark.cuda
+def test_stat_score_family_on_card_matches_cpu_and_launches_no_kernel(cuda_device):
+    """Every class of the stat-score and confusion-matrix family, through its task wrapper for each task,
+    on the card against the CPU: counters equal, scores within rtol 1e-5 (float sums within 1e-4), and no
+    kernel launched."""
+    rng = np.random.RandomState(30)
+    n, c = 4096, 10
+    data = {"binary": (rng.randn(n).astype(np.float32), rng.randint(0, 2, n)),
+            "multiclass": (rng.randn(n, c).astype(np.float32), rng.randint(0, c, n)),
+            "multilabel": (rng.randn(n, c).astype(np.float32), rng.randint(0, 2, (n, c)))}
+    sizes = {"binary": {}, "multiclass": {"num_classes": c}, "multilabel": {"num_labels": c}}
+    three = ("binary", "multiclass", "multilabel")
+    classes = [(tc.Precision, {}, three), (tc.Recall, {}, three), (tc.FBetaScore, {"beta": 0.5}, three),
+               (tc.F1Score, {}, three), (tc.Specificity, {}, three), (tc.NegativePredictiveValue, {}, three),
+               (tc.HammingDistance, {}, three), (tc.ConfusionMatrix, {"normalize": "true"}, three),
+               (tc.JaccardIndex, {}, three), (tc.MatthewsCorrCoef, {}, three),
+               (tc.ExactMatch, {}, ("multiclass", "multilabel")), (tc.CohenKappa, {"weights": "linear"},
+                                                                   ("binary", "multiclass")),
+               (tc.CalibrationError, {}, ("binary", "multiclass")), (tc.HingeLoss, {}, ("binary", "multiclass"))]
+    metrics = [(f"{cls.__name__}[{task}]", task, lambda d, cls=cls, task=task, extra=extra:
+                cls(task=task, device=d, **sizes[task], **extra)) for cls, extra, tasks in classes for task in tasks]
+    metrics += [(f"{cls.__name__}", "multilabel", lambda d, cls=cls: cls(num_labels=c, device=d))
+                for cls in (tc.MultilabelCoverageError, tc.MultilabelRankingAveragePrecision,
+                            tc.MultilabelRankingLoss)]
+    metrics.append(("Dice", "multiclass", lambda d: tc.Dice(average="macro", num_classes=c, device=d)))
+    binned_counts.launches = binned_counts_labels.launches = ssim_window.launches = 0
+    for name, task, make in metrics:
+        preds, target = (torch.from_numpy(x) for x in data[task])
+        gpu, cpu = make(cuda_device), make("cpu")
+        gpu.update(preds.to(cuda_device), target.to(cuda_device))
+        cpu.update(preds, target)
+        got, want = gpu.compute().cpu(), cpu.compute()
+        summed = name.startswith(("CalibrationError", "HingeLoss"))
+        assert got.dtype == want.dtype, name
+        torch.testing.assert_close(got, want, rtol=1e-4 if summed else 1e-5, atol=1e-6, msg=name)
+    torch.cuda.synchronize()
+    assert binned_counts.launches == binned_counts_labels.launches == ssim_window.launches == 0
+
+
+@pytest.mark.cuda
+def test_float64_auroc_on_card_goes_through_the_float64_kernel(cuda_device):
+    """Under torch's float64 default, float64 scores reach the float64 binned counts, one launch per update,
+    and count as on the CPU."""
+    previous = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        preds, grid = _float64_near_thresholds((1 << 16,), 200, 31)
+        target = torch.from_numpy(np.random.RandomState(32).randint(0, 2, 1 << 16))
+        gpu = tc.BinaryAUROC(thresholds=200, device=cuda_device)
+        cpu = tc.BinaryAUROC(thresholds=200, device="cpu")
+        preds = torch.nan_to_num(preds, nan=0.5)
+        binned_counts.launches = 0
+        for part in (slice(0, 1 << 15), slice(1 << 15, None)):
+            gpu.update(preds[part].to(cuda_device), target[part].to(cuda_device))
+            cpu.update(preds[part], target[part])
+        assert binned_counts.launches == 2
+        torch.testing.assert_close(gpu.confmat.cpu(), cpu.confmat, rtol=0, atol=0)
+        torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-6)
+    finally:
+        torch.set_default_dtype(previous)
