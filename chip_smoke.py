@@ -31,7 +31,20 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    15-bin ECE), F1, Hamming, exact match and the three ranking metrics on the
    COCO-80 multilabel inputs, quadratic-weighted kappa over 5 grades, a
    float64 binary AUROC under torch's float64 default (the float64 binned
-   counts), and every new class through its task wrapper for each task;
+   counts), and every new class through its task wrapper for each task; then
+   the collection, aggregation and sync layer: the ImageNet-1k evaluation as
+   one ``MetricCollection`` (its compute groups, beside a ``MeanMetric`` of the
+   cross-entropy, a ``SumMetric`` of the samples and a ``CatMetric`` of the
+   arg-max predictions), multilabel AP and AUROC over the COCO-80 inputs in one
+   collection (one compute group: one binned-counts launch per update with the
+   group given, four in three updates when detected), MSE, MAE, Pearson and
+   Spearman over 2^22 samples with RMSE as ``MeanSquaredError() ** 0.5`` and the
+   ImageNet collection driven through ``functional()``, group fairness over the
+   five race groups of the UCI Adult census data on 2^20 rows, the NCCL sync in
+   a process group of one (and what gloo does with CUDA tensors), two
+   processes on the one card syncing CUDA tensors through gloo, and four
+   ranks' states folded on the card by ``allreduce_over_mesh`` against the
+   single stream;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes, beside the least time the card
    could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
@@ -72,6 +85,12 @@ IN_CLASSES, IN_BATCH, IN_STEPS, IN_TOP1 = 1000, 10_000, 5, 0.75
 KAPPA_N, KAPPA_GRADES = 1 << 16, 5  # quadratic-weighted kappa over 5 grades (diabetic-retinopathy grading)
 STAT_RTOL, STAT_ATOL = 1e-5, 1e-6  # scores from equal counters, reduced on the card in another order
 SUM_RTOL, SUM_ATOL = 1e-4, 1e-6  # ECE and hinge: float sums over 10^4-10^5 samples in another order
+REG_N, REG_STEPS = 1 << 20, 4  # regression: 2^22 float32 samples in 4 updates
+CORR_RTOL = 1e-4  # Pearson and Spearman, as the JAX package's multi-chip dryrun holds them
+FOLD_RTOL = 1e-5  # float scores and sums folded from four ranks against the single stream
+# group fairness over the five race groups of the UCI Adult census data (White, Black, Asian-Pac-Islander,
+# Amer-Indian-Eskimo, Other, in the data's proportions); 2^20 rows, about 21 Adult sets, in 4 updates
+FAIR_N, FAIR_STEPS, FAIR_GROUPS = 1 << 18, 4, [0.854, 0.096, 0.031, 0.010, 0.009]
 
 
 def log(msg: str) -> None:
@@ -302,6 +321,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     out["StructuralSimilarityIndexMeasure"]["abs_diff_vs_cpu"] = abs(float(got) - float(want))
     curve_family(rng, run, out)
     stat_family(rng, run, out)
+    collections_and_sync(seed, wrappers, out)
     return out
 
 
@@ -509,6 +529,484 @@ def stat_family(rng: np.random.Generator, run, out: dict) -> None:
         out[name]["value"] = float(got)
     finally:
         torch.set_default_dtype(previous)
+
+
+def _median_ms(times):
+    return float(np.median(times[1:])) if len(times) > 1 else None
+
+
+def _timed(fn):
+    """``fn()`` between two synchronizations; returns (result, ms)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn()
+    torch.cuda.synchronize()
+    return result, 1000 * (time.perf_counter() - t0)
+
+
+def _agree_dict(name, got, want, exact, rtol, atol=0.0):
+    if sorted(got) != sorted(want):
+        fail(f"{name}: keys {sorted(got)} on the card, {sorted(want)} on the CPU")
+    return max(_agree(f"{name}[{k}]", got[k], want[k], exact and not want[k].is_floating_point(), rtol, atol)
+               for k in want)
+
+
+def collections_and_sync(seed: int, wrappers: dict, out: dict) -> None:
+    """The collection, aggregation and sync layer on the main path; each run with every wrapper's launch count
+    set to 0 just before it and read just after, and its expected launches."""
+    from metrics_tpu_torch import CatMetric, MeanMetric, MetricCollection, SumMetric
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+
+    rng = np.random.default_rng(seed + 5)
+
+    def counting(name, expect, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = body()
+        torch.cuda.synchronize()
+        out.setdefault(name, {}).update({"launches": {k: w.launches for k, w in wrappers.items()},
+                                         "expected_launches": expect})
+        return result
+
+    # 1. the ImageNet-1k evaluation as one collection, beside three aggregators
+    def imagenet_batch():
+        target = rng.integers(0, IN_CLASSES, IN_BATCH)
+        guess = np.where(rng.random(IN_BATCH) < IN_TOP1, target, rng.integers(0, IN_CLASSES, IN_BATCH))
+        logits = rng.standard_normal((IN_BATCH, IN_CLASSES), dtype=np.float32)
+        logits[np.arange(IN_BATCH), guess] += 6.0
+        return torch.from_numpy(logits), torch.from_numpy(target)
+
+    imagenet = [imagenet_batch() for _ in range(IN_STEPS)]
+    imagenet_gpu = [(p.cuda(), t.cuda()) for p, t in imagenet]
+
+    def members(d):
+        return [tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device=d),
+                tc.MulticlassPrecision(num_classes=IN_CLASSES, device=d),
+                tc.MulticlassRecall(num_classes=IN_CLASSES, device=d),
+                tc.MulticlassF1Score(num_classes=IN_CLASSES, average="macro", device=d),
+                tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES, device=d)]
+
+    def aggregators(d):
+        return {"MeanMetric[cross-entropy]": MeanMetric(device=d), "SumMetric[samples]": SumMetric(device=d),
+                "CatMetric[arg-max]": CatMetric(device=d)}
+
+    coll_gpu, coll_cpu = MetricCollection(members("cuda")), MetricCollection(members("cpu"))
+    agg_gpu, agg_cpu = aggregators("cuda"), aggregators("cpu")
+
+    def run_imagenet():
+        # the card's updates back to back, then the CPU run: a CPU update of 10,000 x 1000 between two timed
+        # card updates (as ``run`` does for the single metrics) slows the next update's host side
+        coll_ms = [_timed(lambda: coll_gpu.update(pg, tg))[1] for pg, tg in imagenet_gpu]
+        agg_ms = {k: [_timed(lambda: _feed_aggregator(k, m, pg, tg))[1] for pg, tg in imagenet_gpu]
+                  for k, m in agg_gpu.items()}
+        for p, t in imagenet:
+            coll_cpu.update(p, t)
+            for k, metric in agg_cpu.items():
+                _feed_aggregator(k, metric, p, t)
+        return coll_ms, agg_ms, coll_gpu.compute(), coll_cpu.compute()
+
+    coll_ms, agg_ms, got, want = counting("ImageNet MetricCollection", {}, run_imagenet)
+    groups = {0: ["MulticlassAccuracy"], 1: ["MulticlassPrecision", "MulticlassRecall", "MulticlassF1Score"],
+              2: ["MulticlassConfusionMatrix"]}
+    if coll_gpu.compute_groups != groups or coll_cpu.compute_groups != groups:
+        fail(f"ImageNet collection: compute groups {coll_gpu.compute_groups} on the card, "
+             f"{coll_cpu.compute_groups} on the CPU, expected {groups}")
+    row = out["ImageNet MetricCollection"]
+    row.update({"updates": coll_gpu["MulticlassAccuracy"].update_count, "first_update_ms": coll_ms[0],
+                "later_update_ms_median": _median_ms(coll_ms), "compute_groups": coll_gpu.compute_groups,
+                "max_abs_diff_vs_cpu": _agree_dict("ImageNet MetricCollection", got, want, True, STAT_RTOL,
+                                                   STAT_ATOL)})
+    alone, interleaved = {}, {}
+    for metric, twin in zip(members("cuda"), members("cpu")):
+        alone[type(metric).__name__] = _median_ms([_timed(lambda: metric.update(pg, tg))[1]
+                                                   for pg, tg in imagenet_gpu])
+        metric.reset()
+        times = []
+        for (p, t), (pg, tg) in zip(imagenet, imagenet_gpu):
+            times.append(_timed(lambda: metric.update(pg, tg))[1])
+            twin.update(p, t)
+        interleaved[type(metric).__name__] = _median_ms(times)
+    row["members_alone_later_update_ms_median"] = alone
+    row["members_alone_sum_ms"] = float(sum(alone.values()))
+    # each member alone with its CPU twin updated between two timed updates, the conditions of ``run``
+    row["members_alone_interleaved_ms_median"] = interleaved
+    for name in agg_gpu:
+        got_a, want_a = agg_gpu[name].compute(), agg_cpu[name].compute()
+        exact = name != "MeanMetric[cross-entropy]"
+        out[f"ImageNet {name}"] = {
+            "updates": agg_gpu[name].update_count, "first_update_ms": agg_ms[name][0],
+            "later_update_ms_median": _median_ms(agg_ms[name]), "launches": row["launches"],
+            "expected_launches": {},
+            "max_abs_diff_vs_cpu": _agree(name, got_a, want_a, exact, SUM_RTOL, SUM_ATOL)}
+    if float(agg_gpu["SumMetric[samples]"].compute()) != IN_STEPS * IN_BATCH:
+        fail("SumMetric of the samples did not count the 50,000 images")
+    log(f"ImageNet collection: groups {coll_gpu.compute_groups}; later update {row['later_update_ms_median']:.3f} ms"
+        f" against {row['members_alone_sum_ms']:.3f} ms for its members alone ({alone})")
+
+    # 2. multilabel AP and AUROC over the COCO-80 inputs, one compute group
+    def coco_batch():
+        target = (rng.random((ML_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)
+        preds = ((rng.random((ML_N, ML_LABELS), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target)
+
+    coco = [coco_batch() for _ in range(PRC_STEPS)]
+    coco_gpu = [(p.cuda(), t.cuda()) for p, t in coco]
+    pair = ["MultilabelAveragePrecision", "MultilabelAUROC"]
+    for label, groups_arg, launches in [("given", [pair], PRC_STEPS), ("detected", True, PRC_STEPS + 1)]:
+        def make(d):
+            return MetricCollection([tc.MultilabelAveragePrecision(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS,
+                                                                   device=d),
+                                     tc.MultilabelAUROC(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device=d)],
+                                    compute_groups=groups_arg)
+        gpu, cpu = make("cuda"), make("cpu")
+        name = f"COCO-80 MetricCollection[AP+AUROC, groups {label}]"
+
+        def run_coco():
+            times = [_timed(lambda: gpu.update(pg, tg))[1] for pg, tg in coco_gpu]
+            for p, t in coco:
+                cpu.update(p, t)
+            return times, gpu.compute()
+
+        times, got = counting(name, {"binned_counts": launches}, run_coco)
+        if gpu.compute_groups != {0: pair}:
+            fail(f"{name}: compute groups {gpu.compute_groups}")
+        out[name].update({"updates": PRC_STEPS, "first_update_ms": times[0],
+                          "later_update_ms_median": _median_ms(times),
+                          "max_abs_diff_vs_cpu": _agree_dict(name, got, cpu.compute(), False, CURVE_RTOL,
+                                                             CURVE_ATOL)})
+    coco_alone = {}
+    for metric in (tc.MultilabelAveragePrecision(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device="cuda"),
+                   tc.MultilabelAUROC(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device="cuda")):
+        coco_alone[type(metric).__name__] = _median_ms([_timed(lambda: metric.update(pg, tg))[1]
+                                                        for pg, tg in coco_gpu])
+    out["COCO-80 MetricCollection[AP+AUROC, groups given]"]["members_alone_later_update_ms_median"] = coco_alone
+    out["COCO-80 MetricCollection[AP+AUROC, groups given]"]["members_alone_sum_ms"] = float(sum(coco_alone.values()))
+
+    # 3. regression over 2^22 samples, RMSE as a composition, the ImageNet collection through functional()
+    def reg_batch():
+        y = rng.standard_normal(REG_N, dtype=np.float32)
+        x = (0.8 * y + 0.5 * rng.standard_normal(REG_N, dtype=np.float32)).astype(np.float32)
+        return torch.from_numpy(x), torch.from_numpy(y)
+
+    regression = [reg_batch() for _ in range(REG_STEPS)]
+    regression_gpu = [(x.cuda(), y.cuda()) for x, y in regression]
+    reg_makers = {"MeanSquaredError": lambda d: MeanSquaredError(device=d),
+                  "MeanAbsoluteError": lambda d: MeanAbsoluteError(device=d),
+                  "PearsonCorrCoef": lambda d: PearsonCorrCoef(device=d),
+                  "SpearmanCorrCoef": lambda d: SpearmanCorrCoef(device=d),
+                  "RMSE[MeanSquaredError() ** 0.5]": lambda d: MeanSquaredError(device=d) ** 0.5}
+    reg_gpu = {}
+    for name, make in reg_makers.items():
+        gpu, cpu = make("cuda"), make("cpu")
+
+        def run_reg():
+            times = [_timed(lambda: gpu.update(x, y))[1] for x, y in regression_gpu]
+            for x, y in regression:
+                cpu.update(x, y)
+            return times, _timed(gpu.compute)
+
+        times, (got, compute_ms) = counting(f"regression {name}", {}, run_reg)
+        rtol = CORR_RTOL if "Corr" in name else SUM_RTOL
+        out[f"regression {name}"].update({
+            "updates": REG_STEPS, "first_update_ms": times[0], "later_update_ms_median": _median_ms(times),
+            "compute_ms": compute_ms, "value": float(got),
+            "max_abs_diff_vs_cpu": _agree(name, got, cpu.compute(), False, rtol, SUM_ATOL)})
+        reg_gpu[name] = gpu
+
+    def run_functional():
+        fns = coll_gpu.functional()
+        state = fns.init()
+        times = []
+        for pg, tg in imagenet_gpu:
+            state, ms = _timed(lambda: fns.update(state, pg, tg))
+            times.append(ms)
+        return times, sorted(state), fns.compute(state)
+
+    times, leaders, got = counting("ImageNet MetricCollection.functional()", {}, run_functional)
+    if leaders != ["MulticlassAccuracy", "MulticlassConfusionMatrix", "MulticlassPrecision"]:
+        fail(f"functional() carried the states of {leaders}, not of the three group leaders")
+    out["ImageNet MetricCollection.functional()"].update({
+        "updates": IN_STEPS, "first_update_ms": times[0], "later_update_ms_median": _median_ms(times),
+        "max_abs_diff_vs_cpu": _agree_dict("functional()", got, want, True, STAT_RTOL, STAT_ATOL)})
+
+    # 4. group fairness over the Adult race groups
+    def fair_batch():
+        groups = rng.choice(len(FAIR_GROUPS), FAIR_N, p=np.array(FAIR_GROUPS) / sum(FAIR_GROUPS))
+        target = (rng.random(FAIR_N) < 0.24).astype(np.int64)  # about 24 % of Adult earn more than 50K
+        preds = ((rng.random(FAIR_N, dtype=np.float32) + 0.6 * target + 0.05 * groups) / 1.8).astype(np.float32)
+        return torch.from_numpy(preds), torch.from_numpy(target), torch.from_numpy(groups)
+
+    fairness = [fair_batch() for _ in range(FAIR_STEPS)]
+    fairness_gpu = [tuple(a.cuda() for a in batch) for batch in fairness]
+    fair_gpu = {}
+    for name, make in [("BinaryFairness[task=all]", lambda d: tc.BinaryFairness(num_groups=5, task="all", device=d)),
+                       ("BinaryGroupStatRates", lambda d: tc.BinaryGroupStatRates(num_groups=5, device=d))]:
+        gpu, cpu = make("cuda"), make("cpu")
+
+        def run_fair():
+            times = [_timed(lambda: gpu.update(*batch))[1] for batch in fairness_gpu]
+            for batch in fairness:
+                cpu.update(*batch)
+            return times, gpu.compute()
+
+        times, got = counting(f"Adult {name}", {}, run_fair)
+        _same_states(name, gpu, cpu)
+        out[f"Adult {name}"].update({
+            "updates": FAIR_STEPS, "first_update_ms": times[0], "later_update_ms_median": _median_ms(times),
+            "value": {k: v.tolist() for k, v in got.items()},
+            "max_abs_diff_vs_cpu": _agree_dict(name, got, cpu.compute(), True, STAT_RTOL, STAT_ATOL)})
+        fair_gpu[name] = gpu
+
+    # 5. NCCL in a process group of one: sync -> states -> unsync, then compute() syncing inside
+    synced = {**{f"ImageNet {k}": m for k, m in coll_gpu.items()}, **{f"ImageNet {k}": m for k, m in agg_gpu.items()},
+              **{f"regression {k}": m for k, m in reg_gpu.items() if "RMSE" not in k},
+              "Adult BinaryFairness[task=all]": fair_gpu["BinaryFairness[task=all]"]}
+    res = counting("NCCL sync[world of one]", {}, lambda: nccl_world_of_one(synced))
+    out["NCCL sync[world of one]"].update(res)
+
+    # 5b. two processes on the one card in a gloo group, syncing CUDA tensors (NCCL takes one rank per device)
+    res = counting("gloo sync[2 ranks, one card]", {}, lambda: gloo_two_ranks_on_one_card(seed))
+    out["gloo sync[2 ranks, one card]"].update(res)
+
+    # 6. four ranks' states folded on the card against the single stream
+    res = counting("fan-in[4 ranks]", {}, lambda: fan_in_of_four(
+        imagenet_gpu, regression_gpu, members, aggregators, reg_makers, coll_gpu, agg_gpu, reg_gpu))
+    out["fan-in[4 ranks]"].update(res)
+
+
+def _flat_state(value):
+    return torch.cat([torch.atleast_1d(v) for v in value]) if isinstance(value, list) else value
+
+
+def nccl_world_of_one(metrics: dict) -> dict:
+    """The real NCCL collectives over CUDA tensors in a process group of one; what gloo does with CUDA tensors."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.regression import PearsonCorrCoef
+
+    res = {"sync_ms": {}, "compute_with_sync_ms": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
+        try:
+            for name, metric in metrics.items():
+                local = {k: _flat_state(v) for k, v in metric.metric_state.items()}
+                value = metric.compute()
+                _, ms = _timed(lambda: metric.sync(distributed_available=True))
+                res["sync_ms"][name] = ms
+                for key, before in local.items():
+                    after = metric.metric_state[key]
+                    if isinstance(metric, PearsonCorrCoef):
+                        before = before.unsqueeze(0)  # None states come back one replica deep
+                    if after.device.type != "cuda" or not torch.equal(after, before):
+                        fail(f"NCCL sync: {name}.{key} differs from the local state after a sync of one rank")
+                metric.unsync()
+                for key, before in local.items():
+                    if not torch.equal(_flat_state(metric.metric_state[key]), before):
+                        fail(f"NCCL sync: {name}.{key} is not the local state after unsync")
+                # compute() of a metric told that it is distributed syncs inside and unsyncs after
+                metric._computed = None
+                metric.distributed_available_fn = lambda: True
+                again, ms = _timed(metric.compute)
+                res["compute_with_sync_ms"][name] = ms
+                metric.distributed_available_fn = None
+                pairs = zip(again.values(), value.values()) if isinstance(value, dict) else [(again, value)]
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    fail(f"NCCL sync: {name}.compute() inside a sync of one rank differs from the local value")
+            res["gloo_with_cuda_tensors"] = gloo_on_cuda_tensors()
+        finally:
+            dist.destroy_process_group()
+    res["metrics"] = len(metrics)
+    log(f"NCCL sync of {len(metrics)} metrics: {json.dumps(res)}")
+    return res
+
+
+def gloo_on_cuda_tensors() -> dict:
+    """Which collectives a gloo group takes on CUDA tensors (recorded, not required)."""
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo")
+    found = {}
+    for name, call in [("all_reduce", lambda t: dist.all_reduce(t, group=group)),
+                       ("broadcast", lambda t: dist.broadcast(t, src=0, group=group)),
+                       ("all_gather", lambda t: dist.all_gather([torch.empty_like(t)], t, group=group))]:
+        try:
+            call(torch.ones(4, device="cuda"))
+            torch.cuda.synchronize()
+            found[name] = "ok"
+        except Exception as exc:  # noqa: BLE001 (the outcome is the finding)
+            found[name] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:160]}"
+    dist.destroy_process_group(group)
+    return found
+
+
+GLOO_RANK_ROWS = {"imagenet": [6_000, 4_000], "regression": [600_000, 448_576]}
+
+
+def gloo_two_ranks_on_one_card(seed: int) -> dict:
+    """Two processes on the one card in a gloo group over CUDA tensors; each rank's ``compute()`` syncs over the
+    group and must equal the single stream that the rank runs itself on both ranks' inputs."""
+    import tempfile
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_gloo_rank, args=(rank, 2, f"{tmp}/store", f"{tmp}/{rank}.json", seed))
+                 for rank in range(2)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(300)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        results = []
+        for rank, proc in enumerate(procs):
+            path = os.path.join(tmp, f"{rank}.json")
+            if proc.exitcode != 0 or not os.path.exists(path):
+                fail(f"gloo rank {rank} on the card exited with {proc.exitcode}")
+            with open(path) as fh:
+                results.append(json.load(fh))
+    for rank, res in enumerate(results):
+        if res["errors"]:
+            fail(f"gloo rank {rank} on the card: {res['errors']}")
+    log(f"gloo, two ranks on one card: {json.dumps(results)}")
+    return {"ranks": results}
+
+
+def _gloo_rank(rank: int, world: int, store: str, out_path: str, seed: int) -> None:
+    """One rank of :func:`gloo_two_ranks_on_one_card`."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import CatMetric, MeanMetric, MetricCollection
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    errors, compute_ms = [], {}
+    try:
+        def shard(r):
+            rng = np.random.default_rng(seed + 100 + r)
+            n, m = GLOO_RANK_ROWS["imagenet"][r], GLOO_RANK_ROWS["regression"][r]
+            logits = rng.standard_normal((n, IN_CLASSES), dtype=np.float32)
+            labels = rng.integers(0, IN_CLASSES, n)
+            logits[np.arange(n), labels] += 3.0
+            y = rng.standard_normal(m, dtype=np.float32)
+            x = (0.8 * y + 0.5 * rng.standard_normal(m, dtype=np.float32)).astype(np.float32)
+            return [torch.from_numpy(a).cuda() for a in (logits, labels, x, y)]
+
+        def make(**kw):
+            collection = MetricCollection([
+                tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device="cuda", **kw),
+                tc.MulticlassPrecision(num_classes=IN_CLASSES, device="cuda", **kw),
+                tc.MulticlassF1Score(num_classes=IN_CLASSES, average="macro", device="cuda", **kw),
+                tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES, device="cuda", **kw)])
+            regression = {"MeanSquaredError": MeanSquaredError(device="cuda", **kw),
+                          "MeanAbsoluteError": MeanAbsoluteError(device="cuda", **kw),
+                          "PearsonCorrCoef": PearsonCorrCoef(device="cuda", **kw),
+                          "SpearmanCorrCoef": SpearmanCorrCoef(device="cuda", **kw)}
+            return collection, regression, MeanMetric(device="cuda", **kw), CatMetric(device="cuda", **kw)
+
+        def feed(metrics, logits, labels, x, y):
+            collection, regression, mean, cat = metrics
+            collection.update(logits, labels)
+            for metric in regression.values():
+                metric.update(x, y)
+            mean.update(x)
+            cat.update(labels)
+
+        local, whole = make(), make(sync_on_compute=False)
+        feed(local, *shard(rank))
+        for r in range(world):
+            feed(whole, *shard(r))
+        pairs = [(f"ImageNet {k}", m, whole[0][k]) for k, m in local[0].items()]
+        pairs += [(k, m, whole[1][k]) for k, m in local[1].items()]
+        pairs += [("MeanMetric", local[2], whole[2]), ("CatMetric", local[3], whole[3])]
+        for name, metric, single in pairs:
+            got, ms = _timed(metric.compute)
+            compute_ms[name] = ms
+            want = single.compute()
+            exact = not want.is_floating_point() or name == "CatMetric"
+            rtol = CORR_RTOL if "Corr" in name else FOLD_RTOL
+            if got.shape != want.shape or got.dtype != want.dtype or not (
+                    torch.equal(got, want) if exact else torch.allclose(got, want, rtol=rtol, atol=1e-6)):
+                errors.append(f"{name}: {got.flatten()[:4].tolist()} against the single stream's "
+                              f"{want.flatten()[:4].tolist()}")
+            if metric._is_synced:
+                errors.append(f"{name}: left synced after compute()")
+    except Exception as exc:  # noqa: BLE001 (reported to the parent, which fails)
+        errors.append(f"{type(exc).__name__}: {exc}")
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as fh:
+            json.dump({"rank": rank, "errors": errors, "compute_with_sync_ms": compute_ms}, fh)
+
+
+def fan_in_of_four(imagenet_gpu, regression_gpu, members, aggregators, reg_makers, coll_gpu, agg_gpu,
+                   reg_gpu) -> dict:
+    """Split the ImageNet and regression inputs over four ranks of unequal size (one rank empty for the list
+    states), fold their states with ``allreduce_over_mesh`` and hold the result against the single stream."""
+    from metrics_tpu_torch.parallel import allreduce_over_mesh
+
+    def split(tensors, sizes):
+        whole = [torch.cat(parts) for parts in zip(*tensors)]
+        bounds = np.cumsum([0] + sizes)
+        return [[t[bounds[r]:bounds[r + 1]] for t in whole] for r in range(len(sizes))]
+
+    res = {"fold_ms": {}, "max_abs_diff_vs_single_stream": {}}
+
+    def fold(name, makers, rank_inputs, feed, single, rtol):
+        ranks = [makers() for _ in rank_inputs]
+        for metric, inputs in zip(ranks, rank_inputs):
+            if inputs[0].shape[0]:
+                feed(metric, *inputs)
+        merged, ms = _timed(lambda: allreduce_over_mesh([m.metric_state for m in ranks], ranks[0]._reductions))
+        folded = makers().load_merged_state(merged, update_count=len(ranks))
+        for key, value in single.metric_state.items():
+            value, got = _flat_state(value), _flat_state(folded.metric_state[key])
+            if not value.is_floating_point() and not torch.equal(got, value):
+                fail(f"fan-in: {name}.{key} differs from the single stream")
+        got, want = folded.compute(), single.compute()
+        want = {k: v.cpu() for k, v in want.items()} if isinstance(want, dict) else want.cpu()
+        res["fold_ms"][name] = ms
+        res["max_abs_diff_vs_single_stream"][name] = (
+            _agree_dict(name, got, want, False, rtol, 1e-6) if isinstance(want, dict)
+            else _agree(name, got, want, rtol == 0.0, rtol, 0.0 if rtol == 0.0 else 1e-6))
+
+    imagenet_sizes, list_sizes = [17_000, 8_000, 15_000, 10_000], [20_000, 0, 18_000, 12_000]
+    stat_ranks = split(imagenet_gpu, imagenet_sizes)
+    for i, single in enumerate(coll_gpu.values()):
+        fold(f"ImageNet {type(single).__name__}", lambda i=i: members("cuda")[i], stat_ranks,
+             lambda m, p, t: m.update(p, t), single, FOLD_RTOL)
+    for name, single in agg_gpu.items():
+        sizes = list_sizes if name.startswith("Cat") else imagenet_sizes
+        fold(f"ImageNet {name}", lambda name=name: aggregators("cuda")[name], split(imagenet_gpu, sizes),
+             lambda m, p, t, name=name: _feed_aggregator(name, m, p, t), single,
+             0.0 if name.startswith(("Cat", "Sum")) else FOLD_RTOL)
+    reg_sizes, reg_list_sizes = [1_500_000, 500_000, 1_200_000, (1 << 22) - 3_200_000], [1 << 21, 0, 1 << 20, 1 << 20]
+    for name, single in reg_gpu.items():
+        if "RMSE" in name:
+            continue
+        sizes = reg_list_sizes if name == "SpearmanCorrCoef" else reg_sizes
+        fold(f"regression {name}", lambda name=name: reg_makers[name]("cuda"), split(regression_gpu, sizes),
+             lambda m, x, y: m.update(x, y), single, CORR_RTOL if "Corr" in name else FOLD_RTOL)
+    log(f"fan-in of four ranks: {json.dumps(res)}")
+    return res
+
+
+def _feed_aggregator(name, metric, p, t):
+    """The aggregators beside the ImageNet collection: the batch's cross-entropy weighted by its size, the
+    sample count, the arg-max predictions."""
+    import torch.nn.functional as F
+
+    if name.startswith("Mean"):
+        metric.update(F.cross_entropy(p, t), weight=p.shape[0])
+    elif name.startswith("Sum"):
+        metric.update(float(p.shape[0]))
+    else:
+        metric.update(p.argmax(1))
 
 
 # ----------------------------------------------------------------------------- phase 5

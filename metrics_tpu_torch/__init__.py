@@ -7,8 +7,29 @@ kernels of the JAX package are hand-written CUDA kernels under ``csrc/``, built
 with ``nvcc`` at first use and launched through ``ops/``.
 """
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.aggregation import (
+    CatMetric,
+    MaxMetric,
+    MeanMetric,
+    MinMetric,
+    RunningMean,
+    RunningSum,
+    SumMetric,
+)
+from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
 
 __version__ = "0.1.0"
 
-__all__ = ["Metric"]
+__all__ = [
+    "CatMetric",
+    "CompositionalMetric",
+    "MaxMetric",
+    "MeanMetric",
+    "Metric",
+    "MetricCollection",
+    "MinMetric",
+    "RunningMean",
+    "RunningSum",
+    "SumMetric",
+]

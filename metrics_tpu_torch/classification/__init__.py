@@ -1,13 +1,11 @@
-"""Classification metrics, exported in the order of the JAX package's ``__all__``.
-
-Not ported yet: ``BinaryFairness`` and ``BinaryGroupStatRates`` (``group_fairness.py``).
-"""
+"""Classification metrics, exported in the order of the JAX package's ``__all__``."""
 
 from metrics_tpu_torch.classification.calibration_error import (
     BinaryCalibrationError,
     CalibrationError,
     MulticlassCalibrationError,
 )
+from metrics_tpu_torch.classification.group_fairness import BinaryFairness, BinaryGroupStatRates
 from metrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from metrics_tpu_torch.classification.logauc import BinaryLogAUC, LogAUC, MulticlassLogAUC, MultilabelLogAUC
 from metrics_tpu_torch.classification.precision_fixed_recall import (
@@ -122,6 +120,7 @@ from metrics_tpu_torch.classification.stat_scores import (
 
 __all__ = [
     "BinaryCalibrationError", "CalibrationError", "MulticlassCalibrationError",
+    "BinaryFairness", "BinaryGroupStatRates",
     "BinaryHingeLoss", "HingeLoss", "MulticlassHingeLoss",
     "BinaryLogAUC", "LogAUC", "MulticlassLogAUC", "MultilabelLogAUC",
     "BinaryPrecisionAtFixedRecall", "MulticlassPrecisionAtFixedRecall", "MultilabelPrecisionAtFixedRecall",

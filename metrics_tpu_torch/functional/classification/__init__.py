@@ -1,13 +1,18 @@
 """Functional classification metrics, exported in the order of the JAX package's ``__all__``.
 
-Not ported yet: the group-fairness functions (``group_fairness.py``) and the
-``generalized_dice_score`` alias of the segmentation domain.
+Not ported yet: the ``generalized_dice_score`` alias of the segmentation domain.
 """
 
 from metrics_tpu_torch.functional.classification.calibration_error import (
     binary_calibration_error,
     calibration_error,
     multiclass_calibration_error,
+)
+from metrics_tpu_torch.functional.classification.group_fairness import (
+    binary_fairness,
+    binary_groups_stat_rates,
+    demographic_parity,
+    equal_opportunity,
 )
 from metrics_tpu_torch.functional.classification.hinge import binary_hinge_loss, hinge_loss, multiclass_hinge_loss
 from metrics_tpu_torch.functional.classification.logauc import (
@@ -143,6 +148,7 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
 __all__ = [
     "dice",
     "binary_calibration_error", "calibration_error", "multiclass_calibration_error",
+    "binary_fairness", "binary_groups_stat_rates", "demographic_parity", "equal_opportunity",
     "binary_hinge_loss", "hinge_loss", "multiclass_hinge_loss",
     "binary_logauc", "logauc", "multiclass_logauc", "multilabel_logauc",
     "binary_precision_at_fixed_recall", "multiclass_precision_at_fixed_recall",

@@ -4,22 +4,27 @@ A metric's state is the only "weights" it has. :func:`load_reference_state`
 takes the dict that a ``metrics_tpu`` metric's ``state_dict()`` returns (numpy
 arrays, list states as lists of arrays, and ``_update_count``) and installs it
 into the port's metric of the same class and configuration, which then goes on
-updating and computing as if it had seen the same batches. The JAX metric only
-exports states marked persistent: call ``persistent(True)`` on it first.
+updating and computing as if it had seen the same batches: counters and
+confusion matrices, an aggregator's value with its Neumaier ``_comp``
+companion, list states such as Spearman's kept samples, Pearson's moments.
+:func:`load_reference_collection_state` does the same for a whole
+``MetricCollection``, compute groups included. The JAX metric only exports
+states marked persistent: call ``persistent(True)`` on it first.
 
 This module reads numpy arrays only; it imports nothing of JAX.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _dtype_kind
 
-__all__ = ["load_reference_state"]
+__all__ = ["load_reference_collection_state", "load_reference_state"]
 
 _NUMERIC_KINDS = "biuf"
 
@@ -33,6 +38,24 @@ def _as_array(value: Any, where: str) -> np.ndarray:
 
 def load_reference_state(metric: Metric, state: Dict[str, Any]) -> Metric:
     """Install a ``metrics_tpu`` ``state_dict()`` into ``metric``; returns ``metric``.
+
+    See :func:`_convert_reference_state` for what is validated; nothing is
+    installed unless all of it holds.
+    """
+    converted, count = _convert_reference_state(metric, state)
+    _install(metric, converted, count)
+    return metric
+
+
+def _install(metric: Metric, converted: Dict[str, Any], count: int) -> None:
+    for name, value in converted.items():
+        metric._state[name] = value
+    metric._update_count = count
+    metric._computed = None
+
+
+def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dict[str, Any], int]:
+    """The states of a ``metrics_tpu`` ``state_dict()`` as tensors on ``metric``'s device, and its update count.
 
     Every key, shape and dtype kind is validated before anything is
     installed, so a mismatch leaves the metric as it was:
@@ -77,8 +100,60 @@ def load_reference_state(metric: Metric, state: Dict[str, Any]) -> Metric:
                     f" got {arr.dtype} of shape {arr.shape}"
                 )
             converted[name] = torch.from_numpy(np.array(arr)).to(device=metric.device, dtype=default.dtype)
-    for name, value in converted.items():
-        metric._state[name] = value
-    metric._update_count = int(count)
-    metric._computed = None
-    return metric
+    return converted, int(count)
+
+
+def load_reference_collection_state(
+    collection: MetricCollection,
+    state: Dict[str, Dict[str, Any]],
+    compute_groups: Optional[Union[Dict[int, List[str]], List[List[str]]]] = None,
+) -> MetricCollection:
+    """Install a ``metrics_tpu`` ``MetricCollection.state_dict()`` into the port's collection.
+
+    ``state`` maps each member's name to its ``state_dict()``; the names must
+    be exactly the collection's, and every member's state is validated before
+    any is installed. ``compute_groups`` (the JAX collection's
+    ``compute_groups``) installs its groups: the members of each then share
+    their leader's tensors, and a member whose loaded state differs from its
+    leader's is refused. Without it, detected groups are derived again at the
+    next update. Returns ``collection``.
+    """
+    names = list(collection.keys(keep_base=True))
+    if set(state) != set(names):
+        raise ValueError(
+            f"reference collection state does not match the members (missing {sorted(set(names) - set(state))},"
+            f" unknown {sorted(set(state) - set(names))})"
+        )
+    converted = {name: _convert_reference_state(collection[name], state[name]) for name in names}
+    groups = None
+    if compute_groups is not None:
+        groups = [list(g) for g in (compute_groups.values() if isinstance(compute_groups, dict) else compute_groups)]
+        grouped = [n for g in groups for n in g]
+        if sorted(grouped) != sorted(names):
+            raise ValueError(f"compute_groups {groups} do not partition the members {names}")
+        for group in groups:
+            lead_states = converted[group[0]][0]
+            for member in group[1:]:
+                if not _same_states(lead_states, converted[member][0]):
+                    raise ValueError(f"member {member!r} holds another state than its group's leader {group[0]!r}")
+    for name in names:
+        _install(collection[name], *converted[name])
+    if groups is not None:
+        collection._groups = dict(enumerate(groups))
+        collection._groups_checked = True
+        collection._share_leader_states()
+    elif collection._enable_compute_groups is True:
+        collection._init_compute_groups()
+        collection._groups_checked = False
+    return collection
+
+
+def _same_states(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    if a.keys() != b.keys():
+        return False
+    for k in a:
+        x, y = a[k], b[k]
+        xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
+        if len(xs) != len(ys) or not all(torch.equal(u, v) for u, v in zip(xs, ys)):
+            return False
+    return True

@@ -9,6 +9,39 @@ import numpy as np
 import torch
 
 
+def count_dtype() -> torch.dtype:
+    """The integer type of long-horizon counters: int64.
+
+    The JAX package's ``count_dtype()`` is int64 under x64 and int32 under its
+    default x32 regime; PyTorch always has int64, so the port's counters never
+    wrap at 2^31, and ``_safe_divide`` maps int64 to the default float type.
+    """
+    return torch.int64
+
+
+def acc_dtype() -> torch.dtype:
+    """The float type of long-horizon accumulators: ``torch.get_default_dtype()``, float32 unless the caller
+    chose float64, the counterpart of the JAX package's x32 default and its x64 switch."""
+    return torch.get_default_dtype()
+
+
+def neumaier_add(total: torch.Tensor, comp: torch.Tensor, value: torch.Tensor) -> tuple:
+    """One Neumaier (improved-Kahan) compensated accumulation step; returns the new ``(total, comp)``.
+
+    The exact running sum is ``total + comp`` (:func:`neumaier_value`). Unlike
+    classic Kahan this stays right when ``|value| > |total|``.
+    """
+    value = torch.as_tensor(value, device=total.device)
+    t = total + value
+    comp = comp + torch.where(total.abs() >= value.abs(), (total - t) + value, (value - t) + total)
+    return t, comp
+
+
+def neumaier_value(total: torch.Tensor, comp: torch.Tensor) -> torch.Tensor:
+    """Read-out of a compensated pair: the corrected sum ``total + comp``."""
+    return total + comp
+
+
 def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
     """Element-wise division with pinned zero-denominator semantics.
 

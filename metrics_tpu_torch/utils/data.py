@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
@@ -22,9 +22,17 @@ def dim_zero_sum(x: torch.Tensor) -> torch.Tensor:
     return torch.sum(x, dim=0)
 
 
+def _mean_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type of a mean: a float type keeps its own; int64 takes ``torch.get_default_dtype()``, any
+    narrower integer or bool float32, as ``jnp.mean`` gives for int64 under x64 and int32 either way."""
+    if dtype.is_floating_point:
+        return dtype
+    return torch.get_default_dtype() if dtype == torch.int64 else torch.float32
+
+
 def dim_zero_mean(x: torch.Tensor) -> torch.Tensor:
-    """Average along the zero dimension."""
-    return torch.mean(x, dim=0)
+    """Average along the zero dimension; integer states average to a float (:func:`_mean_dtype`)."""
+    return torch.mean(x.to(_mean_dtype(x.dtype)), dim=0)
 
 
 def dim_zero_max(x: torch.Tensor) -> torch.Tensor:
@@ -40,6 +48,23 @@ def dim_zero_min(x: torch.Tensor) -> torch.Tensor:
 def _flatten(x: Sequence) -> list:
     """Flatten a list of lists into one list."""
     return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
+    """Flatten a dict of dicts into one dict; returns ``(flat, duplicates_found)``."""
+    new_dict: Dict = {}
+    duplicates = False
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if k in new_dict:
+                    duplicates = True
+                new_dict[k] = v
+        else:
+            if key in new_dict:
+                duplicates = True
+            new_dict[key] = value
+    return new_dict, duplicates
 
 
 def to_onehot(label_tensor: torch.Tensor, num_classes: int) -> torch.Tensor:

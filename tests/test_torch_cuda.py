@@ -14,6 +14,7 @@ import pytest
 import torch
 
 import metrics_tpu_torch.classification as tc
+from metrics_tpu_torch import MetricCollection
 from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
 from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np
 from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure
@@ -340,3 +341,144 @@ def test_float64_auroc_on_card_goes_through_the_float64_kernel(cuda_device):
         torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-6)
     finally:
         torch.set_default_dtype(previous)
+
+
+# ----------------------------------------------------------------------------- collections and sync on the card
+def _coco_collection(device, compute_groups):
+    return MetricCollection([tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, device=device),
+                             tc.MultilabelAUROC(num_labels=80, thresholds=200, device=device)],
+                            compute_groups=compute_groups)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("compute_groups", "launches"), [
+    ([["MultilabelAveragePrecision", "MultilabelAUROC"]], 3),  # the leader alone, every update
+    (True, 4),  # the first update runs both members to find the group, then the leader alone
+    (False, 6),
+])
+def test_compute_groups_launch_the_binned_kernel_once_per_group(cuda_device, compute_groups, launches):
+    rng = np.random.RandomState(1)
+    batches = [(rng.rand(2000, 80).astype(np.float32), (rng.rand(2000, 80) < 0.05).astype(np.int64))
+               for _ in range(3)]
+    gpu, cpu = _coco_collection(cuda_device, compute_groups), _coco_collection("cpu", compute_groups)
+    binned_counts.launches = 0
+    for p, t in batches:
+        gpu.update(torch.from_numpy(p).to(cuda_device), torch.from_numpy(t).to(cuda_device))
+        cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+    got, want = gpu.compute(), cpu.compute()
+    torch.cuda.synchronize()
+    assert binned_counts.launches == launches
+    for key in want:
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
+
+
+def _regression_shards(ranks, seed=2):
+    rng = np.random.RandomState(seed)
+    out = []
+    for n in ranks:
+        y = rng.randn(n).astype(np.float32)
+        out.append((torch.from_numpy((0.7 * y + 0.5 * rng.randn(n)).astype(np.float32)), torch.from_numpy(y)))
+    return out
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one_sync_keeps_every_state(cuda_device, tmp_path):
+    import torch.distributed as dist
+
+    from metrics_tpu_torch import CatMetric, MeanMetric, SumMetric
+    from metrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'store'}", world_size=1, rank=0)
+    try:
+        (x, y), = _regression_shards([5000])
+        x, y = x.to(cuda_device), y.to(cuda_device)
+        metrics = [MeanSquaredError(device=cuda_device), PearsonCorrCoef(device=cuda_device),
+                   SpearmanCorrCoef(device=cuda_device), MeanMetric(device=cuda_device),
+                   SumMetric(device=cuda_device), CatMetric(device=cuda_device),
+                   tc.BinaryFairness(num_groups=5, device=cuda_device),
+                   tc.MulticlassConfusionMatrix(num_classes=7, device=cuda_device)]
+        groups = torch.randint(0, 5, (5000,), device=cuda_device)
+        for metric in metrics:
+            if isinstance(metric, tc.BinaryFairness):
+                metric.update(torch.sigmoid(x), (y > 0).long(), groups)
+            elif isinstance(metric, tc.MulticlassConfusionMatrix):
+                metric.update((x.abs() * 3).long().clamp(0, 6), (y.abs() * 3).long().clamp(0, 6))
+            elif isinstance(metric, (MeanMetric, SumMetric, CatMetric)):
+                metric.update(x)
+            else:
+                metric.update(x, y)
+        for metric in metrics:
+            local = {k: (torch.cat(v) if isinstance(v, list) else v) for k, v in metric.metric_state.items()}
+            value = metric.compute()
+            metric.sync(distributed_available=True)
+            for key, before in local.items():
+                after = metric.metric_state[key]
+                assert after.device.type == "cuda"
+                if isinstance(metric, PearsonCorrCoef):
+                    assert torch.equal(after, before.unsqueeze(0))  # one replica deep
+                else:
+                    assert torch.equal(after, before), (type(metric).__name__, key)
+            metric.unsync()
+            assert all(v is not None for v in metric.metric_state.values())
+            metric._computed = None
+            metric.distributed_available_fn = lambda: True
+            again = metric.compute()
+            for a, b in (zip(again.values(), value.values()) if isinstance(value, dict) else [(again, value)]):
+                assert torch.equal(a, b), type(metric).__name__
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_fan_in_of_four_ranks_on_the_card_equals_the_single_stream(cuda_device):
+    from metrics_tpu_torch import CatMetric, MeanMetric
+    from metrics_tpu_torch.parallel import allreduce_over_mesh
+    from metrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+
+    sizes = [3000, 500, 4100, 1200]
+    shards = [(x.to(cuda_device), y.to(cuda_device)) for x, y in _regression_shards(sizes)]
+    runs = [(MeanSquaredError, 1e-5, False), (MeanMetric, 1e-5, False), (PearsonCorrCoef, 1e-4, False),
+            (SpearmanCorrCoef, 1e-4, True), (CatMetric, 0.0, True)]
+    for cls, rtol, empty_rank in runs:
+        ranks, whole = [cls(device=cuda_device) for _ in sizes], cls(device=cuda_device)
+        for rank, (x, y) in enumerate(shards):
+            args = (x,) if cls in (MeanMetric, CatMetric) else (x, y)
+            whole.update(*args)
+            if not (empty_rank and rank == 1):
+                ranks[rank].update(*args)
+        if empty_rank:  # the single stream without rank 1's shard
+            whole = cls(device=cuda_device)
+            for rank, (x, y) in enumerate(shards):
+                if rank != 1:
+                    whole.update(*((x,) if cls is CatMetric else (x, y)))
+        merged = allreduce_over_mesh([m.metric_state for m in ranks], ranks[0]._reductions)
+        folded = cls(device=cuda_device).load_merged_state(merged, update_count=len(sizes))
+        torch.testing.assert_close(folded.compute(), whole.compute(), rtol=rtol, atol=1e-6 if rtol else 0.0)
+
+
+@pytest.mark.cuda
+def test_gloo_sync_of_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Every case of tests/_torch_sync_workers.py with the states on the card: two processes share the one
+    device in a gloo group (NCCL takes one rank per device), each held against the single stream."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    import _torch_sync_workers as workers
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=workers.run, args=(rank, 2, str(tmp_path / "store"), str(tmp_path), "cuda"),
+                         daemon=True) for rank in range(2)]
+    for proc in procs:
+        proc.start()
+    for proc in procs:
+        proc.join(300)
+    alive = [proc.is_alive() for proc in procs]
+    for proc in procs:
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    assert not any(alive) and [proc.exitcode for proc in procs] == [0, 0]
+    for rank in range(2):
+        results = pickle.loads((tmp_path / f"{rank}.pkl").read_bytes())
+        assert results == {name: "ok" for name in workers.case_names()}, results
