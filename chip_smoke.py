@@ -44,7 +44,17 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    a process group of one (and what gloo does with CUDA tensors), two
    processes on the one card syncing CUDA tensors through gloo, and four
    ranks' states folded on the card by ``allreduce_over_mesh`` against the
-   single stream;
+   single stream; then the checks that end the JAX package's multi-chip dryrun,
+   which launch no kernel: retrieval at MS MARCO dev scale (6,980 queries x
+   1,000 candidates; MRR@10, NDCG@10, MAP and Recall@100 in one collection),
+   ``compute_flat`` over four ranks' shards and four ranks' NDCG states folded;
+   ``MeanAveragePrecision`` at COCO val2017 scale (5,000 images, 80 classes,
+   100 detections an image) with the IoU and GIoU metrics on the same boxes,
+   and four ranks' per-image states flattened, folded and split back;
+   ``BootStrapper`` (20 copies) over the ImageNet-1k evaluation and its copies
+   folded from four ranks against ``merge_state``; and four processes on the
+   card in a (model 2, data 2) gloo layout, each syncing over its data row's
+   ``dist.new_group``;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes, beside the least time the card
    could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
@@ -91,6 +101,19 @@ FOLD_RTOL = 1e-5  # float scores and sums folded from four ranks against the sin
 # group fairness over the five race groups of the UCI Adult census data (White, Black, Asian-Pac-Islander,
 # Amer-Indian-Eskimo, Other, in the data's proportions); 2^20 rows, about 21 Adult sets, in 4 updates
 FAIR_N, FAIR_STEPS, FAIR_GROUPS = 1 << 18, 4, [0.854, 0.096, 0.031, 0.010, 0.009]
+# MS MARCO passage ranking, the small dev set: 6,980 queries x 1,000 BM25 candidates in 10 updates; about 1.07
+# judged passages per query, among the candidates for 86 % of the queries
+RET_QUERIES, RET_CANDIDATES, RET_STEPS, RET_RECALL = 6980, 1000, 10, 0.86
+RET_RTOL = 1e-5  # float32 sums over the 6,980 queries, taken in another order
+# COCO val2017 boxes: 5,000 images, 80 classes, about 7.4 ground truths and 100 detections per image, 10 updates
+COCO_IMAGES, COCO_CLASSES, COCO_GT_MEAN, COCO_DETS, COCO_STEPS = 5000, 80, 7.4, 100, 10
+MAP_RTOL = 1e-6  # as the JAX package's dryrun holds MAP: float32 matching with the same decisions, float64 sums
+IOU_RTOL = 1e-5  # float32 sums of about 10^5 IoUs, taken in another order
+BOOT_COPIES, BOOT_RTOL = 20, 1e-6  # BootStrapper: the copies' scores are quotients of equal counters
+# their float32 std: 20 scores near 0.75 that spread by about 0.003, so the deviations from the mean, summed
+# in another order on the card, keep about 5 significant digits
+BOOT_STD_RTOL = 1e-4
+SUBGROUP_ROWS = 1 << 20  # labels per data shard in the subgroup sync
 
 
 def log(msg: str) -> None:
@@ -321,7 +344,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
     out["StructuralSimilarityIndexMeasure"]["abs_diff_vs_cpu"] = abs(float(got) - float(want))
     curve_family(rng, run, out)
     stat_family(rng, run, out)
-    collections_and_sync(seed, wrappers, out)
+    imagenet, imagenet_gpu = collections_and_sync(seed, wrappers, out)
+    dryrun_checks(seed, wrappers, out, imagenet, imagenet_gpu)
     return out
 
 
@@ -551,7 +575,7 @@ def _agree_dict(name, got, want, exact, rtol, atol=0.0):
                for k in want)
 
 
-def collections_and_sync(seed: int, wrappers: dict, out: dict) -> None:
+def collections_and_sync(seed: int, wrappers: dict, out: dict):
     """The collection, aggregation and sync layer on the main path; each run with every wrapper's launch count
     set to 0 just before it and read just after, and its expected launches."""
     from metrics_tpu_torch import CatMetric, MeanMetric, MetricCollection, SumMetric
@@ -773,6 +797,7 @@ def collections_and_sync(seed: int, wrappers: dict, out: dict) -> None:
     res = counting("fan-in[4 ranks]", {}, lambda: fan_in_of_four(
         imagenet_gpu, regression_gpu, members, aggregators, reg_makers, coll_gpu, agg_gpu, reg_gpu))
     out["fan-in[4 ranks]"].update(res)
+    return imagenet, imagenet_gpu
 
 
 def _flat_state(value):
@@ -1007,6 +1032,434 @@ def _feed_aggregator(name, metric, p, t):
         metric.update(float(p.shape[0]))
     else:
         metric.update(p.argmax(1))
+
+
+# ----------------------------------------------------------------------------- phase 4, the dryrun's checks
+def dryrun_checks(seed: int, wrappers: dict, out: dict, imagenet, imagenet_gpu) -> None:
+    """The four checks that end the JAX package's multi-chip dryrun, on the card at real sizes: retrieval at
+    MS MARCO dev scale, MAP at COCO val2017 scale, BootStrapper over the ImageNet-1k evaluation, each against
+    the port's CPU run of the same inputs, with the fan-in of four ranks of each against the single stream;
+    and a subgroup sync of four processes. None of these paths launches a kernel."""
+
+    def counting(name, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = body()
+        torch.cuda.synchronize()
+        result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": {}})
+        out[name] = result
+
+    rows = msmarco_rows(np.random.default_rng(seed + 6))
+    counting("MS MARCO retrieval collection", lambda: retrieval_msmarco(rows))
+    counting("retrieval fan-in[4 ranks]", lambda: retrieval_fan_in(rows, out["MS MARCO retrieval collection"]))
+    del rows
+    images = coco_images(np.random.default_rng(seed + 7))
+    counting("COCO val2017 MeanAveragePrecision", lambda: detection_coco(images))
+    counting("detection fan-in[4 ranks]", lambda: detection_fan_in(images, out["COCO val2017 MeanAveragePrecision"]))
+    del images
+    counting("ImageNet BootStrapper", lambda: bootstrap_imagenet(seed, imagenet, imagenet_gpu))
+    counting("BootStrapper fan-in[4 ranks]", lambda: bootstrap_fan_in(seed, imagenet_gpu))
+    counting("subgroup sync[4 ranks, 2 x 2]", lambda: subgroup_sync_on_card(seed))
+
+
+def msmarco_rows(rng: np.random.Generator) -> list:
+    """MS MARCO passage ranking, the small dev set: 6,980 queries x 1,000 BM25-style candidates, in updates of
+    698 queries. Each query has 1 + Binomial(2, 0.035) judged passages (1.07 on average); for 86 % of the
+    queries (BM25's recall at 1,000 on that set) they are among the candidates, for the other 14 % none is.
+    Scores are Gumbel (BM25-like, float32); a relevant passage's is raised by a Normal(4, 2) boost, which
+    puts MRR@10 near BM25's 0.19 on that set."""
+    qrels = 1 + rng.binomial(2, 0.035, RET_QUERIES)
+    found = qrels * (rng.random(RET_QUERIES) < RET_RECALL)  # relevant passages among each query's candidates
+    target = np.zeros((RET_QUERIES, RET_CANDIDATES), dtype=np.int64)
+    slots = rng.random((RET_QUERIES, RET_CANDIDATES)).argsort(axis=1)[:, :3]
+    for k in range(3):
+        target[np.arange(RET_QUERIES), slots[:, k]] = (found > k).astype(np.int64)
+    boost = rng.normal(4.0, 2.0, (RET_QUERIES, RET_CANDIDATES))
+    scores = (rng.gumbel(size=(RET_QUERIES, RET_CANDIDATES)) + boost * target + 20.0).astype(np.float32)
+    ids = np.repeat(np.arange(RET_QUERIES, dtype=np.int64), RET_CANDIDATES).reshape(RET_QUERIES, RET_CANDIDATES)
+    per = RET_QUERIES // RET_STEPS
+    return [tuple(torch.from_numpy(np.ascontiguousarray(a[i * per:(i + 1) * per].reshape(-1)))
+                  for a in (ids, scores, target)) for i in range(RET_STEPS)]
+
+
+def _retrieval_collection(device):
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.retrieval import RetrievalMAP, RetrievalMRR, RetrievalNormalizedDCG, RetrievalRecall
+
+    return MetricCollection({"MRR@10": RetrievalMRR(top_k=10, device=device),
+                             "NDCG@10": RetrievalNormalizedDCG(top_k=10, device=device),
+                             "MAP": RetrievalMAP(device=device),
+                             "Recall@100": RetrievalRecall(top_k=100, device=device)})
+
+
+def _event_ms(fn, reps=3):
+    """Median device time of ``fn`` over ``reps`` runs, with CUDA events."""
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def retrieval_msmarco(rows) -> dict:
+    """The four metrics in one collection (one compute group, one sorted view) on the card and on the CPU."""
+    from metrics_tpu_torch.retrieval.base import GroupedQueries, _order_by_query_desc
+
+    gpu, cpu = _retrieval_collection("cuda"), _retrieval_collection("cpu")
+    rows_gpu = [tuple(t.cuda() for t in r) for r in rows]
+    update_ms = [_timed(lambda: gpu.update(p, t, indexes=i))[1] for i, p, t in rows_gpu]
+    for i, p, t in rows:
+        cpu.update(p, t, indexes=i)
+    if list(gpu.compute_groups) != [0]:
+        fail(f"MS MARCO collection: compute groups {gpu.compute_groups}, expected one group")
+    got, compute_ms = _timed(gpu.compute)
+    want = cpu.compute()
+    member = gpu["MAP"]
+    indexes, preds, target = (torch.cat(getattr(member, k)) for k in ("indexes", "preds", "target"))
+    sort_ms = _event_ms(lambda: _order_by_query_desc(indexes, preds))
+    # the rest of compute() apart: the whole view (sort, gathers, counts), then each metric's scoring on it
+    view_ms = _event_ms(lambda: GroupedQueries(indexes, preds, target))
+    gq = GroupedQueries(indexes, preds, target)
+    gq.ideal_graded  # built here, so that NDCG's scoring below is timed without its second sort
+    score_ms = {k: _event_ms(lambda m=m: m._score_groups(gq)) for k, m in gpu.items()}
+    ideal_ms = _event_ms(lambda: GroupedQueries(indexes, preds, target).ideal_graded) - view_ms
+    diff = _agree_dict("MS MARCO retrieval", got, want, False, RET_RTOL, 1e-7)
+    values = {k: float(v) for k, v in got.items()}
+    if not 0.0 < values["MRR@10"] < 1.0:
+        fail(f"MS MARCO MRR@10 {values['MRR@10']} is not a score")
+    res = {"queries": RET_QUERIES, "rows": RET_QUERIES * RET_CANDIDATES, "updates": RET_STEPS, "values": values,
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "compute_ms": compute_ms, "grouping_sort_ms": sort_ms, "view_ms": view_ms, "ideal_sort_ms": ideal_ms,
+           "score_ms": score_ms, "max_abs_diff_vs_cpu": diff,
+           "compute_groups": gpu.compute_groups}
+    log(f"MS MARCO retrieval: {json.dumps(res)}")
+    res["_single_stream"] = {"MAP": got["MAP"].cpu(), "NDCG@10": got["NDCG@10"].cpu()}
+    return res
+
+
+def retrieval_fan_in(rows, single: dict) -> dict:
+    """The dryrun's two retrieval checks: ``compute_flat`` over the concatenation of four ranks' shards, and
+    four ranks' NDCG list states (one rank empty) folded by ``allreduce_over_mesh``; each against the single
+    stream."""
+    from metrics_tpu_torch.parallel import allreduce_over_mesh
+    from metrics_tpu_torch.retrieval import RetrievalMAP, RetrievalNormalizedDCG
+
+    want = single.pop("_single_stream")
+    ids, preds, target = (torch.cat(parts).cuda() for parts in zip(*rows))
+    bounds = np.cumsum([0, 2_000_000, 1_500_000, 2_100_000, ids.numel() - 5_600_000])
+    shards = [tuple(t[bounds[r]:bounds[r + 1]] for t in (ids, preds, target)) for r in range(4)]
+    flat, flat_ms = _timed(lambda: RetrievalMAP(device="cuda").compute_flat(
+        *(torch.cat(parts) for parts in zip(*[(p, t, i) for i, p, t in shards]))))
+    _agree("retrieval compute_flat over four shards", flat, want["MAP"], False, RET_RTOL, 0.0)
+    per_rank_queries = [2400, 0, 2600, RET_QUERIES - 5000]
+    ranks, start = [], 0
+    for n_queries in per_rank_queries:
+        metric = RetrievalNormalizedDCG(top_k=10, device="cuda")
+        rows_r = slice(start * RET_CANDIDATES, (start + n_queries) * RET_CANDIDATES)
+        if n_queries:
+            metric.update(preds[rows_r], target[rows_r], indexes=ids[rows_r])
+        ranks.append(metric)
+        start += n_queries
+    merged, fold_ms = _timed(lambda: allreduce_over_mesh([m.metric_state for m in ranks],
+                                                         {k: "cat" for k in ("indexes", "preds", "target")}))
+    folded = RetrievalNormalizedDCG(top_k=10, device="cuda").load_merged_state(merged)
+    _agree("retrieval NDCG folded from four ranks", folded.compute(), want["NDCG@10"], False, RET_RTOL, 0.0)
+    res = {"compute_flat_ms": flat_ms, "compute_flat_map": float(flat), "fold_ms": fold_ms,
+           "rank_queries": per_rank_queries, "folded_ndcg": float(folded.compute())}
+    log(f"retrieval fan-in of four ranks: {json.dumps(res)}")
+    return res
+
+
+def coco_images(rng: np.random.Generator) -> list:
+    """COCO val2017 at its scale: 5,000 images of 640 x 480 over 80 classes, ground truths per image from a
+    negative binomial of mean 7.4 (about 36,800 boxes), 1 % crowd, areas small/medium/large in COCO's shares
+    (41/34/24 %), class frequencies Zipf-like. 100 detections per image (COCO's maxDets): a jittered copy of
+    each of 80 % of the ground truths, with a higher score, and false positives, 75 % of them labelled with one
+    of the image's own ground-truth classes. Boxes and scores are float32 values."""
+    class_p = 1.0 / np.arange(1, COCO_CLASSES + 1) ** 0.9
+    class_p /= class_p.sum()
+    n_gt = np.minimum(rng.negative_binomial(1.2, 1.2 / (1.2 + COCO_GT_MEAN), COCO_IMAGES), 90)
+
+    def boxes(n, kind_p):
+        kind = rng.choice(3, n, p=kind_p)
+        lo, hi = np.array([16.0, 32.0**2, 96.0**2])[kind], np.array([32.0**2, 96.0**2, 200_000.0])[kind]
+        area = np.exp(rng.uniform(np.log(lo), np.log(hi)))
+        ratio = np.exp(rng.uniform(np.log(1 / 3), np.log(3), n))
+        w, h = np.minimum(np.sqrt(area * ratio), 639.0), np.minimum(np.sqrt(area / ratio), 479.0)
+        x, y = rng.uniform(0, 640 - w), rng.uniform(0, 480 - h)
+        return np.stack([x, y, x + w, y + h], axis=1).astype(np.float32)
+
+    images = []
+    for ng in n_gt:
+        gb = boxes(ng, [0.41 / 0.99, 0.34 / 0.99, 0.24 / 0.99])
+        glab = rng.choice(COCO_CLASSES, ng, p=class_p)
+        hit = rng.random(ng) < 0.8
+        size = np.stack([gb[:, 2] - gb[:, 0], gb[:, 3] - gb[:, 1]] * 2, axis=1)
+        tp_boxes = (gb[hit] + rng.normal(0, 0.08, (hit.sum(), 4)) * size[hit]).astype(np.float32)
+        n_fp = COCO_DETS - len(tp_boxes)
+        fp_boxes = boxes(n_fp, [0.5, 0.3, 0.2])
+        own = rng.random(n_fp) < 0.75
+        fp_lab = np.where(own & (ng > 0), glab[rng.integers(0, max(ng, 1), n_fp)] if ng else 0,
+                          rng.choice(COCO_CLASSES, n_fp, p=class_p))
+        db = np.concatenate([tp_boxes, fp_boxes])
+        db[:, 2:] = np.maximum(db[:, 2:], db[:, :2] + 1)
+        scores = np.concatenate([rng.beta(4, 2, len(tp_boxes)), rng.beta(1, 4, n_fp)]).astype(np.float32)
+        images.append(({"boxes": torch.from_numpy(db), "scores": torch.from_numpy(scores),
+                        "labels": torch.from_numpy(np.concatenate([glab[hit], fp_lab]).astype(np.int64))},
+                       {"boxes": torch.from_numpy(gb), "labels": torch.from_numpy(glab.astype(np.int64)),
+                        "iscrowd": torch.from_numpy((rng.random(ng) < 0.01).astype(np.int64))}))
+    return images
+
+
+COCO_KEYS = ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", "mar_1", "mar_10", "mar_100")
+
+
+def detection_coco(images) -> dict:
+    """MAP over the 5,000 images in 10 updates of 500, on the card and on the CPU; the IoU and GIoU metrics on
+    the same boxes; the matching's device time on the padded chunks apart."""
+    from metrics_tpu_torch.detection import (
+        GeneralizedIntersectionOverUnion,
+        IntersectionOverUnion,
+        MeanAveragePrecision,
+    )
+
+    per = COCO_IMAGES // COCO_STEPS
+    gpu, cpu = MeanAveragePrecision(device="cuda"), MeanAveragePrecision(device="cpu")
+    images_gpu = [({k: v.cuda() for k, v in p.items()}, {k: v.cuda() for k, v in t.items()}) for p, t in images]
+    update_ms = []
+    for i in range(COCO_STEPS):
+        part = images_gpu[i * per:(i + 1) * per]
+        update_ms.append(_timed(lambda: gpu.update([p for p, _ in part], [t for _, t in part]))[1])
+        cpu.update([p for p, _ in images[i * per:(i + 1) * per]], [t for _, t in images[i * per:(i + 1) * per]])
+    got, compute_ms = _timed(gpu.compute)
+    stages = dict(gpu.last_evaluation)
+    want = cpu.compute()
+    diff = _agree_dict("COCO MAP", {k: got[k] for k in COCO_KEYS}, {k: want[k] for k in COCO_KEYS}, False,
+                       MAP_RTOL, 0.0)
+    values = {k: float(got[k]) for k in COCO_KEYS}
+    if not all(0.0 < values[k] < 1.0 for k in COCO_KEYS):
+        fail(f"COCO MAP: values out of (0, 1): {values}")
+    # the matching alone on the card: the chunks padded as compute pads them, each matched in turn
+    import metrics_tpu_torch.detection.mean_ap as mean_ap
+
+    classes = sorted(set(torch.cat([torch.as_tensor(x) for x in gpu.gt_label + gpu.detection_label]).tolist()))
+    units = gpu._build_units(False, classes)
+    order = sorted(range(len(units)), key=lambda i: (len(units[i]["didx"]), len(units[i]["gidx"])))
+    ranges = np.asarray(list(mean_ap._BBOX_AREA_RANGES.values()))
+    padded = [gpu._pad_chunk([units[i] for i in order[s:s + mean_ap._CHUNK_UNITS]], ranges)
+              for s in range(0, len(order), mean_ap._CHUNK_UNITS)]
+    thr = torch.tensor(gpu.iou_thresholds, dtype=torch.float32, device="cuda")
+    match_ms = _event_ms(lambda: [gpu._match_padded(chunk, thr) for chunk in padded], reps=2)
+    ious = {}
+    for cls in (IntersectionOverUnion, GeneralizedIntersectionOverUnion):
+        m_gpu, m_cpu = cls(device="cuda"), cls(device="cpu")
+        _, ms = _timed(lambda: m_gpu.update([p for p, _ in images_gpu], [t for _, t in images_gpu]))
+        m_cpu.update([p for p, _ in images], [t for _, t in images])
+        value, expect = m_gpu.compute(), m_cpu.compute()
+        ious[cls.__name__] = {"update_ms": ms, "value": {k: float(v) for k, v in value.items()},
+                              "max_abs_diff_vs_cpu": _agree_dict(cls.__name__, value, expect, False, IOU_RTOL, 1e-6)}
+    res = {"images": COCO_IMAGES, "gt_boxes": int(sum(len(t["labels"]) for _, t in images)),
+           "detections": int(sum(len(p["labels"]) for p, _ in images)), "updates": COCO_STEPS, "values": values,
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "compute_ms": compute_ms, "compute_stages_s": stages, "matching_device_ms": match_ms,
+           "max_abs_diff_vs_cpu": diff, "iou_metrics": ious}
+    log(f"COCO val2017 MAP: {json.dumps(res)}")
+    res["_single_stream"] = {k: got[k].cpu() for k in COCO_KEYS}
+    return res
+
+
+def _flat_detection_state(m) -> dict:
+    """Per-image host lists as (concatenation, per-image count) tensors on the card, as the dryrun flattens
+    them for the padded cat collective."""
+    def cat(xs, width, dtype):
+        parts = [torch.from_numpy(np.asarray(x, dtype).reshape((-1, width) if width else (-1,))) for x in xs]
+        flat = torch.cat(parts) if parts else torch.zeros((0, width) if width else (0,), dtype=torch.float32)
+        return flat.cuda()
+
+    return {"det_box": cat(m.detection_box, 4, np.float32), "det_score": cat(m.detection_score, 0, np.float32),
+            "det_label": cat(m.detection_label, 0, np.int32),
+            "det_count": torch.tensor([len(x) for x in m.detection_label], dtype=torch.int32, device="cuda"),
+            "gt_box": cat(m.gt_box, 4, np.float32), "gt_label": cat(m.gt_label, 0, np.int32),
+            "gt_crowd": cat(m.gt_crowd, 0, np.int32),
+            "gt_count": torch.tensor([len(x) for x in m.gt_label], dtype=torch.int32, device="cuda")}
+
+
+def detection_fan_in(images, single: dict) -> dict:
+    """The dryrun's ragged detection check: four ranks of uneven image counts (one empty), flattened, folded
+    by ``allreduce_over_mesh`` on the card and split back into per-image states, against the single stream."""
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+    from metrics_tpu_torch.parallel import allreduce_over_mesh
+
+    want = single.pop("_single_stream")
+    sizes = [1800, 0, 2000, COCO_IMAGES - 3800]
+    bounds = np.cumsum([0] + sizes)
+    flats = []
+    for r in range(4):
+        metric = MeanAveragePrecision(device="cuda")
+        part = images[bounds[r]:bounds[r + 1]]
+        if part:
+            metric.update([p for p, _ in part], [t for _, t in part])
+        flats.append(_flat_detection_state(metric))
+    merged, fold_ms = _timed(lambda: allreduce_over_mesh(flats, {k: "cat" for k in flats[0]}))
+    arrays = {k: v.cpu().numpy() for k, v in merged.items()}
+    folded = MeanAveragePrecision(device="cuda")
+    d_off = g_off = 0
+    for nd, ng in zip(arrays["det_count"].astype(int), arrays["gt_count"].astype(int)):
+        folded.detection_box.append(arrays["det_box"][d_off:d_off + nd].astype(np.float64))
+        folded.detection_score.append(arrays["det_score"][d_off:d_off + nd].astype(np.float64))
+        folded.detection_label.append(arrays["det_label"][d_off:d_off + nd])
+        folded.detection_rle.append([])
+        folded.gt_box.append(arrays["gt_box"][g_off:g_off + ng].astype(np.float64))
+        folded.gt_label.append(arrays["gt_label"][g_off:g_off + ng])
+        folded.gt_crowd.append(arrays["gt_crowd"][g_off:g_off + ng].astype(bool))
+        folded.gt_rle.append([])
+        folded.gt_area.append(None)
+        d_off, g_off = d_off + nd, g_off + ng
+    folded._update_count = 1
+    got, compute_ms = _timed(folded.compute)
+    diff = _agree_dict("detection folded from four ranks", {k: got[k] for k in COCO_KEYS}, want, False,
+                       MAP_RTOL, 0.0)
+    res = {"rank_images": sizes, "fold_ms": fold_ms, "compute_ms": compute_ms,
+           "max_abs_diff_vs_single_stream": diff}
+    log(f"detection fan-in of four ranks: {json.dumps(res)}")
+    return res
+
+
+def bootstrap_imagenet(seed: int, imagenet, imagenet_gpu) -> dict:
+    """BootStrapper(MulticlassAccuracy, 20 copies) over the ImageNet-1k evaluation, on the card and on the
+    CPU from one seed: the same rows for every copy, so equal counters."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    def make(device):
+        np.random.seed(seed)
+        return BootStrapper(MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device=device),
+                            num_bootstraps=BOOT_COPIES, quantile=[0.025, 0.975], raw=True)
+
+    gpu = make("cuda")
+    update_ms = [_timed(lambda: gpu.update(p, t))[1] for p, t in imagenet_gpu]
+    got, compute_ms = _timed(gpu.compute)
+    cpu = make("cpu")
+    for p, t in imagenet:
+        cpu.update(p, t)
+    want = cpu.compute()
+    for a, b in zip(gpu.metrics, cpu.metrics):
+        _same_states("BootStrapper copy", a, b)
+    diff = {k: _agree(f"ImageNet BootStrapper[{k}]", got[k], want[k], False,
+                      BOOT_STD_RTOL if k == "std" else BOOT_RTOL, 0.0) for k in want}
+    res = {"copies": BOOT_COPIES, "updates": len(imagenet_gpu), "first_update_ms": update_ms[0],
+           "later_update_ms_median": _median_ms(update_ms), "compute_ms": compute_ms,
+           "mean": float(got["mean"]), "std": float(got["std"]), "max_abs_diff_vs_cpu": diff}
+    log(f"ImageNet BootStrapper: {json.dumps(res)}")
+    return res
+
+
+def bootstrap_fan_in(seed: int, imagenet_gpu) -> dict:
+    """The dryrun's BootStrapper check: each copy's states from four uneven ranks, folded by
+    ``allreduce_over_mesh``, against the copies merged rank after rank with ``merge_state``."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.parallel import allreduce_over_mesh
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    preds, target = (torch.cat(parts) for parts in zip(*imagenet_gpu))
+    bounds = np.cumsum([0, 17_000, 8_000, 15_000, 10_000])
+    base = MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device="cuda")
+    np.random.seed(seed + 1)
+    ranks = []
+    for r in range(4):
+        wrapper = BootStrapper(base, num_bootstraps=BOOT_COPIES)
+        wrapper.update(preds[bounds[r]:bounds[r + 1]], target[bounds[r]:bounds[r + 1]])
+        ranks.append(wrapper)
+    fold_ms, worst = [], 0.0
+    for j in range(BOOT_COPIES):
+        merged, ms = _timed(lambda: allreduce_over_mesh([w.metrics[j].metric_state for w in ranks],
+                                                        ranks[0].metrics[j]._reductions))
+        fold_ms.append(ms)
+        via_fan_in = base.clone()
+        via_fan_in.load_merged_state(merged)
+        offline = ranks[0].metrics[j].clone()
+        for w in ranks[1:]:
+            offline.merge_state(w.metrics[j])
+        worst = max(worst, _agree(f"BootStrapper copy {j} folded", via_fan_in.compute(), offline.compute().cpu(),
+                                  False, BOOT_RTOL, 0.0))
+    res = {"copies": BOOT_COPIES, "rank_rows": [int(b) for b in np.diff(bounds)],
+           "fold_ms_median": float(np.median(fold_ms)), "max_abs_diff_vs_merge_state": worst}
+    log(f"BootStrapper fan-in of four ranks: {json.dumps(res)}")
+    return res
+
+
+def subgroup_sync_on_card(seed: int) -> dict:
+    """Four processes on the one card in a gloo world laid out as (model 2, data 2), one ``dist.new_group``
+    per data row: each rank's accuracy syncs over its row only and must equal the single stream over its
+    row's shards."""
+    import tempfile
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=_subgroup_rank, args=(rank, 4, f"{tmp}/store", f"{tmp}/{rank}.json", seed))
+                 for rank in range(4)]
+        for proc in procs:
+            proc.start()
+        for proc in procs:
+            proc.join(300)
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        results = []
+        for rank, proc in enumerate(procs):
+            path = os.path.join(tmp, f"{rank}.json")
+            if proc.exitcode != 0 or not os.path.exists(path):
+                fail(f"subgroup rank {rank} on the card exited with {proc.exitcode}")
+            with open(path) as fh:
+                results.append(json.load(fh))
+    for res in results:
+        if res["errors"]:
+            fail(f"subgroup rank {res['rank']} on the card: {res['errors']}")
+    log(f"subgroup sync, four ranks on one card: {json.dumps(results)}")
+    return {"ranks": results}
+
+
+def _subgroup_rank(rank: int, world: int, store: str, out_path: str, seed: int) -> None:
+    """One rank of :func:`subgroup_sync_on_card`."""
+    import torch.distributed as dist
+
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    errors, res = [], {}
+    try:
+        model, data = 2, world // 2
+        rows = [dist.new_group(list(range(m * data, (m + 1) * data)), backend="gloo") for m in range(model)]
+        row, d = divmod(rank, data)
+
+        def shard(dd):  # the data axis splits the batch; the model axis replicates it
+            rng = np.random.default_rng(seed + 200 + dd)
+            return (torch.from_numpy(rng.integers(0, 5, SUBGROUP_ROWS)).cuda(),
+                    torch.from_numpy(rng.integers(0, 5, SUBGROUP_ROWS)).cuda())
+
+        local = MulticlassAccuracy(num_classes=5, average="micro", process_group=rows[row], device="cuda")
+        whole = MulticlassAccuracy(num_classes=5, average="micro", sync_on_compute=False, device="cuda")
+        local.update(*shard(d))
+        for dd in range(data):
+            whole.update(*shard(dd))
+        got, ms = _timed(local.compute)
+        want = whole.compute()
+        if got.device.type != "cuda" or not torch.equal(got, want):
+            errors.append(f"row {row}: {float(got)} against the single stream's {float(want)}")
+        res = {"row": row, "value": float(got), "compute_with_sync_ms": ms}
+        for group in rows:
+            dist.destroy_process_group(group)
+    except Exception as exc:  # noqa: BLE001 (reported to the parent, which fails)
+        errors.append(f"{type(exc).__name__}: {exc}")
+    finally:
+        dist.destroy_process_group()
+        with open(out_path, "w") as fh:
+            json.dump({"rank": rank, "errors": errors, **res}, fh)
 
 
 # ----------------------------------------------------------------------------- phase 5

@@ -65,9 +65,10 @@ def _binary_groups_stat_scores_tensor(
             " prediction"
         )
     hit = t == p
-    # outcome 0 tp, 1 fp, 2 tn, 3 fn; a target outside {0, 1} goes to the dead bin past every group
+    # outcome 0 tp, 1 fp, 2 tn, 3 fn; a target outside {0, 1} or a negative group id goes to the dead bin
+    # past every group, as the JAX package drops both
     outcome = torch.where(t == 1, torch.where(hit, 0, 3), torch.where(hit, 2, 1))
-    bins = torch.where((t == 0) | (t == 1), 4 * groups + outcome, 4 * num_groups)
+    bins = torch.where(((t == 0) | (t == 1)) & (groups >= 0), 4 * groups + outcome, 4 * num_groups)
     counts = bincount(bins, 4 * num_groups).reshape(num_groups, 4)
     return counts[:, 0], counts[:, 1], counts[:, 2], counts[:, 3]
 

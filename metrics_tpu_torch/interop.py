@@ -6,7 +6,9 @@ arrays, list states as lists of arrays, and ``_update_count``) and installs it
 into the port's metric of the same class and configuration, which then goes on
 updating and computing as if it had seen the same batches: counters and
 confusion matrices, an aggregator's value with its Neumaier ``_comp``
-companion, list states such as Spearman's kept samples, Pearson's moments.
+companion, list states such as Spearman's kept samples or a retrieval
+metric's rows, Pearson's moments, ``MeanAveragePrecision``'s per-image host
+arrays, and a ``BootStrapper``'s copies.
 :func:`load_reference_collection_state` does the same for a whole
 ``MetricCollection``, compute groups included. The JAX metric only exports
 states marked persistent: call ``persistent(True)`` on it first.
@@ -23,6 +25,7 @@ import torch
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric, _dtype_kind
+from metrics_tpu_torch.wrappers.abstract import WrapperMetric
 
 __all__ = ["load_reference_collection_state", "load_reference_state"]
 
@@ -39,12 +42,34 @@ def _as_array(value: Any, where: str) -> np.ndarray:
 def load_reference_state(metric: Metric, state: Dict[str, Any]) -> Metric:
     """Install a ``metrics_tpu`` ``state_dict()`` into ``metric``; returns ``metric``.
 
-    See :func:`_convert_reference_state` for what is validated; nothing is
-    installed unless all of it holds.
+    A wrapper's state dict holds each child's states under its dotted path
+    (``metrics.0.tp`` for a ``BootStrapper``'s first copy), and each child takes
+    its own. See :func:`_convert_reference_state` for what is validated;
+    nothing is installed unless all of it holds, for the wrapper and every
+    child.
     """
-    converted, count = _convert_reference_state(metric, state)
-    _install(metric, converted, count)
+    for target, converted, count in _convert_tree(metric, state):
+        _install(target, converted, count)
     return metric
+
+
+def _convert_tree(metric: Metric, state: Dict[str, Any]) -> List[Tuple[Metric, Dict[str, Any], int]]:
+    """(metric, converted states, update count) for ``metric`` and, if it is a wrapper, every child."""
+    children = metric._children() if isinstance(metric, WrapperMetric) else []
+    prefixes = tuple(f"{path}." for path, _ in children)
+    own = {k: v for k, v in state.items() if not k.startswith(prefixes)} if prefixes else state
+    out = [(metric, *_convert_reference_state(metric, own))]
+    for (path, child), prefix in zip(children, prefixes):
+        out += _convert_tree(child, {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)})
+    return out
+
+
+def _host_item(v: Any) -> Any:
+    """One element of a host list state, copied: the JAX package's ``state_dict()`` exports ``None`` as a
+    0-d object array, which becomes ``None`` again."""
+    if isinstance(v, np.ndarray):
+        return v.item() if v.dtype == object and v.ndim == 0 else np.array(v)
+    return list(v) if isinstance(v, list) else v
 
 
 def _install(metric: Metric, converted: Dict[str, Any], count: int) -> None:
@@ -64,7 +89,9 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
     * a fixed-shape state must have the port's shape and dtype kind (bool,
       signed int, float): int32 counters load into int64 states;
     * a list state must be a list of numeric arrays that agree with one
-      another in dtype kind and in every dimension but the first.
+      another in dtype kind and in every dimension but the first; a metric
+      whose list states live on the host (``MeanAveragePrecision``: per-image
+      arrays, ``None`` areas, empty mask lists) takes copies of them as they are.
     """
     names = set(metric.metric_state)
     keys = set(state)
@@ -86,6 +113,9 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
         if isinstance(default, list):
             if not isinstance(value, (list, tuple)):
                 raise ValueError(f"state {name!r} is a list state; got {type(value).__name__}")
+            if getattr(metric, "_host_list_states", False):
+                converted[name] = [_host_item(v) for v in value]
+                continue
             arrays = [_as_array(v, name) for v in value]
             if arrays and (
                 len({a.dtype.kind for a in arrays}) != 1 or len({a.shape[1:] for a in arrays}) != 1

@@ -106,6 +106,12 @@ class Metric(ABC):
             more than one rank in the group".
         sync_on_compute: sync inside ``compute``.
         compute_with_cache: keep the ``compute`` result until the next ``update``/``reset``.
+        compute_on_cpu: move the list states to the CPU after each ``update`` and ``forward``; they stay
+            there through sync, unsync and unpickling (the sync gathers them on ``device``).
+        jit_update: accepted for the JAX package's sake and kept as ``_jit_update_opt``; no effect, since
+            PyTorch runs the update eagerly.
+        donate_states: accepted and kept as ``_donate_opt``; no effect, since an update replaces its
+            tensor states and never reuses their memory.
     """
 
     is_differentiable: Optional[bool] = None
@@ -119,12 +125,15 @@ class Metric(ABC):
         self._reductions: Dict[str, Optional[Callable]] = {}
         self._merge_associative: Dict[str, Optional[bool]] = {}
         self._precision: Dict[str, Any] = {}
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         self.process_group = kwargs.pop("process_group", None)
         self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
         self.distributed_available_fn = kwargs.pop("distributed_available_fn", None)
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         self.compute_with_cache = kwargs.pop("compute_with_cache", True)
+        self._jit_update_opt = kwargs.pop("jit_update", None)
+        self._donate_opt = kwargs.pop("donate_states", None)
         if kwargs:
             raise ValueError(f"Unexpected keyword arguments: {', '.join(f'`{a}`' for a in sorted(kwargs))}")
         self.device = resolve_device(device)
@@ -332,6 +341,14 @@ class Metric(ABC):
             self._computed = prev_computed
             self._update_count = prev_count
             raise
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Move every list state to the CPU (``compute_on_cpu``)."""
+        for key, value in self._state.items():
+            if isinstance(value, list):
+                self._state[key] = _map_tensors(value, lambda t: t.cpu())
 
     def _wrapped_compute(self) -> Any:
         """The cached compute, run inside :meth:`sync_context` (synced on entry, unsynced on exit)."""
@@ -412,6 +429,8 @@ class Metric(ABC):
             self._to_sync = self.sync_on_compute
         self.__dict__["_state"] = self._merge_state_dicts(global_state, self._state, update_count, 1)
         self._update_count = update_count + 1
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
         return batch_val
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
@@ -470,11 +489,18 @@ class Metric(ABC):
 
         input_dict = {attr: self._state[attr] for attr in self._reductions}
         for attr, reduction_fn in self._reductions.items():
-            if reduction_fn is dim_zero_cat and isinstance(input_dict[attr], list):
-                if len(input_dict[attr]) > 1:
-                    input_dict[attr] = [dim_zero_cat(input_dict[attr])]
-                elif len(input_dict[attr]) == 0:
-                    input_dict[attr] = [torch.zeros((0,), dtype=self._dtype, device=self.device)]
+            value = input_dict[attr]
+            if not isinstance(value, list):
+                continue
+            if self.compute_on_cpu:
+                # list states offloaded by compute_on_cpu are gathered where the collectives run
+                value = _map_tensors(value, lambda t: t.to(self.device))
+            if reduction_fn is dim_zero_cat:
+                if len(value) > 1:
+                    value = [dim_zero_cat(value)]
+                elif not value:
+                    value = [torch.zeros((0,), dtype=self._dtype, device=self.device)]
+            input_dict[attr] = value
         sync_fn = dist_sync_fn or self._default_dist_sync_fn
         names = list(input_dict)
         gathered = sync_fn([input_dict[n] for n in names], process_group)
@@ -482,7 +508,11 @@ class Metric(ABC):
         for attr, values in zip(names, gathered):
             if isinstance(values[0], list):
                 values = _flatten(values)
-            new_states[attr] = reduce_gathered(values, self._reductions[attr])
+            if self._reductions[attr] is None and isinstance(self._state[attr], list):
+                # a list state gathered without a reduction stays a list: one tensor per rank, in rank order
+                new_states[attr] = list(values)
+            else:
+                new_states[attr] = reduce_gathered(values, self._reductions[attr])
         self._state.update(new_states)
 
     def sync(
@@ -617,9 +647,15 @@ class Metric(ABC):
         """Unpickle: rebind ``update``/``compute`` and move the states back to the metric's device."""
         for k, v in state.items():
             object.__setattr__(self, k, v)
+        self.__dict__.setdefault("compute_on_cpu", False)
         for key in ("_state", "_defaults"):
             store = self.__dict__[key]
-            self.__dict__[key] = {k: _map_tensors(v, lambda t: t.to(self.device)) for k, v in store.items()}
+            self.__dict__[key] = {
+                # list states offloaded by compute_on_cpu stay on the CPU
+                k: v if key == "_state" and isinstance(v, list) and self.compute_on_cpu
+                else _map_tensors(v, lambda t: t.to(self.device))
+                for k, v in store.items()
+            }
         self._bind()
 
     # ------------------------------------------------------------------ persistence
@@ -635,9 +671,7 @@ class Metric(ABC):
             if not self._persistent[key]:
                 continue
             current = self._state[key]
-            destination[prefix + key] = (
-                [v.detach() for v in current] if isinstance(current, list) else current.detach()
-            )
+            destination[prefix + key] = _map_tensors(current, lambda t: t.detach())
         destination[prefix + "_update_count"] = self._update_count
         return destination
 

@@ -29,6 +29,7 @@ import metrics_tpu_torch.classification as tc
 from metrics_tpu_torch import CatMetric, MaxMetric, MeanMetric, MetricCollection, MinMetric, SumMetric
 from metrics_tpu_torch.parallel import gather_all_states, sync_states
 from metrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+from metrics_tpu_torch.retrieval import RetrievalMAP
 from metrics_tpu_torch.utils.exceptions import TPUMetricsUserError
 
 RTOL, CORR_RTOL = 1e-5, 1e-4
@@ -263,6 +264,46 @@ def case_sync_on_step_forward(rank: int, world: int) -> None:
     _close(batch.cpu(), torch.tensor(want), RTOL, "forward")
     _close(local.sum_value.cpu(), torch.tensor(float(np.sum(_shard(rank)["x"].astype(np.float64)))), RTOL,
            "local state")
+
+
+def case_subgroup_sync_over_data_rows(rank: int, world: int) -> None:
+    """A (model, data) layout of the world, one ``dist.new_group`` per data row: each rank's compute() syncs
+    over its own row only and equals the single stream over that row's shards (the model axis replicates
+    the batch, the data axis splits it)."""
+    model = 2 if world % 2 == 0 else 1
+    data = world // model
+    rows = [dist.new_group(list(range(m * data, (m + 1) * data)), backend="gloo") for m in range(model)]
+    row, d = divmod(rank, data)
+    try:
+        make = lambda **kw: tc.MulticlassAccuracy(num_classes=CLASSES, average="micro", device=DEVICE, **kw)  # noqa: E731
+        local, whole = make(process_group=rows[row]), make(sync_on_compute=False)
+        feed = lambda m, s: m.update(_t(s["logits"]), _t(s["labels"]))  # noqa: E731
+        feed(local, _shard(d))
+        for dd in range(data):
+            feed(whole, _shard(dd))
+        _equal(local.compute(), whole.compute(), "row accuracy")
+        if data > 1:  # a row of one rank does not sync
+            local.sync()
+            for key, value in local.metric_state.items():
+                _equal(value, whole.metric_state[key], f"row state {key}")
+            local.unsync()
+    finally:
+        for group in rows:
+            dist.destroy_process_group(group)
+
+
+def case_retrieval_list_states_sync(rank: int, world: int) -> None:
+    """Retrieval's list states, gathered without a reduction, come back as one tensor per rank, and the
+    synced score equals the single stream's."""
+    make = lambda **kw: RetrievalMAP(device=DEVICE, **kw)  # noqa: E731
+    feed = lambda m, s: m.update(_t(s["x"]), _t(s["binary"]), indexes=_t(s["groups"]))  # noqa: E731
+    local, whole = _stream_and_local(make, feed, rank, world)
+    local.sync()
+    assert len(local.indexes) == world, len(local.indexes)
+    for key in ("indexes", "preds", "target"):
+        _equal(torch.cat(local.metric_state[key]), torch.cat(whole.metric_state[key]), key)
+    local.unsync()
+    _close(local.compute().cpu(), whole.compute().cpu(), RTOL, "RetrievalMAP")
 
 
 CASES: Dict[str, Callable[[int, int], None]] = {

@@ -77,8 +77,9 @@ def test_default_device_is_cuda_and_raises_without_one():
 
 
 def test_unknown_kwarg_raises():
+    # jit_update, donate_states and compute_on_cpu are known options of the JAX package, taken by the port too
     with pytest.raises(ValueError, match="Unexpected keyword arguments"):
-        tc.BinaryAccuracy(device="cpu", jit_update=True)
+        tc.BinaryAccuracy(device="cpu", not_an_option=True)
 
 
 # ----------------------------------------------------------------------------- lifecycle
@@ -296,3 +297,70 @@ def test_task_wrapper_dispatch():
         tc.Accuracy(task="multiclass", device="cpu")
     with pytest.raises(RuntimeError, match="Can't change const"):
         tc.BinaryAccuracy(device="cpu").higher_is_better = False
+
+
+# ----------------------------------------------------------------------------- constructor options
+def _cat_and_spearman(**kw):
+    from metrics_tpu_torch import CatMetric
+    from metrics_tpu_torch.regression import SpearmanCorrCoef
+
+    return [CatMetric(device="cpu", **kw), SpearmanCorrCoef(device="cpu", **kw)]
+
+
+def _feed(metrics, seed=4):
+    rng = np.random.RandomState(seed)
+    for _ in range(3):
+        x, y = rng.randn(40).astype(np.float32), rng.randn(40).astype(np.float32)
+        metrics[0].update(_t(x))
+        metrics[1].update(_t(x), _t(y))
+
+
+def test_compute_on_cpu_keeps_list_states_on_the_host_with_equal_results():
+    """compute_on_cpu=True: list states on the CPU after update and forward, through a sync, an unsync and
+    pickling, with the results of the plain metrics and of the JAX package's."""
+    import pickle
+
+    from metrics_tpu import CatMetric as RefCat
+    from metrics_tpu.regression import SpearmanCorrCoef as RefSpearman
+
+    offloaded, plain = _cat_and_spearman(compute_on_cpu=True), _cat_and_spearman()
+    refs = [RefCat(compute_on_cpu=True), RefSpearman(compute_on_cpu=True)]
+    _feed(offloaded)
+    _feed(plain)
+    rng = np.random.RandomState(4)
+    for _ in range(3):
+        x, y = rng.randn(40).astype(np.float32), rng.randn(40).astype(np.float32)
+        refs[0].update(jnp.asarray(x))
+        refs[1].update(jnp.asarray(x), jnp.asarray(y))
+    offloaded[0](_t(np.ones(3, np.float32)))
+    plain[0](_t(np.ones(3, np.float32)))
+    refs[0](jnp.ones(3, jnp.float32))
+    for metric in offloaded:
+        assert metric.compute_on_cpu
+        for value in metric.metric_state.values():
+            assert all(v.device.type == "cpu" for v in value)
+        metric.sync(dist_sync_fn=lambda states, group: [[s] for s in states], distributed_available=True)
+        metric.unsync()
+        assert all(v.device.type == "cpu" for value in metric.metric_state.values() for v in value)
+        again = pickle.loads(pickle.dumps(metric))
+        assert all(isinstance(value, list) for value in again.metric_state.values())
+    for metric, twin, ref in zip(offloaded, plain, refs):
+        torch.testing.assert_close(metric.compute(), twin.compute(), rtol=0, atol=0)
+        np.testing.assert_allclose(metric.compute().numpy(), np.asarray(ref.compute()), rtol=1e-5)
+
+
+@pytest.mark.parametrize("option", [{"jit_update": True}, {"jit_update": False}, {"donate_states": True},
+                                    {"donate_states": False}, {"jit_update": True, "donate_states": True}])
+def test_jit_update_and_donate_states_are_accepted_and_change_nothing(option):
+    ref = jc.MulticlassAccuracy(num_classes=5, average="macro", **option)
+    port = tc.MulticlassAccuracy(num_classes=5, average="macro", device="cpu", **option)
+    plain = tc.MulticlassAccuracy(num_classes=5, average="macro", device="cpu")
+    assert port._jit_update_opt == ref._jit_update_opt == option.get("jit_update")
+    assert port._donate_opt == ref._donate_opt == option.get("donate_states")
+    for p, t in _batches(6):
+        ref.update(jnp.asarray(p), jnp.asarray(t))
+        port.update(_t(p), _t(t))
+        plain.update(_t(p), _t(t))
+    for key, value in plain.metric_state.items():
+        assert torch.equal(port.metric_state[key], value), key
+    _close(port.compute(), ref.compute())

@@ -456,10 +456,8 @@ def test_fan_in_of_four_ranks_on_the_card_equals_the_single_stream(cuda_device):
         torch.testing.assert_close(folded.compute(), whole.compute(), rtol=rtol, atol=1e-6 if rtol else 0.0)
 
 
-@pytest.mark.cuda
-def test_gloo_sync_of_two_ranks_on_one_card(cuda_device, tmp_path):
-    """Every case of tests/_torch_sync_workers.py with the states on the card: two processes share the one
-    device in a gloo group (NCCL takes one rank per device), each held against the single stream."""
+def _gloo_world_on_the_card(world, tmp_path):
+    """Every case of tests/_torch_sync_workers.py in ``world`` processes on the one card."""
     import pickle
 
     import torch.multiprocessing as mp
@@ -467,8 +465,8 @@ def test_gloo_sync_of_two_ranks_on_one_card(cuda_device, tmp_path):
     import _torch_sync_workers as workers
 
     ctx = mp.get_context("spawn")
-    procs = [ctx.Process(target=workers.run, args=(rank, 2, str(tmp_path / "store"), str(tmp_path), "cuda"),
-                         daemon=True) for rank in range(2)]
+    procs = [ctx.Process(target=workers.run, args=(rank, world, str(tmp_path / "store"), str(tmp_path), "cuda"),
+                         daemon=True) for rank in range(world)]
     for proc in procs:
         proc.start()
     for proc in procs:
@@ -478,7 +476,129 @@ def test_gloo_sync_of_two_ranks_on_one_card(cuda_device, tmp_path):
         if proc.is_alive():
             proc.kill()
             proc.join()
-    assert not any(alive) and [proc.exitcode for proc in procs] == [0, 0]
-    for rank in range(2):
+    assert not any(alive) and [proc.exitcode for proc in procs] == [0] * world
+    for rank in range(world):
         results = pickle.loads((tmp_path / f"{rank}.pkl").read_bytes())
         assert results == {name: "ok" for name in workers.case_names()}, results
+
+
+@pytest.mark.cuda
+def test_gloo_sync_of_two_ranks_on_one_card(cuda_device, tmp_path):
+    """Every case of tests/_torch_sync_workers.py with the states on the card: two processes share the one
+    device in a gloo group (NCCL takes one rank per device), each held against the single stream."""
+    _gloo_world_on_the_card(2, tmp_path)
+
+
+@pytest.mark.cuda
+def test_gloo_subgroup_sync_of_four_ranks_on_one_card(cuda_device, tmp_path):
+    """Four processes on the one card, laid out as (model 2, data 2): the subgroup case syncs each rank over
+    its data row's ``dist.new_group`` only; every other case runs in the world of four."""
+    _gloo_world_on_the_card(4, tmp_path)
+
+
+# ----------------------------------------------------------------------------- retrieval, detection, bootstrap
+def _retrieval_rows(seed, n=5000, queries=300):
+    rng = np.random.RandomState(seed)
+    preds = rng.rand(n).astype(np.float32)
+    preds[::7] = 0.5
+    return (torch.from_numpy(rng.randint(-5, queries, n)), torch.from_numpy(preds),
+            torch.from_numpy((rng.rand(n) < 0.1).astype(np.int64)), torch.from_numpy(rng.randint(0, 4, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["RetrievalMAP", "RetrievalMRR", "RetrievalNormalizedDCG", "RetrievalRecall",
+                                  "RetrievalAUROC", "RetrievalPrecisionRecallCurve"])
+def test_retrieval_on_card_matches_cpu(cuda_device, name):
+    import metrics_tpu_torch.retrieval as tr
+
+    kw = {"top_k": 10} if name in ("RetrievalMRR", "RetrievalNormalizedDCG", "RetrievalRecall") else {}
+    values = {}
+    for device in ("cpu", "cuda"):
+        metric = getattr(tr, name)(device=device, **kw)
+        for seed in (0, 1):
+            idx, preds, binary, graded = _retrieval_rows(seed)
+            metric.update(preds, graded if name == "RetrievalNormalizedDCG" else binary, indexes=idx)
+        values[device] = metric.compute()
+    got = values["cuda"] if isinstance(values["cuda"], tuple) else (values["cuda"],)
+    want = values["cpu"] if isinstance(values["cpu"], tuple) else (values["cpu"],)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-7)
+
+
+def _detection_images(seed, n=40):
+    rng = np.random.RandomState(seed)
+    images = []
+    for _ in range(n):
+        ng = rng.randint(0, 8)
+        gb = rng.rand(ng, 4) * 300
+        gb[:, 2:] = gb[:, :2] + 2 + rng.rand(ng, 2) * 150
+        nd = ng + rng.randint(0, 5)
+        db = np.concatenate([gb + rng.randn(ng, 4) * 4, rng.rand(nd - ng, 4) * 300])
+        db[:, 2:] = np.maximum(db[:, 2:], db[:, :2] + 2)
+        glab = rng.randint(0, 5, ng)
+        images.append(({"boxes": torch.from_numpy(db), "scores": torch.from_numpy(rng.rand(nd)),
+                        "labels": torch.from_numpy(np.concatenate([glab, rng.randint(0, 5, nd - ng)]))},
+                       {"boxes": torch.from_numpy(gb), "labels": torch.from_numpy(glab),
+                        "iscrowd": torch.from_numpy((rng.rand(ng) < 0.05).astype(np.int64))}))
+    return images
+
+
+@pytest.mark.cuda
+def test_map_on_card_matches_cpu(cuda_device):
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+
+    images = _detection_images(0)
+    values = {}
+    for device in ("cpu", "cuda"):
+        metric = MeanAveragePrecision(device=device, class_metrics=True)
+        metric.update([p for p, _ in images], [t for _, t in images])
+        values[device] = metric.compute()
+    for key, want in values["cpu"].items():
+        assert values["cuda"][key].device.type == "cuda"
+        torch.testing.assert_close(values["cuda"][key].cpu(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_iou_and_matching_run_on_card_and_match_cpu(cuda_device):
+    from metrics_tpu_torch.functional.detection import intersection_over_union
+    from metrics_tpu_torch.functional.detection.map_matching import batched_box_iou, match_units
+
+    rng = np.random.RandomState(1)
+    db = torch.from_numpy(rng.rand(64, 20, 4) * 100)
+    db[..., 2:] += db[..., :2]
+    gb = torch.from_numpy(rng.rand(64, 12, 4) * 100)
+    gb[..., 2:] += gb[..., :2]
+    crowd = torch.from_numpy(rng.rand(64, 12) < 0.1)
+    ious = {d: batched_box_iou(db.to(d), gb.to(d), crowd.to(d)) for d in ("cpu", "cuda")}
+    assert ious["cuda"].device.type == "cuda" and torch.equal(ious["cuda"].cpu(), ious["cpu"])
+    masks = [torch.from_numpy(x) for x in (rng.rand(64, 12) < 0.9, crowd.numpy(), rng.rand(64, 4, 12) < 0.2,
+                                           rng.rand(64, 20) < 0.9, rng.rand(64, 4, 20) < 0.2)]
+    thr = torch.linspace(0.5, 0.95, 10, dtype=torch.float64)
+    flags = {d: match_units(ious[d], *[m.to(d) for m in masks], thr) for d in ("cpu", "cuda")}
+    for got, want in zip(flags["cuda"], flags["cpu"]):
+        assert got.device.type == "cuda" and torch.equal(got.cpu(), want)
+    pair = [intersection_over_union(db[0].to(d), gb[0, :1].expand(20, 4).to(d), aggregate=False) for d in ("cpu", "cuda")]
+    torch.testing.assert_close(pair[1].cpu(), pair[0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_bootstrapper_draws_the_same_indices_on_both_devices(cuda_device):
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    rng = np.random.RandomState(2)
+    batches = [(torch.from_numpy(rng.randint(0, 10, 500)), torch.from_numpy(rng.randint(0, 10, 500)))
+               for _ in range(3)]
+    wrappers = {}
+    for device in ("cpu", "cuda"):
+        np.random.seed(11)
+        wrappers[device] = BootStrapper(tc.MulticlassAccuracy(num_classes=10, average="micro", device=device),
+                                        num_bootstraps=6, quantile=[0.1, 0.9], raw=True)
+        for p, t in batches:
+            wrappers[device].update(p.to(device), t.to(device))
+    for got, want in zip(wrappers["cuda"].metrics, wrappers["cpu"].metrics):
+        for key, value in want.metric_state.items():
+            assert torch.equal(got.metric_state[key].cpu(), value), key
+    out = {d: w.compute() for d, w in wrappers.items()}
+    for key, want in out["cpu"].items():
+        torch.testing.assert_close(out["cuda"][key].cpu(), want, rtol=1e-6, atol=0)

@@ -1,0 +1,97 @@
+"""The port's namespaces against the JAX package's.
+
+Each ``__all__`` of the port must be the JAX package's ``__all__`` restricted
+to the names that the port has, in the same order; every name of the JAX list
+that the port's domain module has must be exported; and each exported name
+must be the very object that its domain module defines.
+"""
+
+from __future__ import annotations
+
+import importlib
+import types
+
+import pytest
+
+import metrics_tpu
+import metrics_tpu_torch
+
+PAIRS = [
+    ("metrics_tpu", "metrics_tpu_torch"),
+    ("metrics_tpu.functional", "metrics_tpu_torch.functional"),
+    ("metrics_tpu.retrieval", "metrics_tpu_torch.retrieval"),
+    ("metrics_tpu.functional.retrieval", "metrics_tpu_torch.functional.retrieval"),
+    ("metrics_tpu.detection", "metrics_tpu_torch.detection"),
+    ("metrics_tpu.functional.detection", "metrics_tpu_torch.functional.detection"),
+    ("metrics_tpu.wrappers", "metrics_tpu_torch.wrappers"),
+]
+
+
+def _port_name(module_name: str) -> str:
+    return "metrics_tpu_torch" + module_name[len("metrics_tpu"):]
+
+
+def _domain(ref_module: str, obj) -> str:
+    """The JAX package's domain module of an exported object: its package below ``functional`` or the root."""
+    parts = obj.__name__.split(".") if isinstance(obj, types.ModuleType) else obj.__module__.split(".")
+    depth = 3 if parts[1] == "functional" and len(parts) > 3 else 2
+    return ".".join(parts[:depth]) if len(parts) > depth else ref_module
+
+
+def _ported(ref_name: str):
+    """(name, JAX domain module) of every name in the JAX list whose port domain module has it."""
+    ref = importlib.import_module(ref_name)
+    out = []
+    for name in ref.__all__:
+        if name == "__version__":
+            out.append((name, ref_name))
+            continue
+        obj = getattr(ref, name)
+        if isinstance(obj, types.ModuleType):
+            try:
+                importlib.import_module(_port_name(obj.__name__))
+            except ImportError:
+                continue
+            out.append((name, obj.__name__))
+            continue
+        domain = _domain(ref_name, obj)
+        try:
+            port_domain = importlib.import_module(_port_name(domain))
+        except ImportError:
+            continue
+        if hasattr(port_domain, name):
+            out.append((name, domain))
+    return out
+
+
+@pytest.mark.parametrize(("ref_name", "port_name"), PAIRS)
+def test_all_is_the_reference_order_restricted_to_ported_names(ref_name, port_name):
+    ref, port = importlib.import_module(ref_name), importlib.import_module(port_name)
+    assert [n for n in ref.__all__ if n in set(port.__all__)] == list(port.__all__)
+    assert not set(port.__all__) - set(ref.__all__)
+
+
+@pytest.mark.parametrize(("ref_name", "port_name"), PAIRS)
+def test_every_ported_name_is_exported(ref_name, port_name):
+    port = importlib.import_module(port_name)
+    assert [name for name, _ in _ported(ref_name)] == list(port.__all__)
+
+
+@pytest.mark.parametrize(("ref_name", "port_name"), PAIRS)
+def test_exported_names_are_their_domain_modules_objects(ref_name, port_name):
+    port = importlib.import_module(port_name)
+    for name, domain in _ported(ref_name):
+        obj = getattr(port, name)
+        if name == "__version__":
+            assert isinstance(obj, str)
+        elif isinstance(obj, types.ModuleType):
+            assert obj is importlib.import_module(_port_name(domain)), name
+        else:
+            assert obj is getattr(importlib.import_module(_port_name(domain)), name), name
+
+
+def test_top_level_imports_of_the_ported_classes():
+    from metrics_tpu_torch import AUROC, Accuracy, BootStrapper, MeanSquaredError, RetrievalMAP  # noqa: F401
+    from metrics_tpu_torch.functional import accuracy, retrieval_average_precision  # noqa: F401
+
+    assert set(metrics_tpu_torch.__all__) < set(metrics_tpu.__all__)

@@ -167,3 +167,32 @@ def test_reference_state_loads_into_the_port():
     ref.update(*[jnp.asarray(a) for a in (preds, target, groups)])
     port.update(*[torch.from_numpy(a) for a in (preds, target, groups)])
     _close(port.compute(), ref.compute())
+
+
+NEG_PREDS, NEG_TARGET, NEG_GROUPS = [1, 0, 1, 1], [1, 0, 0, 1], [0, 1, -1, 1]
+
+
+@pytest.mark.parametrize("validate_args", [True, False])
+@pytest.mark.parametrize("fn_name", ["binary_groups_stat_rates", "demographic_parity", "equal_opportunity"])
+def test_negative_group_id_drops_the_sample_as_the_reference_does(fn_name, validate_args):
+    """A group id of -1 leaves its sample out of every group, in both packages: the same rates as the
+    three-sample input without it."""
+    preds, target, groups = (np.asarray(x) for x in (NEG_PREDS, NEG_TARGET, NEG_GROUPS))
+    args = {"binary_groups_stat_rates": (preds, target, groups, 2), "demographic_parity": (preds, groups),
+            "equal_opportunity": (preds, target, groups)}[fn_name]
+    port, ref = _both(fn_name, *args, validate_args=validate_args)
+    _close(port, ref)
+    keep = groups >= 0
+    dropped = {"binary_groups_stat_rates": (preds[keep], target[keep], groups[keep], 2),
+               "demographic_parity": (preds[keep], groups[keep]),
+               "equal_opportunity": (preds[keep], target[keep], groups[keep])}[fn_name]
+    _close(port, _both(fn_name, *dropped, validate_args=validate_args)[1])
+
+
+@pytest.mark.parametrize("validate_args", [True, False])
+def test_negative_group_id_in_the_class_matches_reference(validate_args):
+    port = tc.BinaryFairness(num_groups=2, task="all", validate_args=validate_args, device="cpu")
+    ref = jc.BinaryFairness(num_groups=2, task="all", validate_args=validate_args)
+    port.update(*(torch.tensor(x) for x in (NEG_PREDS, NEG_TARGET, NEG_GROUPS)))
+    ref.update(*(jnp.asarray(x) for x in (NEG_PREDS, NEG_TARGET, NEG_GROUPS)))
+    _close(port.compute(), ref.compute())

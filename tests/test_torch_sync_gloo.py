@@ -1,10 +1,12 @@
-"""The port's sync over real ``torch.distributed`` gloo groups of 2 and 3 processes on the CPU.
+"""The port's sync over real ``torch.distributed`` gloo groups of 2, 3 and 4 processes on the CPU.
 
 One spawn per world size runs every case of ``tests/_torch_sync_workers.py``
 in each rank (a ``file://`` store under the test's temporary directory, so no
 port is opened); each case is then one test here, passing when every rank
 held its synced result against the single-stream run: integer states equal,
 float states and scores within rtol 1e-5, Pearson and Spearman within 1e-4.
+The world of 4 is laid out as (model 2, data 2) for the subgroup case, each
+rank syncing over its data row's ``dist.new_group`` only.
 Every child is joined under a timeout, so a hung collective fails its tests
 instead of stalling the suite. Port only: the JAX package has no process
 groups.
@@ -45,10 +47,10 @@ def _spawn(world, directory):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return {world: _spawn(world, tmp_path_factory.mktemp(f"gloo{world}")) for world in (2, 3)}
+    return {world: _spawn(world, tmp_path_factory.mktemp(f"gloo{world}")) for world in (2, 3, 4)}
 
 
-@pytest.mark.parametrize("world", [2, 3])
+@pytest.mark.parametrize("world", [2, 3, 4])
 @pytest.mark.parametrize("case", workers.case_names())
 def test_sync_over_gloo(runs, world, case):
     run = runs[world]
