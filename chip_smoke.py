@@ -9,13 +9,14 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
 
 1. print the card's name and power limit (``nvidia-smi``); no CUDA device -> exit 1;
 2. build the kernel libraries from ``metrics_tpu_torch/csrc`` (one ``nvcc`` per
-   source, in parallel) and print what ``ptxas`` reports for each kernel
-   (registers, spills, shared memory);
+   source, in parallel, with ``g++`` for the host RLE codec) and print what
+   ``ptxas`` reports for each kernel (registers, spills, shared memory);
 3. hold each kernel against its plain PyTorch version on the card: the binned
    counts in both input modes ((N, C) targets and mask; (N,) labels)
    integer-equal, in float32 and in float64 (scores on the float64 grid and
    within half a float32 ulp of it), the SSIM window within
-   ``SSIM_RTOL``/``SSIM_ATOL``;
+   ``SSIM_RTOL``/``SSIM_ATOL``, MS-SSIM's planes at every scale of a DIV2K
+   image and a plane smaller than one 64 x 64 tile among its shapes;
 4. the main path through the public classes on ``device="cuda"``, each result
    checked against the same inputs run through the port on the CPU; every
    kernel's launch count is set to 0 just before each metric's run and read
@@ -54,10 +55,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ``BootStrapper`` (20 copies) over the ImageNet-1k evaluation and its copies
    folded from four ranks against ``merge_state``; and four processes on the
    card in a (model 2, data 2) gloo layout, each syncing over its data row's
-   ``dist.new_group``;
+   ``dist.new_group``; then the image and segmentation paths: PSNR, SSIM and
+   MS-SSIM in one collection over 100 DIV2K-sized pairs (3 x 1356 x 2040, one
+   window launch an update for SSIM and five for MS-SSIM, read per metric),
+   3-D SSIM over BraTS-sized volumes (4 x 155 x 240 x 240, no kernel), bbox
+   and mask MAP over 500 COCO val2017-like images at a synthetic mix of sizes
+   640 pixels on the long side (the RLE states equal to the CPU run's, the
+   compute's stages, the mask IoUs' device time and peak memory) and panoptic quality over 5,000 COCO panoptic-sized
+   label maps (133 categories); each against the port's CPU run of a stated
+   subset;
 5. time each kernel, its plain version and (for the window) one library call
-   with CUDA events at the main path's shapes, beside the least time the card
-   could take (``bound_ms``). With ``--baseline DIR`` (an unpacked older tree of
+   with CUDA events at the main path's shapes (the window also at the DIV2K
+   first scale), beside the least time the card could take (``bound_ms``);
+   then one MS-SSIM update of a DIV2K pair, whole and scale by scale. With ``--baseline DIR`` (an unpacked older tree of
    this repository) the older kernels are timed in turns with these, old, new,
    new, old, each old run in a process of its own started in ``DIR``;
 6. print the kernels' JSON line and, last, the device JSON line.
@@ -77,6 +87,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -109,15 +120,41 @@ RET_RTOL = 1e-5  # float32 sums over the 6,980 queries, taken in another order
 COCO_IMAGES, COCO_CLASSES, COCO_GT_MEAN, COCO_DETS, COCO_STEPS = 5000, 80, 7.4, 100, 10
 MAP_RTOL = 1e-6  # as the JAX package's dryrun holds MAP: float32 matching with the same decisions, float64 sums
 IOU_RTOL = 1e-5  # float32 sums of about 10^5 IoUs, taken in another order
+IOU_CPU_IMAGES = 1000  # the IoU and GIoU metrics' CPU check covers the first 1,000 of the 5,000 images
 BOOT_COPIES, BOOT_RTOL = 20, 1e-6  # BootStrapper: the copies' scores are quotients of equal counters
 # their float32 std: 20 scores near 0.75 that spread by about 0.003, so the deviations from the mean, summed
 # in another order on the card, keep about 5 significant digits
 BOOT_STD_RTOL = 1e-4
 SUBGROUP_ROWS = 1 << 20  # labels per data shard in the subgroup sync
+# super-resolution evaluation at DIV2K validation scale: the 100 validation pairs, 3 x 1356 x 2040 (DIV2K's HR
+# images are 2040 pixels on the long side), one image an update; MS-SSIM makes one window launch per scale
+DIV2K_IMAGES, DIV2K_SHAPE, DIV2K_CPU_IMAGES, MS_SSIM_SCALES = 100, (1356, 2040), 2, 5
+PSNR_RTOL = 1e-5  # float32 sums of 8.3 M squared errors an image, taken in another order
+SSIM_VALUE_ATOL = 1e-5  # SSIM and MS-SSIM values, as the CPU tests hold them against the JAX package
+# 3-D SSIM at BraTS volume size: the four MRI modalities x 155 x 240 x 240, one volume an update; the CPU check
+# covers the first 32 slices of the first volume at full height and width (the whole volume takes the CPU 7-14 s)
+BRATS_VOLUMES, BRATS_SHAPE, BRATS_CPU_DEPTH = 3, (155, 240, 240), 32
+# mask MAP on the first 500 of the 5,000 COCO val2017 images (the cut: the host's RLE encoding and the CPU
+# check's dense masks set the time), 100 detections an image, in updates of 50
+SEGM_IMAGES, SEGM_PER_UPDATE = 500, 50
+# COCO panoptic val2017: 5,000 images of 480 x 640, 133 categories (80 things, 53 stuffs), updates of 50
+PQ_IMAGES, PQ_PER_UPDATE, PQ_CPU_IMAGES, PQ_SHAPE, PQ_THINGS, PQ_STUFFS = 5000, 50, 50, (480, 640), 80, 53
+PQ_RTOL = 1e-6  # iou_sum: float64 sums per update, the same on both devices, met by the float32 state once
+
+
+SECTION_S: dict = {}  # wall seconds of each part of the main path, printed after it
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def section(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in ``SECTION_S[name]``."""
+    t0 = time.perf_counter()
+    result = fn(*args)
+    SECTION_S[name] = time.perf_counter() - t0
+    return result
 
 
 def fail(msg: str) -> None:
@@ -213,16 +250,22 @@ def check_kernels(rng: np.random.Generator) -> dict:
 
     taps = _gaussian_taps_np(11, 1.5)
     ssim_err = 0.0
+    # MS-SSIM's planes on a DIV2K image: 15 planes (5 moments x 3 channels) at each of the five scales, padded
+    # by 10; the last two have odd padded widths (the kernel's 4-byte cp.async path); and a plane smaller than
+    # one 64 x 64 tile, with an odd width
+    div2k = [(5 * 3, (DIV2K_SHAPE[0] >> s) + 10, (DIV2K_SHAPE[1] >> s) + 10) for s in range(MS_SSIM_SCALES)]
     for shape, kh, kw in [((12, 42, 74), taps, taps), ((6, 20, 40), taps, _gaussian_taps_np(5, 0.8)),
                           ((5, 150, 203), taps, taps), ((70_000, 18, 18), taps, taps),
-                          ((5 * SSIM_SHAPE[0] * SSIM_SHAPE[1], SSIM_SHAPE[2] + 10, SSIM_SHAPE[3] + 10), taps, taps)]:
+                          ((5 * SSIM_SHAPE[0] * SSIM_SHAPE[1], SSIM_SHAPE[2] + 10, SSIM_SHAPE[3] + 10), taps, taps),
+                          *[(shape, taps, taps) for shape in div2k], ((15, 40, 51), taps, taps)]:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
         got, want = ssim_window(x, kh, kw), ssim_window_plain(x, kh, kw)
         if not torch.allclose(got, want, rtol=SSIM_RTOL, atol=SSIM_ATOL):
             fail(f"ssim_window differs from its plain version at shape {shape}")
         ssim_err = max(ssim_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
-    log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}); max |err| {ssim_err}")
+    log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}) on 12 shapes, MS-SSIM's DIV2K planes"
+        f" {div2k} among them; max |err| {ssim_err}")
     return {"binned_counts": float(binned_err), "binned_counts_labels": float(labels_err), "ssim_window": ssim_err,
             "binned_counts_f64": float(f64_err)}
 
@@ -271,9 +314,11 @@ def main_path(seed: int, wrappers: dict) -> dict:
 
     out = {}
     rng = np.random.default_rng(seed)
+    t_start = time.perf_counter()
 
     def run(name, make, batches, expect=None):
         """``expect``: the launches per wrapper this run must show (absent wrappers: none)."""
+        t_run = time.perf_counter()
         gpu, cpu = make("cuda"), make("cpu")
         update_ms = []
         for wrapper in wrappers.values():
@@ -295,6 +340,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
                      "launches": launches}
         if expect is not None:
             out[name]["expected_launches"] = expect
+        SECTION_S[name] = time.perf_counter() - t_run
         return gpu, cpu, got, want
 
     def acc_batches():
@@ -342,9 +388,10 @@ def main_path(seed: int, wrappers: dict) -> dict:
         fail(f"SSIM {float(got)} on the card, {float(want)} on the CPU")
     out["StructuralSimilarityIndexMeasure"]["value"] = float(got)
     out["StructuralSimilarityIndexMeasure"]["abs_diff_vs_cpu"] = abs(float(got) - float(want))
-    curve_family(rng, run, out)
-    stat_family(rng, run, out)
-    imagenet, imagenet_gpu = collections_and_sync(seed, wrappers, out)
+    SECTION_S["accuracy, PR curves, SSIM"] = time.perf_counter() - t_start
+    section("curve family", curve_family, rng, run, out)
+    section("stat family", stat_family, rng, run, out)
+    imagenet, imagenet_gpu = section("collections and sync", collections_and_sync, seed, wrappers, out)
     dryrun_checks(seed, wrappers, out, imagenet, imagenet_gpu)
     return out
 
@@ -1044,7 +1091,7 @@ def dryrun_checks(seed: int, wrappers: dict, out: dict, imagenet, imagenet_gpu) 
     def counting(name, body):
         for wrapper in wrappers.values():
             wrapper.launches = 0
-        result = body()
+        result = section(name, body)
         torch.cuda.synchronize()
         result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": {}})
         out[name] = result
@@ -1060,6 +1107,7 @@ def dryrun_checks(seed: int, wrappers: dict, out: dict, imagenet, imagenet_gpu) 
     counting("ImageNet BootStrapper", lambda: bootstrap_imagenet(seed, imagenet, imagenet_gpu))
     counting("BootStrapper fan-in[4 ranks]", lambda: bootstrap_fan_in(seed, imagenet_gpu))
     counting("subgroup sync[4 ranks, 2 x 2]", lambda: subgroup_sync_on_card(seed))
+    image_and_segmentation(seed, wrappers, out)
 
 
 def msmarco_rows(rng: np.random.Generator) -> list:
@@ -1219,8 +1267,9 @@ COCO_KEYS = ("map", "map_50", "map_75", "map_small", "map_medium", "map_large", 
 
 
 def detection_coco(images) -> dict:
-    """MAP over the 5,000 images in 10 updates of 500, on the card and on the CPU; the IoU and GIoU metrics on
-    the same boxes; the matching's device time on the padded chunks apart."""
+    """MAP over the 5,000 images in 10 updates of 500, on the card and on the CPU, the matching's device time
+    from the compute's own CUDA events; the IoU and GIoU metrics on the same boxes, their CPU check over the first
+    ``IOU_CPU_IMAGES``."""
     from metrics_tpu_torch.detection import (
         GeneralizedIntersectionOverUnion,
         IntersectionOverUnion,
@@ -1236,36 +1285,26 @@ def detection_coco(images) -> dict:
         update_ms.append(_timed(lambda: gpu.update([p for p, _ in part], [t for _, t in part]))[1])
         cpu.update([p for p, _ in images[i * per:(i + 1) * per]], [t for _, t in images[i * per:(i + 1) * per]])
     got, compute_ms = _timed(gpu.compute)
-    stages = dict(gpu.last_evaluation)
+    stages = dict(gpu.last_evaluation["bbox"])
     want = cpu.compute()
     diff = _agree_dict("COCO MAP", {k: got[k] for k in COCO_KEYS}, {k: want[k] for k in COCO_KEYS}, False,
                        MAP_RTOL, 0.0)
     values = {k: float(got[k]) for k in COCO_KEYS}
     if not all(0.0 < values[k] < 1.0 for k in COCO_KEYS):
         fail(f"COCO MAP: values out of (0, 1): {values}")
-    # the matching alone on the card: the chunks padded as compute pads them, each matched in turn
-    import metrics_tpu_torch.detection.mean_ap as mean_ap
-
-    classes = sorted(set(torch.cat([torch.as_tensor(x) for x in gpu.gt_label + gpu.detection_label]).tolist()))
-    units = gpu._build_units(False, classes)
-    order = sorted(range(len(units)), key=lambda i: (len(units[i]["didx"]), len(units[i]["gidx"])))
-    ranges = np.asarray(list(mean_ap._BBOX_AREA_RANGES.values()))
-    padded = [gpu._pad_chunk([units[i] for i in order[s:s + mean_ap._CHUNK_UNITS]], ranges)
-              for s in range(0, len(order), mean_ap._CHUNK_UNITS)]
-    thr = torch.tensor(gpu.iou_thresholds, dtype=torch.float32, device="cuda")
-    match_ms = _event_ms(lambda: [gpu._match_padded(chunk, thr) for chunk in padded], reps=2)
     ious = {}
     for cls in (IntersectionOverUnion, GeneralizedIntersectionOverUnion):
-        m_gpu, m_cpu = cls(device="cuda"), cls(device="cpu")
+        m_gpu, m_check, m_cpu = cls(device="cuda"), cls(device="cuda"), cls(device="cpu")
         _, ms = _timed(lambda: m_gpu.update([p for p, _ in images_gpu], [t for _, t in images_gpu]))
-        m_cpu.update([p for p, _ in images], [t for _, t in images])
-        value, expect = m_gpu.compute(), m_cpu.compute()
-        ious[cls.__name__] = {"update_ms": ms, "value": {k: float(v) for k, v in value.items()},
-                              "max_abs_diff_vs_cpu": _agree_dict(cls.__name__, value, expect, False, IOU_RTOL, 1e-6)}
+        m_check.update([p for p, _ in images_gpu[:IOU_CPU_IMAGES]], [t for _, t in images_gpu[:IOU_CPU_IMAGES]])
+        m_cpu.update([p for p, _ in images[:IOU_CPU_IMAGES]], [t for _, t in images[:IOU_CPU_IMAGES]])
+        iou_diff = _agree_dict(cls.__name__, m_check.compute(), m_cpu.compute(), False, IOU_RTOL, 1e-6)
+        ious[cls.__name__] = {"update_ms": ms, "value": {k: float(v) for k, v in m_gpu.compute().items()},
+                              "cpu_images": IOU_CPU_IMAGES, "max_abs_diff_vs_cpu": iou_diff}
     res = {"images": COCO_IMAGES, "gt_boxes": int(sum(len(t["labels"]) for _, t in images)),
            "detections": int(sum(len(p["labels"]) for p, _ in images)), "updates": COCO_STEPS, "values": values,
            "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
-           "compute_ms": compute_ms, "compute_stages_s": stages, "matching_device_ms": match_ms,
+           "compute_ms": compute_ms, "compute_stages_s": stages, "matching_device_ms": 1000 * stages["match_device_s"],
            "max_abs_diff_vs_cpu": diff, "iou_metrics": ious}
     log(f"COCO val2017 MAP: {json.dumps(res)}")
     res["_single_stream"] = {k: got[k].cpu() for k in COCO_KEYS}
@@ -1462,6 +1501,303 @@ def _subgroup_rank(rank: int, world: int, store: str, out_path: str, seed: int) 
             json.dump({"rank": rank, "errors": errors, **res}, fh)
 
 
+# ----------------------------------------------------------------------------- phase 4, image and segmentation
+def image_and_segmentation(seed: int, wrappers: dict, out: dict) -> None:
+    """Super-resolution evaluation at DIV2K validation scale (PSNR, SSIM and MS-SSIM through the window
+    kernel), 3-D SSIM at BraTS volume size (no kernel), mask MAP at COCO val2017 image sizes (the RLE codec,
+    the mask IoUs on the card) and panoptic quality at COCO panoptic scale (the pixel pass on the card); each
+    against the port's CPU run of a stated subset of the same inputs."""
+
+    def counting(name, expect, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = section(name, body)
+        torch.cuda.synchronize()
+        result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": expect})
+        out[name] = result
+
+    counting("DIV2K super-resolution collection", {"ssim_window": DIV2K_IMAGES * (1 + MS_SSIM_SCALES)},
+             lambda: div2k_collection(seed, wrappers["ssim_window"]))
+    counting("BraTS 3-D SSIM", {}, lambda: brats_ssim(seed))
+    images = coco_images(np.random.default_rng(seed + 7))[:SEGM_IMAGES]
+    counting("COCO val2017 segm MeanAveragePrecision", {}, lambda: segm_coco(seed, images))
+    del images
+    counting("COCO panoptic quality", {}, lambda: panoptic_coco(seed))
+
+
+def _generator(seed: int) -> torch.Generator:
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return g
+
+
+def div2k_pair(g: torch.Generator):
+    """One (super-resolved, high-resolution) pair of 3 x 1356 x 2040 float32 images in [0, 1] on the card: a
+    smooth image (bilinear upsampling of 85 x 128 noise, plus fine grain) and the same image with the error of
+    a reconstruction."""
+    h, w = DIV2K_SHAPE
+    coarse = torch.rand((1, 3, h // 16, w // 16), generator=g, device="cuda")
+    target = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False)
+    target = (target + 0.03 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 1)
+    preds = (target + 0.04 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 1)
+    return preds, target
+
+
+def div2k_collection(seed: int, ssim_window) -> dict:
+    """PSNR, SSIM and MS-SSIM (``data_range=1.0``) in one collection over 100 DIV2K-sized pairs, one image an
+    update; each member's window-kernel launches read around its own updates. The CPU run covers the first
+    ``DIV2K_CPU_IMAGES`` pairs and is held against the card's compute after as many updates."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.image import (
+        MultiScaleStructuralSimilarityIndexMeasure,
+        PeakSignalNoiseRatio,
+        StructuralSimilarityIndexMeasure,
+    )
+
+    def make(device):
+        return MetricCollection({"psnr": PeakSignalNoiseRatio(data_range=1.0, device=device),
+                                 "ssim": StructuralSimilarityIndexMeasure(data_range=1.0, device=device),
+                                 "ms_ssim": MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device=device)})
+
+    gpu, cpu = make("cuda"), make("cpu")
+    per_metric = {name: 0 for name in gpu.keys()}
+    for name, member in gpu.items():
+        def counted(*args, _inner=member.update, _name=name, **kwargs):
+            before = ssim_window.launches
+            _inner(*args, **kwargs)
+            per_metric[_name] += ssim_window.launches - before
+        member.update = counted
+    g = _generator(seed + 8)
+    update_ms, diff = [], None
+    for i in range(DIV2K_IMAGES):
+        preds, target = div2k_pair(g)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if i < DIV2K_CPU_IMAGES:
+            cpu.update(preds.cpu(), target.cpu())
+        if i == DIV2K_CPU_IMAGES - 1:
+            got, want = gpu.compute(), cpu.compute()
+            diff = {"psnr": _agree("DIV2K PSNR", got["psnr"], want["psnr"], False, PSNR_RTOL, 0.0),
+                    "ssim": _agree("DIV2K SSIM", got["ssim"], want["ssim"], False, 0.0, SSIM_VALUE_ATOL),
+                    "ms_ssim": _agree("DIV2K MS-SSIM", got["ms_ssim"], want["ms_ssim"], False, 0.0, SSIM_VALUE_ATOL)}
+    got, compute_ms = _timed(gpu.compute)
+    values = {k: float(v) for k, v in got.items()}
+    if not (20.0 < values["psnr"] < 60.0 and 0.0 < values["ssim"] < 1.0 and 0.0 < values["ms_ssim"] < 1.0):
+        fail(f"DIV2K: values out of range: {values}")
+    expect = {"psnr": 0, "ssim": DIV2K_IMAGES, "ms_ssim": DIV2K_IMAGES * MS_SSIM_SCALES}
+    if per_metric != expect:
+        fail(f"DIV2K: window-kernel launches per metric {per_metric}, expected {expect}")
+    res = {"images": DIV2K_IMAGES, "shape": [3, *DIV2K_SHAPE], "cpu_images": DIV2K_CPU_IMAGES, "values": values,
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "compute_ms": compute_ms, "launches_per_metric": per_metric, "max_abs_diff_vs_cpu": diff}
+    log(f"DIV2K super-resolution: {json.dumps(res)}")
+    return res
+
+
+def brats_ssim(seed: int) -> dict:
+    """3-D SSIM (11 x 11 x 11 gaussian window) over BraTS-sized volumes, 4 MRI modalities x 155 x 240 x 240,
+    one volume an update, on the shifted-slice cascade (no kernel). The check: the first ``BRATS_CPU_DEPTH``
+    slices of the first volume at full height and width, through the port on the card and on the CPU."""
+    from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+
+    g = _generator(seed + 9)
+    gpu = StructuralSimilarityIndexMeasure(data_range=1.0, device="cuda")
+    update_ms, diff = [], None
+    for i in range(BRATS_VOLUMES):
+        coarse = torch.rand((1, 4, 20, 30, 30), generator=g, device="cuda")
+        target = F.interpolate(coarse, size=BRATS_SHAPE, mode="trilinear", align_corners=False)
+        preds = (target + 0.05 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 1)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if i == 0:
+            slab = preds[:, :, :BRATS_CPU_DEPTH], target[:, :, :BRATS_CPU_DEPTH]
+            card = StructuralSimilarityIndexMeasure(data_range=1.0, device="cuda")
+            card.update(*slab)
+            cpu = StructuralSimilarityIndexMeasure(data_range=1.0, device="cpu")
+            t0 = time.perf_counter()
+            cpu.update(*(x.cpu() for x in slab))
+            cpu_ms = 1000 * (time.perf_counter() - t0)
+            diff = _agree("BraTS 3-D SSIM", card.compute(), cpu.compute(), False, 0.0, SSIM_VALUE_ATOL)
+    got, compute_ms = _timed(gpu.compute)
+    if not 0.0 < float(got) < 1.0:
+        fail(f"BraTS 3-D SSIM {float(got)} is not a similarity")
+    res = {"volumes": BRATS_VOLUMES, "shape": [4, *BRATS_SHAPE], "cpu_shape": [4, BRATS_CPU_DEPTH, *BRATS_SHAPE[1:]],
+           "value": float(got),
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "cpu_update_ms": cpu_ms, "compute_ms": compute_ms, "max_abs_diff_vs_cpu": diff}
+    log(f"BraTS 3-D SSIM: {json.dumps(res)}")
+    return res
+
+
+def _coco_sizes(rng: np.random.Generator, n: int) -> list:
+    """(h, w) of each image, a synthetic mix: 640 on the long side, as COCO's images are scaled, landscape for
+    70 % of them, the short side 480 for half of them and drawn uniformly from 240 to 640 for the rest, so that
+    most sizes are held by one image or a few. The shares are this script's choice: COCO val2017's own table of
+    sizes is not in this repository."""
+    short = np.where(rng.random(n) < 0.5, 480, rng.integers(240, 641, n))
+    landscape = rng.random(n) < 0.7
+    return [(int(s), 640) if wide else (640, int(s)) for s, wide in zip(short, landscape)]
+
+
+def _fit_boxes(boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """The box MAP path's boxes, laid out on a 640 x 480 image, moved onto an (h, w) image: turned for a
+    portrait image, then scaled."""
+    if h > w:
+        boxes = boxes[:, [1, 0, 3, 2]]
+        sx, sy = w / 480, h / 640
+    else:
+        sx, sy = w / 640, h / 480
+    return boxes * torch.tensor([sx, sy, sx, sy], dtype=boxes.dtype, device=boxes.device)
+
+
+def ellipse_masks(boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(n, h, w) bool masks on the boxes' device: the filled ellipse inscribed in each xyxy box."""
+    x0, y0, x1, y1 = boxes.float().unbind(1)
+    cx, cy = ((x0 + x1) / 2)[:, None, None], ((y0 + y1) / 2)[:, None, None]
+    rx, ry = ((x1 - x0) / 2).clamp(min=0.5)[:, None, None], ((y1 - y0) / 2).clamp(min=0.5)[:, None, None]
+    ys = torch.arange(h, device=boxes.device, dtype=torch.float32)[None, :, None] + 0.5
+    xs = torch.arange(w, device=boxes.device, dtype=torch.float32)[None, None, :] + 0.5
+    return ((xs - cx) / rx) ** 2 + ((ys - cy) / ry) ** 2 <= 1
+
+
+def segm_coco(seed: int, images: list) -> dict:
+    """``MeanAveragePrecision(iou_type=("bbox", "segm"))`` over the first ``SEGM_IMAGES`` of the box path's COCO
+    val2017 images at the sizes of ``_coco_sizes``, each box with its inscribed ellipse as mask, made on the
+    card; updates of ``SEGM_PER_UPDATE`` images. The CPU run covers the first update's images, held against the card's
+    compute after that update; the card's RLE states equal the CPU's there."""
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+
+    sizes = _coco_sizes(np.random.default_rng(seed + 10), len(images))
+    gpu = MeanAveragePrecision(iou_type=("bbox", "segm"), device="cuda")
+    cpu = MeanAveragePrecision(iou_type=("bbox", "segm"), device="cpu")
+    update_ms, diff, n_masks, check_s = [], None, 0, 0.0
+    for start in range(0, len(images), SEGM_PER_UPDATE):
+        preds, target = [], []
+        for (p, t), (h, w) in zip(images[start:start + SEGM_PER_UPDATE], sizes[start:start + SEGM_PER_UPDATE]):
+            pb, tb = _fit_boxes(p["boxes"].cuda(), h, w), _fit_boxes(t["boxes"].cuda(), h, w)
+            preds.append({"boxes": pb, "masks": ellipse_masks(pb, h, w), "scores": p["scores"].cuda(),
+                          "labels": p["labels"].cuda()})
+            target.append({"boxes": tb, "masks": ellipse_masks(tb, h, w), "labels": t["labels"].cuda(),
+                           "iscrowd": t["iscrowd"].cuda()})
+            n_masks += len(pb) + len(tb)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if start == 0:
+            t0 = time.perf_counter()
+            cpu.update([{k: v.cpu() for k, v in d.items()} for d in preds],
+                       [{k: v.cpu() for k, v in d.items()} for d in target])
+            if gpu.detection_rle != cpu.detection_rle or gpu.gt_rle != cpu.gt_rle:
+                fail("COCO segm: the card's RLE states differ from the CPU run's")
+            got, want = gpu.compute(), cpu.compute()
+            keys = [f"{kind}_{k}" for kind in ("bbox", "segm") for k in COCO_KEYS]
+            diff = _agree_dict("COCO segm MAP", {k: got[k] for k in keys}, {k: want[k] for k in keys}, False,
+                               MAP_RTOL, 0.0)
+            check_s = time.perf_counter() - t0
+        del preds, target
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got, compute_ms = _timed(gpu.compute)
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    stages = {kind: dict(gpu.last_evaluation[kind]) for kind in ("bbox", "segm")}
+    values = {f"{kind}_{k}": float(got[f"{kind}_{k}"]) for kind in ("bbox", "segm") for k in COCO_KEYS}
+    if not all(0.0 < v < 1.0 for v in values.values()):
+        fail(f"COCO segm MAP: values out of (0, 1): {values}")
+    segm = stages["segm"]
+    res = {"images": len(images), "cpu_images": SEGM_PER_UPDATE, "distinct_sizes": len(set(sizes)),
+           "images_of_480_short_side": sum(min(s) == 480 for s in sizes), "masks": n_masks,
+           "updates": len(update_ms), "values": values, "first_update_ms": update_ms[0],
+           "later_update_ms_median": _median_ms(update_ms), "update_ms_per_image":
+           float(np.median(update_ms[1:] if len(update_ms) > 1 else update_ms)) / SEGM_PER_UPDATE,
+           "compute_s": compute_ms / 1000, "compute_stages_s": stages,
+           "f64_iou_unit_share": segm["f64_iou_units"] / max(1, segm["f64_iou_units"] + segm["f32_iou_units"]),
+           "compute_peak_device_mb": peak_mb, "cpu_check_s": check_s, "max_abs_diff_vs_cpu": diff}
+    log(f"COCO val2017 segm MAP: {json.dumps(res)}")
+    return res
+
+
+def panoptic_maps(g: torch.Generator, b: int):
+    """(b, 480, 640, 2) int64 (category, instance) maps on the card, target and prediction: 4 stuff regions
+    (a Voronoi partition, categories 80-132) under 7 thing instances (ellipses, categories 0-79), about 11
+    segments an image. The prediction moves every region and instance a little, gives 10 % of the instances
+    another category, drops 10 % and adds one false instance."""
+    h, w = PQ_SHAPE
+    ys = torch.arange(h, device="cuda", dtype=torch.float32)[None, None, :, None] + 0.5
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)[None, None, None, :] + 0.5
+    rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")  # noqa: E731
+    randn = lambda *shape: torch.randn(shape, generator=g, device="cuda")  # noqa: E731
+    seeds = rand(b, 4, 2) * torch.tensor([w, h], device="cuda")
+    stuff = PQ_THINGS + (rand(b, 4) * PQ_STUFFS).long()
+    centers = rand(b, 8, 2) * torch.tensor([w, h], device="cuda")
+    radii = 20 + rand(b, 8, 2) * 100
+    things = (rand(b, 8) * PQ_THINGS).long()
+    keep = torch.ones((b, 8), dtype=torch.bool, device="cuda")
+
+    def paint(seeds, stuff, centers, radii, things, keep):
+        d = (xs - seeds[..., 0, None, None]) ** 2 + (ys - seeds[..., 1, None, None]) ** 2  # (b, 4, h, w)
+        cat = torch.gather(stuff, 1, d.argmin(1).reshape(b, -1)).reshape(b, h, w)
+        inst = torch.zeros_like(cat)
+        for k in range(centers.shape[1]):
+            inside = (((xs[:, 0] - centers[:, k, 0, None, None]) / radii[:, k, 0, None, None]) ** 2
+                      + ((ys[:, 0] - centers[:, k, 1, None, None]) / radii[:, k, 1, None, None]) ** 2 <= 1)
+            inside &= keep[:, k, None, None]
+            cat = torch.where(inside, things[:, k, None, None], cat)
+            inst = torch.where(inside, torch.full_like(inst, k + 1), inst)
+        return torch.stack([cat, inst], dim=-1)
+
+    target_keep = keep.clone()
+    target_keep[:, 7] = False  # the eighth instance is the prediction's false one
+    target = paint(seeds, stuff, centers, radii, things, target_keep)
+    pred_things = torch.where(rand(b, 8) < 0.1, (rand(b, 8) * PQ_THINGS).long(), things)
+    pred_keep = keep & (rand(b, 8) >= 0.1)
+    preds = paint(seeds + 15 * randn(b, 4, 2), stuff, centers + 6 * randn(b, 8, 2), radii * (1 + 0.1 * randn(b, 8, 2)),
+                  pred_things, pred_keep)
+    return preds, target
+
+
+def panoptic_coco(seed: int) -> dict:
+    """``PanopticQuality`` and ``ModifiedPanopticQuality`` (133 categories: 80 things, 53 stuffs; SQ, RQ and
+    per-class values) over ``PQ_IMAGES`` images of 480 x 640 in updates of ``PQ_PER_UPDATE``. The CPU run covers
+    the first ``PQ_CPU_IMAGES`` images, its states held against the card's after as many."""
+    from metrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+
+    things, stuffs = set(range(PQ_THINGS)), set(range(PQ_THINGS, PQ_THINGS + PQ_STUFFS))
+    kw = {"return_sq_and_rq": True, "return_per_class": True}
+    gpu = {"pq": PanopticQuality(things, stuffs, device="cuda", **kw),
+           "modified_pq": ModifiedPanopticQuality(things, stuffs, device="cuda", **kw)}
+    cpu = {"pq": PanopticQuality(things, stuffs, device="cpu", **kw),
+           "modified_pq": ModifiedPanopticQuality(things, stuffs, device="cpu", **kw)}
+    g = _generator(seed + 11)
+    update_ms = {k: [] for k in gpu}
+    diff = None
+    for start in range(0, PQ_IMAGES, PQ_PER_UPDATE):
+        preds, target = panoptic_maps(g, PQ_PER_UPDATE)
+        for k, m in gpu.items():
+            update_ms[k].append(_timed(lambda: m.update(preds, target))[1])
+        if start < PQ_CPU_IMAGES:
+            p_cpu, t_cpu = preds.cpu(), target.cpu()
+            for m in cpu.values():
+                m.update(p_cpu, t_cpu)
+        if start + PQ_PER_UPDATE == PQ_CPU_IMAGES:
+            for k in gpu:
+                _same_states(f"COCO panoptic {k}", gpu[k], cpu[k], rtol=PQ_RTOL)
+            diff = {k: _agree(f"COCO panoptic {k}", gpu[k].compute(), cpu[k].compute(), False, PQ_RTOL, 0.0)
+                    for k in gpu}
+    values = {}
+    for k, m in gpu.items():
+        got = m.compute()
+        if got.shape != (1, 3, PQ_THINGS + PQ_STUFFS) or not bool(((got >= 0) & (got <= 1)).all()):
+            fail(f"COCO panoptic {k}: per-class values {tuple(got.shape)} out of [0, 1]")
+        valid = (m.true_positives + m.false_positives + m.false_negatives) > 0
+        values[k] = {name: float(got[0, i][valid].mean()) for i, name in enumerate(("pq", "sq", "rq"))}
+    res = {"images": PQ_IMAGES, "cpu_images": PQ_CPU_IMAGES, "shape": [*PQ_SHAPE, 2],
+           "categories": {"things": PQ_THINGS, "stuffs": PQ_STUFFS},
+           "segments_per_image": float((gpu["pq"].true_positives.sum() + gpu["pq"].false_negatives.sum()) / PQ_IMAGES),
+           "values": values, "update_ms": {k: {"first": v[0], "later_median": _median_ms(v)}
+                                           for k, v in update_ms.items()},
+           "update_ms_per_image": {k: _median_ms(v) / PQ_PER_UPDATE for k, v in update_ms.items()},
+           "max_abs_diff_vs_cpu": diff}
+    log(f"COCO panoptic quality: {json.dumps(res)}")
+    return res
+
+
 # ----------------------------------------------------------------------------- phase 5
 def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     """Kernel, plain and library times at the main path's shapes; ``plain=False`` times the kernels only."""
@@ -1546,6 +1882,54 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
                                                     .abs().max())
     res["ssim_window"] = row
+
+    # B2 at the DIV2K first scale: the 15 planes (5 moments x 3 channels) of one 1356 x 2040 image, padded
+    (h, w), planes = DIV2K_SHAPE, 15
+    x = torch.from_numpy(rng.random((planes, h + 10, w + 10), dtype=np.float32)).cuda()
+    moved = 4 * planes * ((h + 10) * (w + 10) + h * w)
+    ops = 2 * planes * (11 * h * (w + 10) + 11 * h * w)
+    row = {"shape": [planes, h + 10, w + 10, 11, 11], "ms": time_ms(lambda: ssim_window(x, k, k), flush=flush),
+           "plain_ms": None, **bound(moved, ops), "library_ms": None}
+    if plain:
+        weight = torch.from_numpy(np.outer(k, k).astype(np.float32)).reshape(1, 1, 11, 11).cuda()
+        x4 = x.unsqueeze(1)
+        torch.backends.cudnn.allow_tf32 = False
+        row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush)
+        row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
+        row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
+                                                    .abs().max())
+    res["ssim_window[div2k]"] = row
+    return res
+
+
+def measure_ms_ssim(seed: int) -> dict:
+    """One MS-SSIM update of a DIV2K pair, whole and scale by scale (each SSIM pass with its window launch,
+    each pooling), with CUDA events around the host's launches, so that launch-bound small scales show; and
+    the window kernel alone at each scale's planes (cold L2)."""
+    from metrics_tpu_torch.functional.image._helpers import avg_pool2d
+    from metrics_tpu_torch.functional.image.ssim import _gaussian_taps_np, _multiscale_ssim_update, _ssim_update
+    from metrics_tpu_torch.image import MultiScaleStructuralSimilarityIndexMeasure
+    from metrics_tpu_torch.ops.profile import flush_buffer, time_ms
+    from metrics_tpu_torch.ops.ssim_window import ssim_window
+
+    preds, target = div2k_pair(_generator(seed + 12))
+    metric = MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, device="cuda")
+    metric.update(preds, target)  # first use of every operator
+    res = {"update_ms": _event_ms(lambda: metric.update(preds, target), reps=5),
+           "function_ms": _event_ms(lambda: _multiscale_ssim_update(preds, target, data_range=1.0), reps=5)}
+    taps, flush = _gaussian_taps_np(11, 1.5), flush_buffer()
+    scales, p, t = [], preds, target
+    for s in range(MS_SSIM_SCALES):
+        planes = torch.rand((15, p.shape[2] + 10, p.shape[3] + 10), device="cuda")
+        scale = {"shape": list(p.shape[2:]),
+                 "ssim_pass_ms": _event_ms(lambda: _ssim_update(p, t, data_range=1.0,
+                                                                return_contrast_sensitivity=True), reps=5),
+                 "window_kernel_ms": time_ms(lambda: ssim_window(planes, taps, taps), flush=flush)}
+        if s < MS_SSIM_SCALES - 1:
+            scale["pool_ms"] = _event_ms(lambda: (avg_pool2d(p, 2), avg_pool2d(t, 2)), reps=5)
+            p, t = avg_pool2d(p, 2), avg_pool2d(t, 2)
+        scales.append(scale)
+    res["scales"] = scales
     return res
 
 
@@ -1579,15 +1963,16 @@ def main() -> int:
     from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
     from metrics_tpu_torch.ops.ssim_window import ssim_window
 
+    t_script = time.perf_counter()
     smi = nvidia_smi()
     kind = torch.cuda.get_device_name(0)
     log(f"device: {kind} ({torch.cuda.device_count()} visible); torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(f"nvidia-smi: {smi}")
 
     t0 = time.perf_counter()
-    _native.build(ptxas_verbose=True)
+    _native.build(_native.KERNEL_SOURCES + _native.HOST_SOURCES, ptxas_verbose=True)
     build_s = time.perf_counter() - t0
-    log(f"built {len(_native.KERNEL_SOURCES)} kernel libraries in {build_s:.1f} s")
+    log(f"built {len(_native.KERNEL_SOURCES)} kernel libraries and the RLE codec in {build_s:.1f} s")
     for name, text in _native.build_logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -1601,6 +1986,7 @@ def main() -> int:
     t0 = time.perf_counter()
     path = main_path(seed, wrappers)
     log(f"main path in {time.perf_counter() - t0:.1f} s: {json.dumps(path)}")
+    log(f"main path's parts, wall seconds: {json.dumps(SECTION_S)}")
     expect = {"BinaryPrecisionRecallCurve": {"binned_counts": PRC_STEPS},
               "MulticlassPrecisionRecallCurve": {"binned_counts_labels": PRC_STEPS},
               "StructuralSimilarityIndexMeasure": {"ssim_window": SSIM_STEPS},
@@ -1638,6 +2024,7 @@ def main() -> int:
             row["baseline_ms_runs"] = [run[key] for run in old if key in run]
     for name, row in timing.items():
         log(f"{name}: {json.dumps(row)}")
+    log(f"MS-SSIM update of one DIV2K pair: {json.dumps(measure_ms_ssim(seed))}")
 
     sources = {"binned_counts[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                          "metrics_tpu/ops/binned_hist.py:151"),
@@ -1650,7 +2037,9 @@ def main() -> int:
                "binned_counts_f64[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                              "metrics_tpu/ops/binned_hist.py:151"),
                "ssim_window": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
-                               "metrics_tpu/ops/ssim_window.py:60")}
+                               "metrics_tpu/ops/ssim_window.py:60"),
+               "ssim_window[div2k]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
+                                      "metrics_tpu/ops/ssim_window.py:60")}
     kernels = []
     for key, (name, source, replaces) in sources.items():
         row = timing[key]
@@ -1661,6 +2050,7 @@ def main() -> int:
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })
 
+    log(f"whole run in {time.perf_counter() - t_script:.1f} s")
     log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

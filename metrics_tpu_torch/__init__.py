@@ -61,7 +61,12 @@ from metrics_tpu_torch.classification import (  # noqa: E402
     SpecificityAtSensitivity,
     StatScores,
 )
-from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure  # noqa: E402
+from metrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality  # noqa: E402
+from metrics_tpu_torch.image import (  # noqa: E402
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    StructuralSimilarityIndexMeasure,
+)
 from metrics_tpu_torch.regression import (  # noqa: E402
     MeanAbsoluteError,
     MeanSquaredError,
@@ -110,7 +115,11 @@ __all__ = [
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "ModifiedPanopticQuality",
+    "MultiScaleStructuralSimilarityIndexMeasure",
     "NegativePredictiveValue",
+    "PanopticQuality",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "Precision",
     "PrecisionAtFixedRecall",

@@ -1,7 +1,8 @@
 """Detection metrics (counterpart of ``metrics_tpu/detection``).
 
-Ported: the four box-IoU metrics and ``MeanAveragePrecision`` for boxes.
-Mask IoU (``iou_type="segm"``) and panoptic quality are not ported yet.
+The names are those of ``metrics_tpu.detection.__all__``, in its order: the
+four box-IoU metrics, ``MeanAveragePrecision`` (boxes and masks) and
+panoptic quality.
 """
 
 from metrics_tpu_torch.detection.iou_metrics import (
@@ -11,6 +12,7 @@ from metrics_tpu_torch.detection.iou_metrics import (
     IntersectionOverUnion,
 )
 from metrics_tpu_torch.detection.mean_ap import MeanAveragePrecision
+from metrics_tpu_torch.detection.panoptic_quality import ModifiedPanopticQuality, PanopticQuality
 
 __all__ = [
     "CompleteIntersectionOverUnion",
@@ -18,4 +20,6 @@ __all__ = [
     "GeneralizedIntersectionOverUnion",
     "IntersectionOverUnion",
     "MeanAveragePrecision",
+    "ModifiedPanopticQuality",
+    "PanopticQuality",
 ]

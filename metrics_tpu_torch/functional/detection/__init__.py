@@ -1,6 +1,7 @@
 """Functional detection metrics (counterpart of ``metrics_tpu/functional/detection``).
 
-Panoptic quality is not ported yet.
+The names are those of ``metrics_tpu.functional.detection.__all__``, in its
+order.
 """
 
 from metrics_tpu_torch.functional.detection.iou import (
@@ -9,10 +10,16 @@ from metrics_tpu_torch.functional.detection.iou import (
     generalized_intersection_over_union,
     intersection_over_union,
 )
+from metrics_tpu_torch.functional.detection.panoptic_quality import (
+    modified_panoptic_quality,
+    panoptic_quality,
+)
 
 __all__ = [
     "complete_intersection_over_union",
     "distance_intersection_over_union",
     "generalized_intersection_over_union",
     "intersection_over_union",
+    "modified_panoptic_quality",
+    "panoptic_quality",
 ]

@@ -23,8 +23,15 @@ def reduce(x: torch.Tensor, reduction: Optional[str] = "elementwise_mean") -> to
 
 
 def _reflect_pad(x: torch.Tensor, pads: Sequence[int]) -> torch.Tensor:
-    """Reflect-pad the trailing spatial dims (edge not repeated, as ``numpy.pad(mode="reflect")``); one pad per dim."""
+    """Reflect-pad the two or three trailing spatial dims (edge not repeated, as ``numpy.pad(mode="reflect")``);
+    one pad per dim."""
     pad_arg = []
     for p in reversed(pads):  # F.pad lists the last dim first
         pad_arg += [p, p]
     return F.pad(x, pad_arg, mode="reflect")
+
+
+def avg_pool2d(x: torch.Tensor, kernel: int = 2) -> torch.Tensor:
+    """Average pool of (B, C, H, W) with stride = kernel, VALID: an odd last row or column is dropped (MS-SSIM's
+    downsampling)."""
+    return F.avg_pool2d(x, kernel)

@@ -1,5 +1,17 @@
-"""Image metrics."""
+"""Image metrics.
 
-from metrics_tpu_torch.image.metrics import StructuralSimilarityIndexMeasure
+The names are those of ``metrics_tpu.image.__all__`` that are ported, in its
+order.
+"""
 
-__all__ = ["StructuralSimilarityIndexMeasure"]
+from metrics_tpu_torch.image.metrics import (
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    StructuralSimilarityIndexMeasure,
+)
+
+__all__ = [
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "PeakSignalNoiseRatio",
+    "StructuralSimilarityIndexMeasure",
+]

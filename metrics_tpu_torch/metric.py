@@ -911,9 +911,12 @@ def _dtype_kind(dtype: torch.dtype) -> str:
 
 
 def _squeeze_if_scalar(data: Any) -> Any:
-    """Squeeze one-element tensors to 0-d, through tuples and lists."""
+    """Squeeze one-element tensors to 0-d, through tuples, lists and dicts (as the JAX package's tree map
+    does)."""
     if isinstance(data, torch.Tensor):
         return data.squeeze() if data.numel() == 1 and data.ndim > 0 else data
     if isinstance(data, (list, tuple)):
         return type(data)(_squeeze_if_scalar(x) for x in data)
+    if isinstance(data, dict):
+        return {k: _squeeze_if_scalar(v) for k, v in data.items()}
     return data

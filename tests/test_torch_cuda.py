@@ -602,3 +602,117 @@ def test_bootstrapper_draws_the_same_indices_on_both_devices(cuda_device):
     out = {d: w.compute() for d, w in wrappers.items()}
     for key, want in out["cpu"].items():
         torch.testing.assert_close(out["cuda"][key].cpu(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 179, 265), (15, 94, 137), (15, 40, 51), (3, 20, 21)],
+                         ids=["div2k-scale4", "div2k-scale5", "under-a-tile", "tiny"])
+def test_ssim_kernel_matches_plain_at_ms_ssim_planes(cuda_device, shape):
+    """MS-SSIM's small scales: odd padded widths (4-byte copies) and planes smaller than one 64 x 64 tile."""
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    taps = _gaussian_taps_np(11, 1.5)
+    before = ssim_window.launches
+    got = ssim_window(x, taps, taps)
+    assert ssim_window.launches == before + 1
+    torch.testing.assert_close(got, ssim_window_plain(x, taps, taps), rtol=0, atol=SSIM_ATOL)
+
+
+@pytest.mark.cuda
+def test_ms_ssim_on_card_matches_cpu_with_one_launch_a_scale(cuda_device):
+    from metrics_tpu_torch.image import MultiScaleStructuralSimilarityIndexMeasure
+
+    rng = np.random.RandomState(3)
+    batches = []
+    for _ in range(2):
+        a = rng.rand(2, 3, 200, 231).astype(np.float32)
+        batches.append((torch.from_numpy(a), torch.from_numpy((0.8 * a + 0.2 * rng.rand(*a.shape)).astype(np.float32))))
+    values = {}
+    for device in ("cpu", "cuda"):
+        metric = MultiScaleStructuralSimilarityIndexMeasure(data_range=1.0, reduction="none", device=device)
+        before = ssim_window.launches
+        for a, b in batches:
+            metric.update(a.to(device), b.to(device))
+        values[device] = metric.compute()
+        assert ssim_window.launches - before == (10 if device == "cuda" else 0)
+    assert values["cuda"].device.type == "cuda"
+    torch.testing.assert_close(values["cuda"].cpu(), values["cpu"], rtol=0, atol=1e-5)
+
+
+def _segm_images(seed, n=24):
+    """Filled ellipses as ground truths, noisy copies and stray ellipses as detections, on two image sizes and,
+    for the last image, a third (a size group of at most three units: the float64 quotient)."""
+    rng = np.random.RandomState(seed)
+    images = []
+    for i in range(n):
+        h, w = (40, 56) if i == n - 1 else (48, 64) if i % 3 else (64, 48)
+        yy, xx = np.mgrid[:h, :w]
+
+        def ellipses(k):
+            c = rng.rand(k, 2) * [w, h]
+            r = 2 + rng.rand(k, 2) * [w / 3, h / 3]
+            return ((xx + 0.5 - c[:, 0, None, None]) / r[:, 0, None, None]) ** 2 \
+                + ((yy + 0.5 - c[:, 1, None, None]) / r[:, 1, None, None]) ** 2 <= 1
+
+        ng = rng.randint(1, 6)
+        gm = ellipses(ng)
+        nd = ng + rng.randint(0, 4)
+        dm = np.concatenate([gm ^ (rng.rand(ng, h, w) < 0.03), ellipses(nd - ng)])
+        glab = rng.randint(0, 3, ng)
+        images.append(({"masks": torch.from_numpy(dm), "scores": torch.from_numpy(rng.rand(nd)),
+                        "labels": torch.from_numpy(np.concatenate([glab, rng.randint(0, 3, nd - ng)]))},
+                       {"masks": torch.from_numpy(gm), "labels": torch.from_numpy(glab),
+                        "iscrowd": torch.from_numpy((rng.rand(ng) < 0.1).astype(np.int64))}))
+    return images
+
+
+@pytest.mark.cuda
+def test_segm_map_on_card_matches_cpu(cuda_device):
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+
+    images = _segm_images(4)
+    metrics, values = {}, {}
+    for device in ("cpu", "cuda"):
+        metric = MeanAveragePrecision(iou_type="segm", extended_summary=True, device=device)
+        metric.update([{k: v.to(device) for k, v in p.items()} for p, _ in images],
+                      [{k: v.to(device) for k, v in t.items()} for _, t in images])
+        metrics[device], values[device] = metric, metric.compute()
+    assert metrics["cuda"].detection_rle == metrics["cpu"].detection_rle
+    stages = metrics["cuda"].last_evaluation["segm"]
+    assert stages["f32_iou_units"] > 0 and stages["f64_iou_units"] > 0 and stages["mask_iou_device_s"] > 0
+    assert stages["match_device_s"] > 0
+    for key, want in values["cpu"].items():
+        if isinstance(want, dict):  # the IoU matrices, bit for bit
+            for k, v in want.items():
+                assert torch.equal(values["cuda"][key][k].cpu(), v), k
+            continue
+        assert values["cuda"][key].device.type == "cuda"
+        torch.testing.assert_close(values["cuda"][key].cpu(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_panoptic_pixel_pass_on_card_matches_cpu(cuda_device):
+    from metrics_tpu_torch.detection import ModifiedPanopticQuality, PanopticQuality
+    from metrics_tpu_torch.detection.panoptic_quality import _segment_pairs
+
+    rng = np.random.RandomState(5)
+    target = np.zeros((4, 60, 80, 2), np.int64)
+    target[..., 0] = rng.choice([10, 11], (4, 1, 1))
+    for b in range(4):
+        for inst in range(5):
+            y, x = rng.randint(0, 50), rng.randint(0, 70)
+            target[b, y:y + rng.randint(5, 30), x:x + rng.randint(5, 30)] = (rng.randint(1, 4), inst)
+    preds = np.roll(target, (2, -3), axis=(1, 2))
+    preds, target = torch.from_numpy(preds), torch.from_numpy(target)
+    stuffs = torch.tensor([10, 11])
+    pairs = {d: _segment_pairs(preds.to(d), target.to(d), stuffs.to(d)) for d in ("cpu", "cuda")}
+    for got, want in zip(pairs["cuda"], pairs["cpu"]):
+        np.testing.assert_array_equal(got, want)
+    for cls in (PanopticQuality, ModifiedPanopticQuality):
+        out = {}
+        for device in ("cpu", "cuda"):
+            metric = cls({1, 2, 3}, {10, 11}, return_sq_and_rq=True, device=device)
+            metric.update(preds.to(device), target.to(device))
+            out[device] = metric
+        for key in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
+            assert torch.equal(getattr(out["cuda"], key).cpu(), getattr(out["cpu"], key)), key
+        torch.testing.assert_close(out["cuda"].compute().cpu(), out["cpu"].compute(), rtol=1e-6, atol=0)

@@ -153,12 +153,6 @@ def test_map_iou_exactly_at_the_thresholds():
         _agree_map(port.compute(), ref.compute())
 
 
-def test_map_segm_raises_until_the_codec_is_ported():
-    with pytest.raises(ValueError, match="segm"):
-        td.MeanAveragePrecision(iou_type="segm", device="cpu")
-    with pytest.raises(ValueError, match="iou_type"):
-        td.MeanAveragePrecision(iou_type="keypoints", device="cpu")
-
 
 def test_map_reference_state_loads_into_the_port():
     port, ref = _both_map(_images(8))

@@ -24,6 +24,8 @@ PAIRS = [
     ("metrics_tpu.detection", "metrics_tpu_torch.detection"),
     ("metrics_tpu.functional.detection", "metrics_tpu_torch.functional.detection"),
     ("metrics_tpu.wrappers", "metrics_tpu_torch.wrappers"),
+    ("metrics_tpu.image", "metrics_tpu_torch.image"),
+    ("metrics_tpu.functional.image", "metrics_tpu_torch.functional.image"),
 ]
 
 
@@ -92,6 +94,18 @@ def test_exported_names_are_their_domain_modules_objects(ref_name, port_name):
 
 def test_top_level_imports_of_the_ported_classes():
     from metrics_tpu_torch import AUROC, Accuracy, BootStrapper, MeanSquaredError, RetrievalMAP  # noqa: F401
+    from metrics_tpu_torch import (  # noqa: F401
+        ModifiedPanopticQuality,
+        MultiScaleStructuralSimilarityIndexMeasure,
+        PanopticQuality,
+        PeakSignalNoiseRatio,
+    )
     from metrics_tpu_torch.functional import accuracy, retrieval_average_precision  # noqa: F401
+    from metrics_tpu_torch.functional import (  # noqa: F401
+        modified_panoptic_quality,
+        multiscale_structural_similarity_index_measure,
+        panoptic_quality,
+        peak_signal_noise_ratio,
+    )
 
     assert set(metrics_tpu_torch.__all__) < set(metrics_tpu.__all__)
