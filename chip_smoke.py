@@ -63,7 +63,19 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    640 pixels on the long side (the RLE states equal to the CPU run's, the
    compute's stages, the mask IoUs' device time and peak memory) and panoptic quality over 5,000 COCO panoptic-sized
    label maps (133 categories); each against the port's CPU run of a stated
-   subset;
+   subset; then the rest of regression and the wrappers on it: the twelve new
+   scalar classes with MSE, MAE, Pearson and Spearman in one collection over
+   2^22 log-normal targets (explained variance, NRMSE, concordance and R2
+   also join the regression path above, its NCCL sync and its four-rank
+   fan-in), ``MultioutputWrapper`` over R2 and MAE at QM9's 130,831 molecules
+   x 12 targets (and with 1 % NaN targets), Kendall tau b and c of 65,536 WMT-
+   sized (score, rating) pairs against scipy, CSI at VIL 74 and 133 over 256
+   SEVIR-sized sequences (12 x 384 x 384), KL divergence of ImageNet-1k
+   softmax outputs, cosine similarity of 50,000 BERT-base-wide pairs; per-class
+   COCO-80 AP (one binned-counts launch an update) and ImageNet accuracy
+   through ``ClasswiseWrapper``, both input transformers around the binary
+   AUROC (one launch an update each), ``MetricTracker`` over the ImageNet
+   collection, ``MinMaxMetric`` and ``MultitaskWrapper``;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale), beside the least time the card could take (``bound_ms``);
@@ -140,6 +152,32 @@ SEGM_IMAGES, SEGM_PER_UPDATE = 500, 50
 # COCO panoptic val2017: 5,000 images of 480 x 640, 133 categories (80 things, 53 stuffs), updates of 50
 PQ_IMAGES, PQ_PER_UPDATE, PQ_CPU_IMAGES, PQ_SHAPE, PQ_THINGS, PQ_STUFFS = 5000, 50, 50, (480, 640), 80, 53
 PQ_RTOL = 1e-6  # iou_sum: float64 sums per update, the same on both devices, met by the float32 state once
+# scalar regression: 2^22 log-normal targets (demand, sale prices), in updates of 2^18
+REG_ALL_N, REG_UPDATE = 1 << 22, 1 << 18
+# QM9 after the standard filtering: 130,831 molecules, MoleculeNet's 12 regression targets; updates of 4,096;
+# the missing-label run sets 1 % of the targets to NaN
+QM9_MOLECULES, QM9_TARGETS, QM9_UPDATE, QM9_NAN = 130_831, 12, 4096, 0.01
+# WMT segment-level: 65,536 (metric score, human rating) pairs, ratings on the 0-100 grid; the CPU check covers
+# the first 8,192; tau against scipy within 1e-6
+KENDALL_N, KENDALL_UPDATE, KENDALL_CPU_N, KENDALL_ATOL = 65_536, 8192, 8192, 1e-6
+# SEVIR nowcasts: VIL frames of 384 x 384, 12 predicted frames a sequence, 256 sequences in updates of 8; CSI
+# at the VIL thresholds 74 and 133; the CPU check covers the first 32 sequences
+SEVIR_FRAME, SEVIR_LEAD, SEVIR_SEQS, SEVIR_UPDATE, SEVIR_CPU_SEQS = 384, 12, 256, 8, 32
+SEVIR_THRESHOLDS = (74.0, 133.0)
+# sentence embeddings: 50,000 pairs of BERT-base width (768), updates of 10,000
+EMB_N, EMB_DIM, EMB_UPDATE = 50_000, 768, 10_000
+TRACK_EPOCHS, TRACK_UPDATES = 3, 2  # MetricTracker over the ImageNet collection
+COCO_NAMES = [
+    "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat", "traffic light",
+    "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
+    "elephant", "bear", "zebra", "giraffe", "backpack", "umbrella", "handbag", "tie", "suitcase", "frisbee",
+    "skis", "snowboard", "sports ball", "kite", "baseball bat", "baseball glove", "skateboard", "surfboard",
+    "tennis racket", "bottle", "wine glass", "cup", "fork", "knife", "spoon", "bowl", "banana", "apple",
+    "sandwich", "orange", "broccoli", "carrot", "hot dog", "pizza", "donut", "cake", "chair", "couch",
+    "potted plant", "bed", "dining table", "toilet", "tv", "laptop", "mouse", "remote", "keyboard", "cell phone",
+    "microwave", "oven", "toaster", "sink", "refrigerator", "book", "clock", "vase", "scissors", "teddy bear",
+    "hair drier", "toothbrush",
+]
 
 
 SECTION_S: dict = {}  # wall seconds of each part of the main path, printed after it
@@ -393,6 +431,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     section("stat family", stat_family, rng, run, out)
     imagenet, imagenet_gpu = section("collections and sync", collections_and_sync, seed, wrappers, out)
     dryrun_checks(seed, wrappers, out, imagenet, imagenet_gpu)
+    regression_and_wrappers(seed, wrappers, out, imagenet, imagenet_gpu)
     return out
 
 
@@ -622,12 +661,32 @@ def _agree_dict(name, got, want, exact, rtol, atol=0.0):
                for k in want)
 
 
+def imagenet_members(d):
+    """The ImageNet-1k evaluation's collection members."""
+    from metrics_tpu_torch import classification as tc
+
+    return [tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device=d),
+            tc.MulticlassPrecision(num_classes=IN_CLASSES, device=d),
+            tc.MulticlassRecall(num_classes=IN_CLASSES, device=d),
+            tc.MulticlassF1Score(num_classes=IN_CLASSES, average="macro", device=d),
+            tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES, device=d)]
+
+
 def collections_and_sync(seed: int, wrappers: dict, out: dict):
     """The collection, aggregation and sync layer on the main path; each run with every wrapper's launch count
     set to 0 just before it and read just after, and its expected launches."""
     from metrics_tpu_torch import CatMetric, MeanMetric, MetricCollection, SumMetric
     from metrics_tpu_torch import classification as tc
-    from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+    from metrics_tpu_torch.regression import (
+        ConcordanceCorrCoef,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        NormalizedRootMeanSquaredError,
+        PearsonCorrCoef,
+        R2Score,
+        SpearmanCorrCoef,
+    )
 
     rng = np.random.default_rng(seed + 5)
 
@@ -651,12 +710,7 @@ def collections_and_sync(seed: int, wrappers: dict, out: dict):
     imagenet = [imagenet_batch() for _ in range(IN_STEPS)]
     imagenet_gpu = [(p.cuda(), t.cuda()) for p, t in imagenet]
 
-    def members(d):
-        return [tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device=d),
-                tc.MulticlassPrecision(num_classes=IN_CLASSES, device=d),
-                tc.MulticlassRecall(num_classes=IN_CLASSES, device=d),
-                tc.MulticlassF1Score(num_classes=IN_CLASSES, average="macro", device=d),
-                tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES, device=d)]
+    members = imagenet_members
 
     def aggregators(d):
         return {"MeanMetric[cross-entropy]": MeanMetric(device=d), "SumMetric[samples]": SumMetric(device=d),
@@ -766,7 +820,13 @@ def collections_and_sync(seed: int, wrappers: dict, out: dict):
                   "MeanAbsoluteError": lambda d: MeanAbsoluteError(device=d),
                   "PearsonCorrCoef": lambda d: PearsonCorrCoef(device=d),
                   "SpearmanCorrCoef": lambda d: SpearmanCorrCoef(device=d),
-                  "RMSE[MeanSquaredError() ** 0.5]": lambda d: MeanSquaredError(device=d) ** 0.5}
+                  "RMSE[MeanSquaredError() ** 0.5]": lambda d: MeanSquaredError(device=d) ** 0.5,
+                  # the moment states folded by Chan's formulas and R2's sums: where a sync differs
+                  "ExplainedVariance": lambda d: ExplainedVariance(device=d),
+                  "NormalizedRootMeanSquaredError[std]": lambda d: NormalizedRootMeanSquaredError(
+                      normalization="std", device=d),
+                  "ConcordanceCorrCoef": lambda d: ConcordanceCorrCoef(device=d),
+                  "R2Score": lambda d: R2Score(device=d)}
     reg_gpu = {}
     for name, make in reg_makers.items():
         gpu, cpu = make("cuda"), make("cpu")
@@ -857,8 +917,6 @@ def nccl_world_of_one(metrics: dict) -> dict:
 
     import torch.distributed as dist
 
-    from metrics_tpu_torch.regression import PearsonCorrCoef
-
     res = {"sync_ms": {}, "compute_with_sync_ms": {}}
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/store", world_size=1, rank=0)
@@ -870,7 +928,7 @@ def nccl_world_of_one(metrics: dict) -> dict:
                 res["sync_ms"][name] = ms
                 for key, before in local.items():
                     after = metric.metric_state[key]
-                    if isinstance(metric, PearsonCorrCoef):
+                    if metric._reductions[key] is None:
                         before = before.unsqueeze(0)  # None states come back one replica deep
                     if after.device.type != "cuda" or not torch.equal(after, before):
                         fail(f"NCCL sync: {name}.{key} differs from the local state after a sync of one rank")
@@ -954,7 +1012,16 @@ def _gloo_rank(rank: int, world: int, store: str, out_path: str, seed: int) -> N
 
     from metrics_tpu_torch import CatMetric, MeanMetric, MetricCollection
     from metrics_tpu_torch import classification as tc
-    from metrics_tpu_torch.regression import MeanAbsoluteError, MeanSquaredError, PearsonCorrCoef, SpearmanCorrCoef
+    from metrics_tpu_torch.regression import (
+        ConcordanceCorrCoef,
+        ExplainedVariance,
+        MeanAbsoluteError,
+        MeanSquaredError,
+        NormalizedRootMeanSquaredError,
+        PearsonCorrCoef,
+        R2Score,
+        SpearmanCorrCoef,
+    )
 
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
     errors, compute_ms = [], {}
@@ -1795,6 +1862,450 @@ def panoptic_coco(seed: int) -> dict:
            "update_ms_per_image": {k: _median_ms(v) / PQ_PER_UPDATE for k, v in update_ms.items()},
            "max_abs_diff_vs_cpu": diff}
     log(f"COCO panoptic quality: {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------------------- phase 4, regression and wrappers
+def regression_and_wrappers(seed: int, wrappers: dict, out: dict, imagenet, imagenet_gpu) -> None:
+    """The rest of regression and the wrappers on it: the twelve new scalar classes in one collection at 2^22
+    samples, QM9-sized multi-output regression through ``MultioutputWrapper``, WMT-sized Kendall tau, CSI on
+    SEVIR-sized nowcasts, KL divergence over ImageNet-1k softmax outputs, cosine similarity of BERT-base-wide
+    embeddings; then the wrappers: per-class COCO-80 AP and ImageNet accuracy, both input transformers around
+    the binary AUROC, ``MetricTracker`` over the ImageNet collection, ``MinMaxMetric`` and ``MultitaskWrapper``.
+    Each against the port's CPU run of the same inputs or of a stated subset, or (Kendall) against scipy."""
+
+    def counting(name, expect, body, check=None):
+        """``body()`` between the launch counts; ``check(result, pending)`` after them, for a comparison
+        whose own launches are not the path's (``body`` then returns ``(result, pending)``)."""
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = section(name, body)
+        torch.cuda.synchronize()
+        launches = {k: w.launches for k, w in wrappers.items()}
+        if check is not None:
+            result, pending = result
+            check(name, result, pending)
+        result.update({"launches": launches, "expected_launches": expect})
+        out[name] = result
+
+    g = _generator(seed + 11)
+    # log-normal demand (log y ~ N(3, 1)); predictions off by a log-normal factor of spread 0.2
+    y = torch.exp(3.0 + torch.randn(REG_ALL_N, generator=g, device="cuda"))
+    x = y * torch.exp(0.2 * torch.randn(REG_ALL_N, generator=g, device="cuda"))
+    counting("regression collection[16 metrics, 2^22 log-normal]", {}, lambda: scalar_regression(x, y))
+    counting("QM9 MultioutputWrapper[R2, MAE; 12 targets]", {}, lambda: qm9_multioutput(seed))
+    counting("WMT segment-level Kendall tau", {}, lambda: kendall_wmt(seed))
+    counting("SEVIR CSI[74, 133]", {}, lambda: sevir_csi(seed))
+    counting("ImageNet KL divergence[teacher, student]", {}, lambda: kl_imagenet(seed, imagenet_gpu))
+    counting("BERT-base cosine similarity", {}, lambda: cosine_embeddings(seed))
+    counting("COCO-80 ClasswiseWrapper[MultilabelAveragePrecision]", {"binned_counts": PRC_STEPS},
+             lambda: classwise_coco(seed), check=_check_classwise_coco)
+    counting("ImageNet ClasswiseWrapper[MulticlassAccuracy]", {}, lambda: classwise_imagenet(imagenet, imagenet_gpu))
+    for name in ("LambdaInputTransformer[BinaryAUROC]", "BinaryTargetTransformer[BinaryAUROC]"):
+        counting(name, {"binned_counts": PRC_STEPS}, lambda name=name: input_transformer(seed, name),
+                 check=_check_input_transformer)
+    counting("ImageNet MetricTracker[3 epochs]", {}, lambda: tracker_imagenet(imagenet, imagenet_gpu))
+    counting("MinMaxMetric[MeanSquaredError]", {}, lambda: minmax_regression(x, y))
+    counting("MultitaskWrapper[ImageNet accuracy, MSE]", {}, lambda: multitask(imagenet, imagenet_gpu, x, y))
+
+
+def _updates_timed(metric, batches_gpu):
+    """Each update between two synchronizations; (first ms, median later ms)."""
+    times = [_timed(lambda: metric.update(*b))[1] for b in batches_gpu]
+    return {"updates": len(times), "first_update_ms": times[0], "later_update_ms_median": _median_ms(times)}
+
+
+def scalar_regression(x, y) -> dict:
+    """The twelve new scalar classes with MSE, MAE, Pearson and Spearman in one collection."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch import regression as tr
+
+    def members(d):
+        return {"MSLE": tr.MeanSquaredLogError(device=d), "MAPE": tr.MeanAbsolutePercentageError(device=d),
+                "SMAPE": tr.SymmetricMeanAbsolutePercentageError(device=d),
+                "WMAPE": tr.WeightedMeanAbsolutePercentageError(device=d), "LogCosh": tr.LogCoshError(device=d),
+                "Minkowski[p=3]": tr.MinkowskiDistance(p=3, device=d),
+                "Tweedie[1.5]": tr.TweedieDevianceScore(power=1.5, device=d),
+                "NRMSE[mean]": tr.NormalizedRootMeanSquaredError(normalization="mean", device=d),
+                "R2": tr.R2Score(device=d), "RSE": tr.RelativeSquaredError(device=d),
+                "ExplainedVariance": tr.ExplainedVariance(device=d), "Concordance": tr.ConcordanceCorrCoef(device=d),
+                "MSE": tr.MeanSquaredError(device=d), "MAE": tr.MeanAbsoluteError(device=d),
+                "Pearson": tr.PearsonCorrCoef(device=d), "Spearman": tr.SpearmanCorrCoef(device=d)}
+
+    gpu, cpu = MetricCollection(members("cuda")), MetricCollection(members("cpu"))
+    batches = [(x[i:i + REG_UPDATE], y[i:i + REG_UPDATE]) for i in range(0, REG_ALL_N, REG_UPDATE)]
+    res = _updates_timed(gpu, batches)
+    got, res["compute_ms"] = _timed(gpu.compute)
+    for xb, yb in batches:
+        cpu.update(xb.cpu(), yb.cpu())
+    want = cpu.compute()
+    if gpu.compute_groups != cpu.compute_groups:
+        fail(f"regression collection: compute groups {gpu.compute_groups} on the card, {cpu.compute_groups} on the"
+             " CPU")
+    res["compute_groups"] = gpu.compute_groups
+    res["max_abs_diff_vs_cpu"] = {k: _agree(f"regression collection[{k}]", got[k], want[k], False,
+                                            CORR_RTOL if k in ("Pearson", "Spearman", "Concordance") else SUM_RTOL,
+                                            SUM_ATOL) for k in want}
+    res["value"] = {k: float(v) for k, v in got.items()}
+    log(f"regression collection: {json.dumps(res)}")
+    return res
+
+
+def qm9_multioutput(seed: int) -> dict:
+    """``MultioutputWrapper`` over R2 and MAE at QM9's size and target count, against the multi-output metrics
+    on the card and the CPU run; then the missing-label run (1 % NaN targets) against each column's R2 over
+    its rows without a NaN."""
+    from metrics_tpu_torch import regression as tr
+    from metrics_tpu_torch.functional.regression import r2_score
+    from metrics_tpu_torch.wrappers import MultioutputWrapper
+
+    g = _generator(seed + 12)
+    n, k = QM9_MOLECULES, QM9_TARGETS
+    scale = torch.logspace(-2, 3, k, device="cuda")  # targets of units that differ by five orders
+    y = (2.0 + torch.randn(n, k, generator=g, device="cuda")) * scale
+    x = y + 0.2 * scale * torch.randn(n, k, generator=g, device="cuda")
+    batches = [(x[i:i + QM9_UPDATE], y[i:i + QM9_UPDATE]) for i in range(0, n, QM9_UPDATE)]
+    res = {}
+    for name, make, whole in (
+        ("R2Score", lambda d: tr.R2Score(device=d), lambda d: tr.R2Score(num_outputs=k, multioutput="raw_values",
+                                                                          device=d)),
+        ("MeanAbsoluteError", lambda d: tr.MeanAbsoluteError(device=d),
+         lambda d: tr.MeanAbsoluteError(num_outputs=k, device=d)),
+    ):
+        gpu, cpu, direct = MultioutputWrapper(make("cuda"), k), MultioutputWrapper(make("cpu"), k), whole("cuda")
+        row = _updates_timed(gpu, batches)
+        got, row["compute_ms"] = _timed(gpu.compute)
+        for xb, yb in batches:
+            direct.update(xb, yb)
+            cpu.update(xb.cpu(), yb.cpu())
+        row["max_abs_diff_vs_multi_output_metric"] = _agree(f"QM9 {name}", got, direct.compute().cpu(), False,
+                                                            STAT_RTOL, STAT_ATOL)
+        row["max_abs_diff_vs_cpu"] = _agree(f"QM9 {name}[cpu]", got, cpu.compute(), False, STAT_RTOL, STAT_ATOL)
+        res[name] = row
+    y_nan = torch.where(torch.rand(n, k, generator=g, device="cuda") < QM9_NAN, torch.nan, y)
+    gpu = MultioutputWrapper(tr.R2Score(device="cuda"), k, remove_nans=True)
+    row = _updates_timed(gpu, [(x[i:i + QM9_UPDATE], y_nan[i:i + QM9_UPDATE]) for i in range(0, n, QM9_UPDATE)])
+    got, row["compute_ms"] = _timed(gpu.compute)
+    keep = ~torch.isnan(y_nan)
+    want = torch.stack([r2_score(x[keep[:, i], i], y_nan[keep[:, i], i]) for i in range(k)]).cpu()
+    row["kept_rows"] = [int(m.total) for m in gpu.metrics]
+    if row["kept_rows"] != keep.sum(0).tolist():
+        fail("QM9 remove_nans: an output's metric did not see exactly its rows without a NaN")
+    row["max_abs_diff_vs_filtered_columns"] = _agree("QM9 R2Score[remove_nans]", got, want, False, STAT_RTOL,
+                                                     STAT_ATOL)
+    res["R2Score[remove_nans, 1 % NaN]"] = row
+    log(f"QM9 MultioutputWrapper: {json.dumps(res)}")
+    return res
+
+
+def kendall_wmt(seed: int) -> dict:
+    """Kendall tau b (with the t-test's p-value) and c of metric scores against human ratings on the 0-100
+    grid, against scipy on every pair and the port's CPU run on the first 8,192."""
+    from scipy import stats
+
+    from metrics_tpu_torch.regression import KendallRankCorrCoef
+
+    rng = np.random.default_rng(seed + 13)
+    human = rng.integers(0, 101, KENDALL_N).astype(np.float32)
+    score = (human / 100 + 0.35 * rng.standard_normal(KENDALL_N)).astype(np.float32)
+    score_gpu, human_gpu = torch.from_numpy(score).cuda(), torch.from_numpy(human).cuda()
+    pairs = [(score_gpu[i:i + KENDALL_UPDATE], human_gpu[i:i + KENDALL_UPDATE])
+             for i in range(0, KENDALL_N, KENDALL_UPDATE)]
+    res = {}
+    for variant in ("b", "c"):
+        def make(d, variant=variant):
+            return KendallRankCorrCoef(variant=variant, t_test=variant == "b", device=d)
+
+        gpu = make("cuda")
+        row = _updates_timed(gpu, pairs)
+        torch.cuda.reset_peak_memory_stats()
+        got, row["compute_ms"] = _timed(gpu.compute)
+        row["compute_peak_memory_mb"] = torch.cuda.max_memory_allocated() / 2**20
+        tau = got[0] if variant == "b" else got
+        want = stats.kendalltau(score, human, variant=variant)[0]
+        row["tau"], row["scipy_tau"] = float(tau), float(want)
+        row["abs_diff_vs_scipy"] = abs(float(tau) - float(want))
+        if not row["abs_diff_vs_scipy"] <= KENDALL_ATOL:
+            fail(f"Kendall tau-{variant}: {float(tau)} on the card, {float(want)} from scipy")
+        head_gpu, head_cpu = make("cuda"), make("cpu")
+        head_gpu.update(score_gpu[:KENDALL_CPU_N], human_gpu[:KENDALL_CPU_N])
+        head_cpu.update(torch.from_numpy(score[:KENDALL_CPU_N]), torch.from_numpy(human[:KENDALL_CPU_N]))
+        row["max_abs_diff_vs_cpu_first_8192"] = _agree(f"Kendall tau-{variant}[first 8192]", head_gpu.compute(),
+                                                       head_cpu.compute(), True)
+        if variant == "b":
+            row["p_value"] = float(got[1])
+        res[f"tau-{variant}"] = row
+    log(f"WMT Kendall: {json.dumps(res)}")
+    return res
+
+
+def _vil_frames(g: torch.Generator, b: int):
+    """VIL-like nowcasts of (b, 12, 384, 384): smooth fields in [0, 255) (bilinear from a 24 x 24 grid, squared
+    to make storms rare), the forecast moved by a few pixels with noise."""
+    coarse = torch.rand(b, SEVIR_LEAD, 24, 24, generator=g, device="cuda")
+    target = 255.0 * F.interpolate(coarse, size=(SEVIR_FRAME, SEVIR_FRAME), mode="bilinear") ** 2
+    noise = 12.0 * torch.randn(target.shape, generator=g, device="cuda")
+    return (torch.roll(target, shifts=(3, -2), dims=(2, 3)) + noise).clamp(0, 254.0), target
+
+
+def sevir_csi(seed: int) -> dict:
+    """CSI at VIL 74 and 133, summed and per lead time, over 256 sequences; the counts of the first 32 equal to
+    the CPU run's."""
+    from metrics_tpu_torch.regression import CriticalSuccessIndex
+
+    g = _generator(seed + 14)
+
+    def make(d):
+        return {f"{int(t)}{'[per lead time]' if keep else ''}": CriticalSuccessIndex(t, keep_sequence_dim=keep,
+                                                                                     device=d)
+                for t in SEVIR_THRESHOLDS for keep in (None, 1)}
+
+    gpu, cpu = make("cuda"), make("cpu")
+    times, head = [], None
+    cpu_updates = SEVIR_CPU_SEQS // SEVIR_UPDATE
+    for u in range(SEVIR_SEQS // SEVIR_UPDATE):
+        preds, target = _vil_frames(g, SEVIR_UPDATE)
+        times.append(_timed(lambda: [m.update(preds, target) for m in gpu.values()])[1])
+        if u < cpu_updates:
+            pc, tcpu = preds.cpu(), target.cpu()
+            for m in cpu.values():
+                m.update(pc, tcpu)
+        if u == cpu_updates - 1:  # the card's counts after the first 32 sequences
+            head = {k: {s: [v.clone() for v in m.metric_state[s]] if isinstance(m.metric_state[s], list)
+                        else m.metric_state[s].clone() for s in ("hits", "misses", "false_alarms")}
+                    for k, m in gpu.items()}
+    for name, states in head.items():
+        for key, value in states.items():
+            want = cpu[name].metric_state[key]
+            got = torch.cat(value).cpu() if isinstance(value, list) else value.cpu()
+            want = torch.cat(want) if isinstance(want, list) else want
+            if not torch.equal(got, want):
+                fail(f"SEVIR CSI {name}: {key} of the first 32 sequences differ from the CPU run")
+    res = {"updates": len(times), "first_update_ms": times[0], "later_update_ms_median": _median_ms(times)}
+    values, res["compute_ms"] = _timed(lambda: {k: m.compute() for k, m in gpu.items()})
+    for name, value in values.items():
+        if not bool(torch.isfinite(value).all()):
+            fail(f"SEVIR CSI {name}: non-finite values")
+    res["value"] = {k: float(v) for k, v in values.items() if v.numel() == 1}
+    res["per_lead_time_shape"] = {k: list(v.shape) for k, v in values.items() if v.numel() > 1}
+    res["hits"] = {k: int(m.hits.sum()) if not isinstance(m.hits, list) else int(torch.cat(m.hits).sum())
+                   for k, m in gpu.items()}
+    log(f"SEVIR CSI: {json.dumps(res)}")
+    return res
+
+
+def kl_imagenet(seed: int, imagenet_gpu) -> dict:
+    """KL divergence of a student's softmax from the teacher's over the ImageNet-1k logits, as probabilities and
+    as log-probabilities, against the CPU run."""
+    from metrics_tpu_torch.regression import KLDivergence
+
+    g = _generator(seed + 15)
+    teacher_student = []
+    for logits, _ in imagenet_gpu:
+        student = 0.8 * logits + torch.randn(logits.shape, generator=g, device="cuda")
+        teacher_student.append((logits, student))
+    res = {}
+    for log_prob in (False, True):
+        norm = torch.log_softmax if log_prob else torch.softmax
+        batches = [(norm(t, dim=-1), norm(s, dim=-1)) for t, s in teacher_student]
+        gpu, cpu = KLDivergence(log_prob=log_prob, device="cuda"), KLDivergence(log_prob=log_prob, device="cpu")
+        row = _updates_timed(gpu, batches)
+        got, row["compute_ms"] = _timed(gpu.compute)
+        for p, q in batches:
+            cpu.update(p.cpu(), q.cpu())
+        row["value"] = float(got)
+        row["max_abs_diff_vs_cpu"] = _agree(f"KL[log_prob={log_prob}]", got, cpu.compute(), False, SUM_RTOL, SUM_ATOL)
+        res[f"log_prob={log_prob}"] = row
+    log(f"ImageNet KL divergence: {json.dumps(res)}")
+    return res
+
+
+def cosine_embeddings(seed: int) -> dict:
+    """Mean cosine similarity of 50,000 pairs of 768-wide embeddings, against the CPU run."""
+    from metrics_tpu_torch.regression import CosineSimilarity
+
+    g = _generator(seed + 16)
+    a = torch.randn(EMB_N, EMB_DIM, generator=g, device="cuda")
+    b = a + 0.6 * torch.randn(EMB_N, EMB_DIM, generator=g, device="cuda")
+    batches = [(a[i:i + EMB_UPDATE], b[i:i + EMB_UPDATE]) for i in range(0, EMB_N, EMB_UPDATE)]
+    gpu, cpu = CosineSimilarity(reduction="mean", device="cuda"), CosineSimilarity(reduction="mean", device="cpu")
+    res = _updates_timed(gpu, batches)
+    got, res["compute_ms"] = _timed(gpu.compute)
+    for p, t in batches:
+        cpu.update(p.cpu(), t.cpu())
+    res["value"] = float(got)
+    res["max_abs_diff_vs_cpu"] = _agree("cosine similarity", got, cpu.compute(), False, SUM_RTOL, SUM_ATOL)
+    log(f"BERT-base cosine similarity: {json.dumps(res)}")
+    return res
+
+
+def classwise_coco(seed: int) -> dict:
+    """Per-class AP over the 80 COCO labels under their names; the values the unwrapped metric's (its run, on
+    the same batches, is outside the launch count)."""
+    from metrics_tpu_torch.classification import MultilabelAveragePrecision
+    from metrics_tpu_torch.wrappers import ClasswiseWrapper
+
+    rng = np.random.default_rng(seed + 17)
+    batches = []
+    for _ in range(PRC_STEPS):
+        target = (rng.random((ML_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)
+        preds = ((rng.random((ML_N, ML_LABELS), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+        batches.append((torch.from_numpy(preds).cuda(), torch.from_numpy(target).cuda()))
+
+    def make():
+        return MultilabelAveragePrecision(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, average=None,
+                                          device="cuda")
+
+    wrapped = ClasswiseWrapper(make(), labels=COCO_NAMES)
+    res = _updates_timed(wrapped, batches)
+    got, res["compute_ms"] = _timed(wrapped.compute)
+    return res, (got, batches, make)
+
+
+def _check_classwise_coco(name: str, row: dict, pending) -> None:
+    """The unwrapped metric on the same batches."""
+    got, batches, make = pending
+    plain = make()
+    for p, t in batches:
+        plain.update(p, t)
+    want = plain.compute()
+    if list(got) != [f"multilabelaverageprecision_{name}" for name in COCO_NAMES]:
+        fail("COCO-80 ClasswiseWrapper: keys are not the 80 category names")
+    if not torch.equal(torch.stack(list(got.values())), want):
+        fail("COCO-80 ClasswiseWrapper: values differ from the unwrapped metric's")
+    row["values_equal_unwrapped"] = True
+    row["mean_ap"] = float(want.mean())
+
+
+def classwise_imagenet(imagenet, imagenet_gpu) -> dict:
+    """Per-class top-1 accuracy over the 1000 ImageNet classes, against the CPU run."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import ClasswiseWrapper
+
+    gpu, cpu = (ClasswiseWrapper(MulticlassAccuracy(num_classes=IN_CLASSES, average=None, device=d))
+                for d in ("cuda", "cpu"))
+    res = _updates_timed(gpu, imagenet_gpu)
+    got, res["compute_ms"] = _timed(gpu.compute)
+    for p, t in imagenet:
+        cpu.update(p, t)
+    res["classes"] = len(got)
+    res["max_abs_diff_vs_cpu"] = _agree_dict("ImageNet ClasswiseWrapper", got, cpu.compute(), True, STAT_RTOL,
+                                             STAT_ATOL)
+    return res
+
+
+def input_transformer(seed: int, name: str) -> dict:
+    """A transformer around BinaryAUROC on 2^22 binary samples an update; its value the unwrapped metric's on the
+    transformed inputs (run outside the launch count)."""
+    from metrics_tpu_torch.classification import BinaryAUROC
+    from metrics_tpu_torch.wrappers import BinaryTargetTransformer, LambdaInputTransformer
+
+    g = _generator(seed + 18)
+    batches = []
+    for _ in range(PRC_STEPS):
+        labels = (torch.rand(BIN_N, generator=g, device="cuda") < 0.5).long()
+        if name.startswith("Lambda"):  # logits in, probabilities to the metric
+            batches.append((torch.randn(BIN_N, generator=g, device="cuda") + 1.5 * labels, labels))
+        else:  # soft labels in [0, 1), thresholded at 0.5
+            soft = 0.5 * labels + 0.5 * torch.rand(BIN_N, generator=g, device="cuda")
+            batches.append((torch.rand(BIN_N, generator=g, device="cuda") * 0.7 + 0.3 * labels, soft))
+    if name.startswith("Lambda"):
+        wrapper = LambdaInputTransformer(BinaryAUROC(thresholds=PRC_THRESHOLDS, device="cuda"),
+                                         transform_pred=torch.sigmoid)
+    else:
+        wrapper = BinaryTargetTransformer(BinaryAUROC(thresholds=PRC_THRESHOLDS, device="cuda"), threshold=0.5)
+    res = _updates_timed(wrapper, batches)
+    got, res["compute_ms"] = _timed(wrapper.compute)
+    return res, (got, [(wrapper.transform_pred(p), wrapper.transform_target(t)) for p, t in batches])
+
+
+def _check_input_transformer(name: str, row: dict, pending) -> None:
+    """The unwrapped metric on the transformed inputs."""
+    from metrics_tpu_torch.classification import BinaryAUROC
+
+    got, transformed = pending
+    plain = BinaryAUROC(thresholds=PRC_THRESHOLDS, device="cuda")
+    for p, t in transformed:
+        plain.update(p, t)
+    if not torch.equal(got, plain.compute()):
+        fail(f"{name}: {float(got)}, the unwrapped metric on the transformed inputs {float(plain.compute())}")
+    row["value"] = float(got)
+    row["equal_unwrapped_on_transformed_inputs"] = True
+
+
+def tracker_imagenet(imagenet, imagenet_gpu) -> dict:
+    """``MetricTracker`` over the ImageNet collection for 3 epochs of 2 updates, against the CPU run's values
+    and best steps (the confusion matrix has no best step: None in both)."""
+    import warnings
+
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.wrappers import MetricTracker
+
+    gpu = MetricTracker(MetricCollection(imagenet_members("cuda")))
+    cpu = MetricTracker(MetricCollection(imagenet_members("cpu")))
+    order = [(e * TRACK_UPDATES + u) % len(imagenet) for e in range(TRACK_EPOCHS) for u in range(TRACK_UPDATES)]
+    times = []
+    for e in range(TRACK_EPOCHS):
+        gpu.increment()
+        cpu.increment()
+        for u in range(TRACK_UPDATES):
+            i = order[e * TRACK_UPDATES + u]
+            times.append(_timed(lambda: gpu.update(*imagenet_gpu[i]))[1])
+            cpu.update(*imagenet[i])
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # the confusion matrix is not one scalar a step: None, with a warning
+        (best, steps), ms = _timed(lambda: gpu.best_metric(return_step=True))
+        want_best, want_steps = cpu.best_metric(return_step=True)
+    if steps != want_steps:
+        fail(f"MetricTracker: best steps {steps} on the card, {want_steps} on the CPU")
+    for key, value in want_best.items():
+        if (value is None) != (best[key] is None) or (
+                value is not None and abs(float(best[key]) - float(value)) > STAT_RTOL * abs(float(value)) + STAT_ATOL):
+            fail(f"MetricTracker: best {key} {best[key]} on the card, {value} on the CPU")
+    res = {"updates": len(times), "first_update_ms": times[0], "later_update_ms_median": _median_ms(times),
+           "compute_ms": ms, "best_step": steps, "best": {k: None if v is None else float(v) for k, v in best.items()}}
+    all_gpu, all_cpu = gpu.compute_all(), cpu.compute_all()
+    res["max_abs_diff_vs_cpu"] = _agree_dict("MetricTracker.compute_all", all_gpu, all_cpu, True, STAT_RTOL,
+                                             STAT_ATOL)
+    return res
+
+
+def minmax_regression(x, y) -> dict:
+    """``MinMaxMetric(MeanSquaredError())`` over the 16 regression updates of 2^18, against the CPU run."""
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.wrappers import MinMaxMetric
+
+    gpu, cpu = MinMaxMetric(MeanSquaredError(device="cuda")), MinMaxMetric(MeanSquaredError(device="cpu"))
+    batches = [(x[i:i + REG_UPDATE], y[i:i + REG_UPDATE]) for i in range(0, REG_ALL_N, REG_UPDATE)]
+    res = _updates_timed(gpu, batches)
+    got, res["compute_ms"] = _timed(gpu.compute)
+    for xb, yb in batches:
+        cpu.update(xb.cpu(), yb.cpu())
+    res["value"] = {k: float(v) for k, v in got.items()}
+    res["max_abs_diff_vs_cpu"] = _agree_dict("MinMaxMetric", got, cpu.compute(), False, SUM_RTOL, SUM_ATOL)
+    return res
+
+
+def multitask(imagenet, imagenet_gpu, x, y) -> dict:
+    """``MultitaskWrapper`` of ImageNet top-1 accuracy and the regression MSE, against the CPU run."""
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.wrappers import MultitaskWrapper
+
+    def make(d):
+        return MultitaskWrapper({"cls": MulticlassAccuracy(num_classes=IN_CLASSES, device=d),
+                                 "reg": MeanSquaredError(device=d)})
+
+    gpu, cpu = make("cuda"), make("cpu")
+    regs = [(x[i * REG_UPDATE:(i + 1) * REG_UPDATE], y[i * REG_UPDATE:(i + 1) * REG_UPDATE])
+            for i in range(len(imagenet))]
+    inputs = [({"cls": p, "reg": xr}, {"cls": t, "reg": yr}) for (p, t), (xr, yr) in zip(imagenet_gpu, regs)]
+    res = _updates_timed(gpu, inputs)
+    got, res["compute_ms"] = _timed(gpu.compute)
+    for (p, t), (xr, yr) in zip(imagenet, regs):
+        cpu.update({"cls": p, "reg": xr.cpu()}, {"cls": t, "reg": yr.cpu()})
+    res["value"] = {k: float(v) for k, v in got.items()}
+    res["max_abs_diff_vs_cpu"] = _agree_dict("MultitaskWrapper", got, cpu.compute(), False, SUM_RTOL, SUM_ATOL)
     return res
 
 

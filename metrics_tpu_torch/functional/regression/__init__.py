@@ -1,13 +1,47 @@
-"""Functional regression metrics (counterpart of ``metrics_tpu/functional/regression``).
+"""Functional regression metrics (counterpart of ``metrics_tpu/functional/regression``): every function of the
+JAX package's regression domain, in its ``__all__`` order."""
 
-Ported so far: mean squared and mean absolute error, Pearson's and Spearman's
-correlation. The other functions of the JAX package's regression domain are
-not ported yet.
-"""
-
+from metrics_tpu_torch.functional.regression.concordance import concordance_corrcoef
+from metrics_tpu_torch.functional.regression.cosine_similarity import cosine_similarity
+from metrics_tpu_torch.functional.regression.csi import critical_success_index
+from metrics_tpu_torch.functional.regression.explained_variance import explained_variance
+from metrics_tpu_torch.functional.regression.kendall import kendall_rank_corrcoef
+from metrics_tpu_torch.functional.regression.kl_divergence import kl_divergence
+from metrics_tpu_torch.functional.regression.log_cosh import log_cosh_error
 from metrics_tpu_torch.functional.regression.mae import mean_absolute_error
+from metrics_tpu_torch.functional.regression.mape import (
+    mean_absolute_percentage_error,
+    symmetric_mean_absolute_percentage_error,
+    weighted_mean_absolute_percentage_error,
+)
+from metrics_tpu_torch.functional.regression.minkowski import minkowski_distance
 from metrics_tpu_torch.functional.regression.mse import mean_squared_error
+from metrics_tpu_torch.functional.regression.msle import mean_squared_log_error
+from metrics_tpu_torch.functional.regression.nrmse import normalized_root_mean_squared_error
 from metrics_tpu_torch.functional.regression.pearson import pearson_corrcoef
+from metrics_tpu_torch.functional.regression.r2 import r2_score, relative_squared_error
 from metrics_tpu_torch.functional.regression.spearman import spearman_corrcoef
+from metrics_tpu_torch.functional.regression.tweedie_deviance import tweedie_deviance_score
 
-__all__ = ["mean_absolute_error", "mean_squared_error", "pearson_corrcoef", "spearman_corrcoef"]
+__all__ = [
+    "concordance_corrcoef",
+    "cosine_similarity",
+    "critical_success_index",
+    "explained_variance",
+    "kendall_rank_corrcoef",
+    "kl_divergence",
+    "log_cosh_error",
+    "mean_absolute_error",
+    "mean_absolute_percentage_error",
+    "mean_squared_error",
+    "mean_squared_log_error",
+    "minkowski_distance",
+    "normalized_root_mean_squared_error",
+    "pearson_corrcoef",
+    "r2_score",
+    "relative_squared_error",
+    "spearman_corrcoef",
+    "symmetric_mean_absolute_percentage_error",
+    "tweedie_deviance_score",
+    "weighted_mean_absolute_percentage_error",
+]

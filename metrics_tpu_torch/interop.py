@@ -7,8 +7,10 @@ into the port's metric of the same class and configuration, which then goes on
 updating and computing as if it had seen the same batches: counters and
 confusion matrices, an aggregator's value with its Neumaier ``_comp``
 companion, list states such as Spearman's kept samples or a retrieval
-metric's rows, Pearson's moments, ``MeanAveragePrecision``'s per-image host
-arrays, and a ``BootStrapper``'s copies.
+metric's rows, the moments of Pearson, concordance, explained variance and
+NRMSE, ``MeanAveragePrecision``'s per-image host arrays, and every wrapper's
+children (a ``BootStrapper``'s or ``MultioutputWrapper``'s copies, a
+``MetricTracker``'s steps, a ``MultitaskWrapper``'s tasks).
 :func:`load_reference_collection_state` does the same for a whole
 ``MetricCollection``, compute groups included. The JAX metric only exports
 states marked persistent: call ``persistent(True)`` on it first.
@@ -87,13 +89,16 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
 
     * the keys must be exactly the metric's states plus ``_update_count``;
     * a fixed-shape state must have the port's shape and dtype kind (bool,
-      signed int, float): int32 counters load into int64 states;
+      signed int, float): int32 counters load into int64 states; a state
+      with ``dist_reduce_fx=None`` (moments the metric folds itself) may
+      also carry leading dimensions (a stack of per-rank sets, or the
+      outputs of a 0-d default);
     * a list state must be a list of numeric arrays that agree with one
       another in dtype kind and in every dimension but the first; a metric
       whose list states live on the host (``MeanAveragePrecision``: per-image
       arrays, ``None`` areas, empty mask lists) takes copies of them as they are.
     """
-    names = set(metric.metric_state)
+    names = set(metric._defaults)
     keys = set(state)
     if keys != names | {"_update_count"}:
         missing = sorted((names | {"_update_count"}) - keys)
@@ -124,7 +129,13 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
             converted[name] = [torch.from_numpy(np.array(a)).to(metric.device) for a in arrays]
         else:
             arr = _as_array(value, name)
-            if arr.shape != tuple(default.shape) or arr.dtype.kind != _dtype_kind(default.dtype):
+            if metric._reductions[name] is None:
+                # a state folded by the metric itself (Welford moments): it may hold a stack of per-rank sets
+                # along a first dimension, and a 0-d default takes the outputs' shape at the first update
+                shape_ok = arr.shape[arr.ndim - default.ndim:] == tuple(default.shape)
+            else:
+                shape_ok = arr.shape == tuple(default.shape)
+            if not shape_ok or arr.dtype.kind != _dtype_kind(default.dtype):
                 raise ValueError(
                     f"state {name!r}: expected kind {_dtype_kind(default.dtype)!r} of shape {tuple(default.shape)},"
                     f" got {arr.dtype} of shape {arr.shape}"

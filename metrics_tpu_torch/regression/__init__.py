@@ -1,11 +1,50 @@
-"""Regression metrics (counterpart of ``metrics_tpu/regression``).
+"""Regression metrics (counterpart of ``metrics_tpu/regression``): every class of the JAX package's regression
+domain, in its ``__all__`` order."""
 
-Ported so far: ``MeanSquaredError`` and ``MeanAbsoluteError`` (``basics.py``),
-``PearsonCorrCoef`` and ``SpearmanCorrCoef`` (``correlation.py``). The other
-classes of both modules and of the domain are not ported yet.
-"""
+from metrics_tpu_torch.regression.basics import (
+    CriticalSuccessIndex,
+    LogCoshError,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    MinkowskiDistance,
+    NormalizedRootMeanSquaredError,
+    SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
+    WeightedMeanAbsolutePercentageError,
+)
+from metrics_tpu_torch.regression.correlation import (
+    ConcordanceCorrCoef,
+    CosineSimilarity,
+    ExplainedVariance,
+    KendallRankCorrCoef,
+    KLDivergence,
+    PearsonCorrCoef,
+    R2Score,
+    RelativeSquaredError,
+    SpearmanCorrCoef,
+)
 
-from metrics_tpu_torch.regression.basics import MeanAbsoluteError, MeanSquaredError
-from metrics_tpu_torch.regression.correlation import PearsonCorrCoef, SpearmanCorrCoef
-
-__all__ = ["MeanAbsoluteError", "MeanSquaredError", "PearsonCorrCoef", "SpearmanCorrCoef"]
+__all__ = [
+    "ConcordanceCorrCoef",
+    "CosineSimilarity",
+    "CriticalSuccessIndex",
+    "ExplainedVariance",
+    "KLDivergence",
+    "KendallRankCorrCoef",
+    "LogCoshError",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
+    "MinkowskiDistance",
+    "NormalizedRootMeanSquaredError",
+    "PearsonCorrCoef",
+    "R2Score",
+    "RelativeSquaredError",
+    "SpearmanCorrCoef",
+    "SymmetricMeanAbsolutePercentageError",
+    "TweedieDevianceScore",
+    "WeightedMeanAbsolutePercentageError",
+]

@@ -9,6 +9,30 @@ import numpy as np
 import torch
 
 
+def _safe_matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x @ y.T``."""
+    return x @ y.T
+
+
+def _safe_xlogy(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x * log(y)``, 0 wherever ``x == 0`` (whatever ``y`` is), as ``jax.scipy.special.xlogy``.
+
+    >>> _safe_xlogy(torch.tensor([0.0, 2.0]), torch.tensor([0.0, 1.0]))
+    tensor([0., 0.])
+    """
+    x, y = torch.as_tensor(x), torch.as_tensor(y)
+    zero = x == 0
+    safe_y = torch.where(zero, torch.ones_like(y), y)
+    return torch.where(zero, torch.zeros((), dtype=torch.result_type(x, y), device=x.device), x * torch.log(safe_y))
+
+
+def _safe_log(x: torch.Tensor) -> torch.Tensor:
+    """``log(x)`` with ``x`` clamped below at the smallest normal number of its float type (float32 at least),
+    so ``log(0)`` is a large negative finite value, not ``-inf``."""
+    dtype = torch.promote_types(x.dtype, torch.float32)
+    return torch.log(torch.clamp(x.to(dtype), min=torch.finfo(dtype).tiny))
+
+
 def count_dtype() -> torch.dtype:
     """The integer type of long-horizon counters: int64.
 

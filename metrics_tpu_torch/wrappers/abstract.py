@@ -2,9 +2,31 @@
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple, Union
 
-from metrics_tpu_torch.metric import Metric
+import torch
+
+from metrics_tpu_torch.metric import Metric, resolve_device
+
+
+def wrapped_device(metrics: Iterable[Any], device: Optional[Union[str, torch.device]] = None) -> torch.device:
+    """The device of the wrapped metrics (the members of a ``MetricCollection`` among them), which the wrapper
+    takes as its own; metrics on different devices, or a ``device`` other than theirs, raise."""
+    from metrics_tpu_torch.collections import MetricCollection
+
+    def key(d: torch.device) -> Tuple[str, Optional[int]]:  # "cuda" is the current CUDA device
+        return d.type, torch.cuda.current_device() if d.type == "cuda" and d.index is None else d.index
+
+    members: List[Metric] = []
+    for metric in metrics:
+        members += list(metric.values()) if isinstance(metric, MetricCollection) else [metric]
+    devices = [m.device for m in members] + ([resolve_device(device)] if device is not None else [])
+    if len({key(d) for d in devices}) > 1:
+        raise ValueError(
+            f"A wrapper's metrics must live on one device, got {sorted({str(d) for d in devices})}: construct"
+            " every wrapped metric (and the wrapper) with the same `device`."
+        )
+    return devices[0] if devices else resolve_device(None)
 
 
 class WrapperMetric(Metric):

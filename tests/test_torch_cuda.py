@@ -716,3 +716,108 @@ def test_panoptic_pixel_pass_on_card_matches_cpu(cuda_device):
         for key in ("iou_sum", "true_positives", "false_positives", "false_negatives"):
             assert torch.equal(getattr(out["cuda"], key).cpu(), getattr(out["cpu"], key)), key
         torch.testing.assert_close(out["cuda"].compute().cpu(), out["cpu"].compute(), rtol=1e-6, atol=0)
+
+
+# ----------------------------------------------------------------------------- regression and wrappers on the card
+@pytest.mark.cuda
+def test_wrapped_binned_metrics_launch_once_per_update(cuda_device):
+    """ClasswiseWrapper over 80-label AP and both input transformers around BinaryAUROC: one binned-counts launch
+    an update each, and the unwrapped metric's values on the transformed inputs."""
+    import metrics_tpu_torch.wrappers as tw
+
+    rng = np.random.RandomState(40)
+    labels = [f"label{i}" for i in range(80)]
+    wrapped = tw.ClasswiseWrapper(tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, average=None,
+                                                                device=cuda_device), labels=labels)
+    plain = tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, average=None, device=cuda_device)
+    batches = [(torch.from_numpy(rng.rand(3000, 80).astype(np.float32)).to(cuda_device),
+                torch.from_numpy((rng.rand(3000, 80) < 0.05).astype(np.int64)).to(cuda_device)) for _ in range(3)]
+    binned_counts.launches = binned_counts_labels.launches = 0
+    for p, t in batches:
+        wrapped.update(p, t)
+    got = wrapped.compute()
+    torch.cuda.synchronize()
+    assert binned_counts.launches == 3 and binned_counts_labels.launches == 0
+    for p, t in batches:
+        plain.update(p, t)
+    assert list(got) == [f"multilabelaverageprecision_{lab}" for lab in labels]
+    assert torch.equal(torch.stack(list(got.values())), plain.compute())
+
+    logits = [torch.from_numpy(rng.randn(1 << 16).astype(np.float32)).to(cuda_device) for _ in range(2)]
+    soft = [torch.from_numpy(rng.rand(1 << 16).astype(np.float32)).to(cuda_device) for _ in range(2)]
+    for wrapper, transform in (
+        (tw.LambdaInputTransformer(tc.BinaryAUROC(thresholds=200, device=cuda_device), transform_pred=torch.sigmoid),
+         lambda p, t: (torch.sigmoid(p), (t > 0.5).long())),
+        (tw.BinaryTargetTransformer(tc.BinaryAUROC(thresholds=200, device=cuda_device), threshold=0.5),
+         lambda p, t: (p, (t > 0.5).long())),
+    ):
+        reference = tc.BinaryAUROC(thresholds=200, device=cuda_device)
+        binned_counts.launches = 0
+        for p, t in zip(logits, soft):
+            wrapper.update(p, (t > 0.5).long() if isinstance(wrapper, tw.LambdaInputTransformer) else t)
+        value = wrapper.compute()
+        torch.cuda.synchronize()
+        assert binned_counts.launches == 2
+        for p, t in zip(logits, soft):
+            reference.update(*transform(p, t))
+        assert torch.equal(value, reference.compute())
+
+
+@pytest.mark.cuda
+def test_regression_and_wrappers_on_card_match_cpu(cuda_device):
+    """The new regression classes and MultioutputWrapper with NaNs on the card against the same inputs on the
+    CPU: counts equal, Kendall exact, float sums within rtol 1e-5."""
+    import metrics_tpu_torch.regression as tr
+    import metrics_tpu_torch.wrappers as tw
+
+    rng = np.random.RandomState(41)
+    makers = {
+        "ExplainedVariance": lambda d: tr.ExplainedVariance(device=d),
+        "NRMSE": lambda d: tr.NormalizedRootMeanSquaredError(normalization="std", device=d),
+        "Concordance": lambda d: tr.ConcordanceCorrCoef(device=d),
+        "R2": lambda d: tr.R2Score(device=d),
+        "MAPE": lambda d: tr.MeanAbsolutePercentageError(device=d),
+        "Tweedie": lambda d: tr.TweedieDevianceScore(power=1.5, device=d),
+        "Kendall": lambda d: tr.KendallRankCorrCoef(variant="b", device=d),
+    }
+    batches = []
+    for _ in range(3):
+        t = np.exp(rng.randn(3000)).astype(np.float32)
+        batches.append(((t * np.exp(0.2 * rng.randn(3000))).astype(np.float32), np.round(t, 1)))
+    for name, make in makers.items():
+        gpu, cpu = make(cuda_device), make("cpu")
+        for p, t in batches:
+            gpu.update(torch.from_numpy(p).to(cuda_device), torch.from_numpy(t).to(cuda_device))
+            cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+        got, want = gpu.compute(), cpu.compute()
+        assert got.device.type == "cuda", name
+        if name == "Kendall":
+            assert torch.equal(got.cpu(), want), name
+        else:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6, msg=name)
+    csi = {d: tr.CriticalSuccessIndex(74.0, keep_sequence_dim=1, device=d) for d in ("cpu", "cuda")}
+    vil = rng.randint(0, 255, (2, 12, 64, 64)).astype(np.float32)
+    for d, metric in csi.items():
+        metric.update(torch.from_numpy(vil).to(d), torch.from_numpy(np.roll(vil, 3, axis=-1)).to(d))
+    for key in ("hits", "misses", "false_alarms"):
+        assert torch.equal(csi["cuda"].metric_state[key][0].cpu(), csi["cpu"].metric_state[key][0])
+    multi = {d: tw.MultioutputWrapper(tr.R2Score(device=d), num_outputs=12) for d in ("cpu", "cuda")}
+    x = rng.randn(4096, 12).astype(np.float32)
+    y = (x + 0.3 * rng.randn(4096, 12)).astype(np.float32)
+    y[rng.rand(4096, 12) < 0.01] = np.nan
+    for d, metric in multi.items():
+        metric.update(torch.from_numpy(x).to(d), torch.from_numpy(y).to(d))
+    assert [int(m.total) for m in multi["cuda"].metrics] == [int(m.total) for m in multi["cpu"].metrics]
+    torch.testing.assert_close(multi["cuda"].compute().cpu(), multi["cpu"].compute(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_metrics_on_the_card_and_the_cpu(cuda_device):
+    import metrics_tpu_torch.regression as tr
+    import metrics_tpu_torch.wrappers as tw
+
+    with pytest.raises(ValueError, match="one device"):
+        tw.MultitaskWrapper({"a": tr.MeanSquaredError(device=cuda_device), "b": tr.MeanSquaredError(device="cpu")})
+    with pytest.raises(ValueError, match="one device"):
+        tw.MinMaxMetric(tr.MeanSquaredError(device=cuda_device), device="cpu")
+    assert tw.MetricTracker(tr.MeanSquaredError(device=cuda_device)).device.type == "cuda"

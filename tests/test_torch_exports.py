@@ -24,6 +24,8 @@ PAIRS = [
     ("metrics_tpu.detection", "metrics_tpu_torch.detection"),
     ("metrics_tpu.functional.detection", "metrics_tpu_torch.functional.detection"),
     ("metrics_tpu.wrappers", "metrics_tpu_torch.wrappers"),
+    ("metrics_tpu.regression", "metrics_tpu_torch.regression"),
+    ("metrics_tpu.functional.regression", "metrics_tpu_torch.functional.regression"),
     ("metrics_tpu.image", "metrics_tpu_torch.image"),
     ("metrics_tpu.functional.image", "metrics_tpu_torch.functional.image"),
 ]
@@ -100,7 +102,53 @@ def test_top_level_imports_of_the_ported_classes():
         PanopticQuality,
         PeakSignalNoiseRatio,
     )
+    from metrics_tpu_torch import (  # noqa: F401
+        ClasswiseWrapper,
+        ConcordanceCorrCoef,
+        CosineSimilarity,
+        CriticalSuccessIndex,
+        ExplainedVariance,
+        KendallRankCorrCoef,
+        KLDivergence,
+        LogCoshError,
+        MeanAbsolutePercentageError,
+        MeanSquaredLogError,
+        MetricTracker,
+        MinkowskiDistance,
+        MinMaxMetric,
+        MultioutputWrapper,
+        MultitaskWrapper,
+        NormalizedRootMeanSquaredError,
+        R2Score,
+        RelativeSquaredError,
+        SymmetricMeanAbsolutePercentageError,
+        TweedieDevianceScore,
+        WeightedMeanAbsolutePercentageError,
+    )
     from metrics_tpu_torch.functional import accuracy, retrieval_average_precision  # noqa: F401
+    from metrics_tpu_torch.functional import (  # noqa: F401
+        concordance_corrcoef,
+        cosine_similarity,
+        critical_success_index,
+        explained_variance,
+        kendall_rank_corrcoef,
+        kl_divergence,
+        log_cosh_error,
+        mean_absolute_percentage_error,
+        mean_squared_log_error,
+        minkowski_distance,
+        normalized_root_mean_squared_error,
+        r2_score,
+        relative_squared_error,
+        symmetric_mean_absolute_percentage_error,
+        tweedie_deviance_score,
+        weighted_mean_absolute_percentage_error,
+    )
+    from metrics_tpu_torch.wrappers import (  # noqa: F401
+        BinaryTargetTransformer,
+        LambdaInputTransformer,
+        MetricInputTransformer,
+    )
     from metrics_tpu_torch.functional import (  # noqa: F401
         modified_panoptic_quality,
         multiscale_structural_similarity_index_measure,
@@ -109,3 +157,18 @@ def test_top_level_imports_of_the_ported_classes():
     )
 
     assert set(metrics_tpu_torch.__all__) < set(metrics_tpu.__all__)
+
+
+def test_the_regression_domain_and_the_slice_s_wrappers_are_whole():
+    """Every class and function of the JAX package's regression domain, and every wrapper but the vmapped replica
+    engine and the feature-sharing pair, is ported."""
+    import metrics_tpu.functional.regression as jf
+    import metrics_tpu.regression as jr
+    import metrics_tpu.wrappers as jw
+    import metrics_tpu_torch.functional.regression as tf
+    import metrics_tpu_torch.regression as tr
+    import metrics_tpu_torch.wrappers as tw
+
+    assert tr.__all__ == jr.__all__ and len(tr.__all__) == 20
+    assert tf.__all__ == jf.__all__ and len(tf.__all__) == 20
+    assert sorted(set(jw.__all__) - set(tw.__all__)) == ["FeatureShare", "NetworkCache", "ReplicatedWrapper"]
