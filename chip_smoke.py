@@ -16,7 +16,8 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    integer-equal, in float32 and in float64 (scores on the float64 grid and
    within half a float32 ulp of it), the SSIM window within
    ``SSIM_RTOL``/``SSIM_ATOL``, MS-SSIM's planes at every scale of a DIV2K
-   image and a plane smaller than one 64 x 64 tile among its shapes;
+   image, a plane smaller than one 64 x 64 tile, VIF's 17-, 9-, 5- and 3-tap
+   gaussian windows and the 8- and 7-tap uniform windows among its shapes;
 4. the main path through the public classes on ``device="cuda"``, each result
    checked against the same inputs run through the port on the CPU; every
    kernel's launch count is set to 0 just before each metric's run and read
@@ -75,11 +76,23 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    COCO-80 AP (one binned-counts launch an update) and ImageNet accuracy
    through ``ClasswiseWrapper``, both input transformers around the binary
    AUROC (one launch an update each), ``MetricTracker`` over the ImageNet
-   collection, ``MinMaxMetric`` and ``MultitaskWrapper``;
+   collection, ``MinMaxMetric`` and ``MultitaskWrapper``; then the rest of
+   image and segmentation: pansharpening at WorldView-3 size (UQI, SAM, ERGAS,
+   RASE, RMSE-SW and SCC in one collection over 20 reduced-resolution images of
+   8 x 256 x 256; D_lambda, D_s and QNR over 20 full-resolution images of 8 x
+   512 x 512 with their MS and PAN), VIF over 200 LIVE-sized pairs (3 x 512 x
+   768), PSNR-B over 100 JPEG-blocked 512 x 512 images, total variation and
+   image gradients over the 100 DIV2K-sized images, mean IoU, Dice and
+   generalized Dice over 100 Cityscapes-sized label maps (1024 x 2048, 19
+   classes) and the Hausdorff distance over 10 of those maps and 3 BraTS-sized
+   volumes (155 x 240 x 240, 4 labels); each window metric's launches read
+   around its compute;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
-   first scale), beside the least time the card could take (``bound_ms``);
-   then one MS-SSIM update of a DIV2K pair, whole and scale by scale. With ``--baseline DIR`` (an unpacked older tree of
+   first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
+   window at SCC's WorldView-3 planes), beside the least time the card could
+   take (``bound_ms``); then one MS-SSIM update of a DIV2K pair, whole and
+   scale by scale, and the window at each VIF scale's two launches. With ``--baseline DIR`` (an unpacked older tree of
    this repository) the older kernels are timed in turns with these, old, new,
    new, old, each old run in a process of its own started in ``DIR``;
 6. print the kernels' JSON line and, last, the device JSON line.
@@ -167,6 +180,28 @@ SEVIR_THRESHOLDS = (74.0, 133.0)
 # sentence embeddings: 50,000 pairs of BERT-base width (768), updates of 10,000
 EMB_N, EMB_DIM, EMB_UPDATE = 50_000, 768, 10_000
 TRACK_EPOCHS, TRACK_UPDATES = 3, 2  # MetricTracker over the ImageNet collection
+# pansharpening at WorldView-3 size, as PanCollection's test sets give it: 8 bands, ratio 4; 20 images each at
+# reduced resolution (fused and reference 8 x 256 x 256) and at full resolution (fused 8 x 512 x 512, MS 8 x 128
+# x 128, PAN 512 x 512 repeated over the bands), updates of 4; the CPU check covers the first 2 of each set
+WV3_BANDS, WV3_RATIO, WV3_IMAGES, WV3_UPDATE, WV3_CPU_IMAGES = 8, 4, 20, 4, 2
+WV3_REDUCED, WV3_FULL = 256, 512
+# VIF at LIVE IQA size: 200 pairs of 3 x 512 x 768 (LIVE's reference images are at most 768 wide), updates of
+# 20, blurred or noisy; the CPU check covers the first 4
+LIVE_PAIRS, LIVE_SHAPE, LIVE_UPDATE, LIVE_CPU_PAIRS = 200, (512, 768), 20, 4
+VIF_SCALES = 4  # taps 17, 9, 5, 3
+# PSNR-B on JPEG deblocking: 100 grayscale 512 x 512 images with 8 x 8 blocking, updates of 10; CPU: the first 10
+JPEG_IMAGES, JPEG_SIZE, JPEG_UPDATE, JPEG_CPU_IMAGES, JPEG_STEP = 100, 512, 10, 10, 16.0
+TV_UPDATE = 4  # total variation over the DIV2K-sized images, updates of 4; the CPU check covers the first 2
+# Cityscapes val: 500 label maps of 1024 x 2048 (this run takes 100), 19 classes, void 255, updates of 4; the CPU
+# check covers the first update's 4 maps; Hausdorff takes 10 maps, its CPU check a 256 x 512 crop of the first
+CITY_MAPS, CITY_SHAPE, CITY_CLASSES, CITY_UPDATE, CITY_HD_MAPS, CITY_CROP = 100, (1024, 2048), 19, 4, 10, (256, 512)
+# Hausdorff at BraTS size: 3 volumes of 155 x 240 x 240, labels 0-3 (background, necrotic core, edema,
+# enhancing tumour); the CPU check a 40 x 96 x 96 crop through the first volume's tumour
+BRATS_HD_VOLUMES, BRATS_HD_CROP = 3, (40, 96, 96)
+IMAGE_RTOL = 1e-5  # image scores of sums over whole batches, taken in another order on the card
+WINDOW_VALUE_ATOL = 1e-5  # UQI, SCC and RMSE-SW values, as the CPU tests hold them against the JAX package
+VIF_RTOL = 1e-4  # VIF's log10 sums over whole maps, as the CPU tests hold it
+SEG_RTOL = 1e-6  # segmentation scores from equal counts, reduced on the card in another order
 COCO_NAMES = [
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat", "traffic light",
     "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
@@ -292,18 +327,27 @@ def check_kernels(rng: np.random.Generator) -> dict:
     # by 10; the last two have odd padded widths (the kernel's 4-byte cp.async path); and a plane smaller than
     # one 64 x 64 tile, with an odd width
     div2k = [(5 * 3, (DIV2K_SHAPE[0] >> s) + 10, (DIV2K_SHAPE[1] >> s) + 10) for s in range(MS_SSIM_SCALES)]
-    for shape, kh, kw in [((12, 42, 74), taps, taps), ((6, 20, 40), taps, _gaussian_taps_np(5, 0.8)),
-                          ((5, 150, 203), taps, taps), ((70_000, 18, 18), taps, taps),
-                          ((5 * SSIM_SHAPE[0] * SSIM_SHAPE[1], SSIM_SHAPE[2] + 10, SSIM_SHAPE[3] + 10), taps, taps),
-                          *[(shape, taps, taps) for shape in div2k], ((15, 40, 51), taps, taps)]:
+    # the windows of UQI, VIF, SCC and the uniform filter: VIF's 17-tap gaussian (sigma 3.4) on its 512 x 768
+    # planes, its 9, 5 and 3 taps (the last on planes under one tile), the 8- and 7-tap uniform windows on
+    # 263 x 263 and 262 x 262 planes (a 256 x 256 image padded for them)
+    uniform = {k: np.full(k, np.float32(1) / np.float32(k), dtype=np.float32) for k in (7, 8)}
+    vif = {n: _gaussian_taps_np(n, n / 5.0) for n in (17, 9, 5, 3)}
+    cases = [((12, 42, 74), taps, taps), ((6, 20, 40), taps, _gaussian_taps_np(5, 0.8)),
+             ((5, 150, 203), taps, taps), ((70_000, 18, 18), taps, taps),
+             ((5 * SSIM_SHAPE[0] * SSIM_SHAPE[1], SSIM_SHAPE[2] + 10, SSIM_SHAPE[3] + 10), taps, taps),
+             *[(shape, taps, taps) for shape in div2k], ((15, 40, 51), taps, taps),
+             ((20, *LIVE_SHAPE), vif[17], vif[17]), ((40, 256, 384), vif[9], vif[9]), ((40, 124, 188), vif[5], vif[5]),
+             ((40, 61, 93), vif[3], vif[3]), ((7, 33, 47), vif[3], vif[3]),
+             ((160, 263, 263), uniform[8], uniform[8]), ((160, 262, 262), uniform[7], uniform[7])]
+    for shape, kh, kw in cases:
         x = torch.from_numpy(rng.random(shape, dtype=np.float32)).cuda()
         got, want = ssim_window(x, kh, kw), ssim_window_plain(x, kh, kw)
         if not torch.allclose(got, want, rtol=SSIM_RTOL, atol=SSIM_ATOL):
-            fail(f"ssim_window differs from its plain version at shape {shape}")
+            fail(f"ssim_window differs from its plain version at shape {shape} with {len(kh)} x {len(kw)} taps")
         ssim_err = max(ssim_err, float((got - want).abs().max()))
     torch.cuda.synchronize()
-    log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}) on 12 shapes, MS-SSIM's DIV2K planes"
-        f" {div2k} among them; max |err| {ssim_err}")
+    log(f"ssim_window: allclose (rtol {SSIM_RTOL}, atol {SSIM_ATOL}) on {len(cases)} shapes, MS-SSIM's DIV2K planes"
+        f" {div2k}, VIF's 17-, 9-, 5- and 3-tap and the 8- and 7-tap uniform windows among them; max |err| {ssim_err}")
     return {"binned_counts": float(binned_err), "binned_counts_labels": float(labels_err), "ssim_window": ssim_err,
             "binned_counts_f64": float(f64_err)}
 
@@ -1590,6 +1634,7 @@ def image_and_segmentation(seed: int, wrappers: dict, out: dict) -> None:
     counting("COCO val2017 segm MeanAveragePrecision", {}, lambda: segm_coco(seed, images))
     del images
     counting("COCO panoptic quality", {}, lambda: panoptic_coco(seed))
+    image_rest_and_segmentation(seed, counting)
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -1863,6 +1908,484 @@ def panoptic_coco(seed: int) -> dict:
            "max_abs_diff_vs_cpu": diff}
     log(f"COCO panoptic quality: {json.dumps(res)}")
     return res
+
+
+# ----------------------------------------------------------------------------- phase 4, the rest of image, segmentation
+def image_rest_and_segmentation(seed: int, counting) -> None:
+    """Pansharpening at WorldView-3 size (UQI, SAM, ERGAS, RASE, RMSE-SW and SCC at reduced resolution; D_lambda,
+    D_s and QNR at full resolution), VIF at LIVE size, PSNR-B on JPEG-like blocking, total variation and image
+    gradients on the DIV2K-sized images, mean IoU, Dice and generalized Dice at Cityscapes val scale, and the
+    Hausdorff distance on Cityscapes maps and BraTS volumes; each against the port's CPU run of a stated subset.
+    The window metrics launch the window kernel at ``compute()`` (their states keep every input): the launches of
+    each metric are read around its own compute."""
+    counting("WorldView-3 reduced-resolution collection", {"ssim_window": 2 * 5},
+             lambda: wv3_reduced_resolution(seed))
+    counting("WorldView-3 full-resolution D_lambda, D_s, QNR", {"ssim_window": 2 * (2 + 3 + 5)},
+             lambda: wv3_full_resolution(seed))
+    counting("LIVE VIF", {"ssim_window": 2 * (1 + 2 * (VIF_SCALES - 1))}, lambda: live_vif(seed))
+    counting("JPEG deblocking PSNR-B", {}, lambda: jpeg_psnrb(seed))
+    counting("DIV2K total variation and image gradients", {}, lambda: div2k_total_variation(seed))
+    counting("Cityscapes segmentation collection", {}, lambda: cityscapes_segmentation(seed))
+    counting("Cityscapes and BraTS Hausdorff", {}, lambda: hausdorff_cityscapes_brats(seed))
+
+
+def _count_launches(members: dict, method: str) -> dict:
+    """Wrap each member's ``method`` so that the window-kernel launches inside it are added to its entry."""
+    from metrics_tpu_torch.ops.ssim_window import ssim_window
+
+    per = {name: 0 for name in members}
+    for name, member in members.items():
+        def counted(*args, _inner=getattr(member, method), _name=name, **kwargs):
+            before = ssim_window.launches
+            result = _inner(*args, **kwargs)
+            per[_name] += ssim_window.launches - before
+            return result
+        setattr(member, method, counted)
+    return per
+
+
+def _peak_mb(base: int) -> float:
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def _reset_peak() -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _agree_values(name: str, got: dict, want: dict, tolerances: dict) -> dict:
+    """Each key within its (rtol, atol); returns the largest absolute difference of each."""
+    return {k: _agree(f"{name}[{k}]", got[k], want[k], False, *tolerances[k]) for k in want}
+
+
+def wv3_scene(g: torch.Generator, b: int, size: int) -> torch.Tensor:
+    """(b, 8, size, size) reflectance-like float32 in [0, 1] on the card: a smooth scene shared by the bands
+    (a multispectral scene's bands are strongly correlated), each band with its own gain and detail."""
+    rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")  # noqa: E731
+    up = lambda x: F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False)  # noqa: E731
+    base = up(rand(b, 1, size // 16, size // 16))
+    detail = up(rand(b, WV3_BANDS, size // 4, size // 4))
+    gains = 0.6 + 0.4 * rand(b, WV3_BANDS, 1, 1)
+    grain = torch.randn((b, WV3_BANDS, size, size), generator=g, device="cuda")
+    return (gains * base + 0.2 * detail + 0.02 * grain).clamp(0, 1)
+
+
+def _fused(g: torch.Generator, scene: torch.Tensor) -> torch.Tensor:
+    """A pansharpened estimate of ``scene``: its detail smoothed a little, with noise."""
+    smooth = F.avg_pool2d(scene, 3, stride=1, padding=1, count_include_pad=False)
+    noise = torch.randn(scene.shape, generator=g, device="cuda")
+    return (0.7 * scene + 0.3 * smooth + 0.01 * noise).clamp(0, 1)
+
+
+def wv3_reduced_resolution(seed: int) -> dict:
+    """UQI, SAM, ERGAS (ratio 4), RASE, RMSE-SW and SCC in one collection over 20 fused images of 8 x 256 x 256
+    against their references (Wald's protocol: the reference is the original MS image), updates of 4; each
+    member's window launches read around its compute. The six keep the same two list states, so the collection
+    makes them one compute group. CPU check: the first 2 images through a card and a CPU collection."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.image import (
+        ErrorRelativeGlobalDimensionlessSynthesis,
+        RelativeAverageSpectralError,
+        RootMeanSquaredErrorUsingSlidingWindow,
+        SpatialCorrelationCoefficient,
+        SpectralAngleMapper,
+        UniversalImageQualityIndex,
+    )
+
+    def make(device):
+        return MetricCollection({
+            "uqi": UniversalImageQualityIndex(device=device), "sam": SpectralAngleMapper(device=device),
+            "ergas": ErrorRelativeGlobalDimensionlessSynthesis(ratio=WV3_RATIO, device=device),
+            "rase": RelativeAverageSpectralError(device=device),
+            "rmse_sw": RootMeanSquaredErrorUsingSlidingWindow(device=device),
+            "scc": SpatialCorrelationCoefficient(device=device)})
+
+    tolerances = {"uqi": (0.0, WINDOW_VALUE_ATOL), "sam": (IMAGE_RTOL, 1e-7), "ergas": (IMAGE_RTOL, 1e-7),
+                  "rase": (IMAGE_RTOL, 1e-7), "rmse_sw": (0.0, WINDOW_VALUE_ATOL), "scc": (0.0, WINDOW_VALUE_ATOL)}
+    g = _generator(seed + 13)
+    gpu, card_check, cpu = make("cuda"), make("cuda"), make("cpu")
+    per_metric = _count_launches(dict(gpu.items()), "compute")
+    update_ms, diff = [], None
+    base = _reset_peak()
+    for start in range(0, WV3_IMAGES, WV3_UPDATE):
+        target = wv3_scene(g, WV3_UPDATE, WV3_REDUCED)
+        preds = _fused(g, target)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if start == 0:
+            slab = preds[:WV3_CPU_IMAGES], target[:WV3_CPU_IMAGES]
+            card_check.update(*slab)
+            cpu.update(*(x.cpu() for x in slab))
+            diff = _agree_values("WV3 reduced resolution", card_check.compute(), cpu.compute(), tolerances)
+    got, compute_ms = _timed(gpu.compute)
+    values = {k: float(v) for k, v in got.items()}
+    if not (0.0 < values["uqi"] <= 1.0 and 0.0 < values["scc"] <= 1.0 and
+            all(values[k] > 0 for k in ("sam", "ergas", "rase", "rmse_sw"))):
+        fail(f"WV3 reduced resolution: values out of range: {values}")
+    expect = {"uqi": 1, "sam": 0, "ergas": 0, "rase": 2, "rmse_sw": 1, "scc": 1}
+    if per_metric != expect:
+        fail(f"WV3 reduced resolution: window-kernel launches per metric {per_metric}, expected {expect}")
+    res = {"images": WV3_IMAGES, "shape": [WV3_BANDS, WV3_REDUCED, WV3_REDUCED], "cpu_images": WV3_CPU_IMAGES,
+           "compute_groups": len(gpu.compute_groups), "values": values, "first_update_ms": update_ms[0],
+           "later_update_ms_median": _median_ms(update_ms), "compute_ms": compute_ms,
+           "peak_device_mb": _peak_mb(base), "launches_per_metric": per_metric, "max_abs_diff_vs_cpu": diff}
+    log(f"WorldView-3 reduced resolution: {json.dumps(res)}")
+    return res
+
+
+def wv3_full_resolution(seed: int) -> dict:
+    """D_lambda (fused against MS), D_s and QNR over 20 fused images of 8 x 512 x 512, MS 8 x 128 x 128 (the
+    scene's 4 x 4 means) and PAN 512 x 512 (the bands' mean) repeated over the 8 bands, dict targets without
+    ``pan_lr`` (so the uniform filter and the antialiased resize run), updates of 4. CPU check: the first 2
+    images through card and CPU metrics."""
+    from metrics_tpu_torch.image import QualityWithNoReference, SpatialDistortionIndex, SpectralDistortionIndex
+
+    def make(device):
+        return {"d_lambda": SpectralDistortionIndex(device=device), "d_s": SpatialDistortionIndex(device=device),
+                "qnr": QualityWithNoReference(device=device)}
+
+    def feed(metrics, fused, ms, pan):
+        for name, m in metrics.items():
+            if name == "d_lambda":
+                m.update(fused, ms)
+            else:
+                m.update(fused, {"ms": ms, "pan": pan})
+
+    g = _generator(seed + 14)
+    gpu, card_check, cpu = make("cuda"), make("cuda"), make("cpu")
+    per_metric = _count_launches(gpu, "compute")
+    update_ms, diff = [], None
+    base = _reset_peak()
+    for start in range(0, WV3_IMAGES, WV3_UPDATE):
+        scene = wv3_scene(g, WV3_UPDATE, WV3_FULL)
+        ms = F.avg_pool2d(scene, WV3_RATIO)
+        pan = scene.mean(1, keepdim=True).expand(-1, WV3_BANDS, -1, -1).contiguous()
+        fused = _fused(g, scene)
+        update_ms.append(_timed(lambda: feed(gpu, fused, ms, pan))[1])
+        if start == 0:
+            n = WV3_CPU_IMAGES
+            feed(card_check, fused[:n], ms[:n], pan[:n])
+            feed(cpu, fused[:n].cpu(), ms[:n].cpu(), pan[:n].cpu())
+            diff = _agree_values("WV3 full resolution", {k: m.compute() for k, m in card_check.items()},
+                                 {k: m.compute() for k, m in cpu.items()}, {k: (IMAGE_RTOL, 1e-6) for k in cpu})
+    compute_ms, values = {}, {}
+    for name, m in gpu.items():
+        got, compute_ms[name] = _timed(m.compute)
+        values[name] = float(got)
+    if not (0.0 <= values["d_lambda"] < 1.0 and 0.0 <= values["d_s"] < 1.0 and 0.0 < values["qnr"] <= 1.0):
+        fail(f"WV3 full resolution: values out of range: {values}")
+    expect = {"d_lambda": 2, "d_s": 3, "qnr": 5}
+    if per_metric != expect:
+        fail(f"WV3 full resolution: window-kernel launches per metric {per_metric}, expected {expect}")
+    res = {"images": WV3_IMAGES, "shape": [WV3_BANDS, WV3_FULL, WV3_FULL],
+           "ms_shape": [WV3_BANDS, WV3_FULL // WV3_RATIO, WV3_FULL // WV3_RATIO], "cpu_images": WV3_CPU_IMAGES,
+           "values": values, "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "compute_ms": compute_ms, "peak_device_mb": _peak_mb(base), "launches_per_metric": per_metric,
+           "max_abs_diff_vs_cpu": diff}
+    log(f"WorldView-3 full resolution: {json.dumps(res)}")
+    return res
+
+
+def live_pair(g: torch.Generator, b: int, distort: str):
+    """(b, 3, 512, 768) float32 pairs in [0, 255] on the card: a smooth reference with grain, and the reference
+    blurred (a 5 x 5 box) or with white noise (sigma 10)."""
+    h, w = LIVE_SHAPE
+    coarse = torch.rand((b, 3, h // 16, w // 16), generator=g, device="cuda")
+    target = F.interpolate(coarse, size=(h, w), mode="bilinear", align_corners=False) * 255
+    target = (target + 4 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 255)
+    if distort == "blur":
+        preds = F.avg_pool2d(target, 5, stride=1, padding=2, count_include_pad=False)
+    else:
+        preds = (target + 10 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 255)
+    return preds, target
+
+
+def live_vif(seed: int) -> dict:
+    """VIF over 200 pairs of 3 x 512 x 768 in updates of 20, blurred and noisy updates in turn: seven window
+    launches at compute (scale 0, then the low-pass and the statistics at each of scales 1-3). CPU check: the
+    first 4 pairs through card and CPU metrics."""
+    from metrics_tpu_torch.image import VisualInformationFidelity
+
+    g = _generator(seed + 15)
+    gpu = VisualInformationFidelity(device="cuda")
+    per_metric = _count_launches({"vif": gpu}, "compute")
+    update_ms, diff = [], None
+    base = _reset_peak()
+    for i, start in enumerate(range(0, LIVE_PAIRS, LIVE_UPDATE)):
+        preds, target = live_pair(g, LIVE_UPDATE, "blur" if i % 2 == 0 else "noise")
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if start == 0:
+            slab = preds[:LIVE_CPU_PAIRS], target[:LIVE_CPU_PAIRS]
+            card = VisualInformationFidelity(device="cuda")
+            card.update(*slab)
+            cpu = VisualInformationFidelity(device="cpu")
+            cpu.update(*(x.cpu() for x in slab))
+            diff = _agree("LIVE VIF", card.compute(), cpu.compute(), False, VIF_RTOL, 0.0)
+    got, compute_ms = _timed(gpu.compute)
+    if not 0.0 < float(got) < 1.0:
+        fail(f"LIVE VIF {float(got)} is out of (0, 1) for distorted pairs")
+    expect = {"vif": 1 + 2 * (VIF_SCALES - 1)}
+    if per_metric != expect:
+        fail(f"LIVE VIF: window-kernel launches {per_metric}, expected {expect}")
+    res = {"pairs": LIVE_PAIRS, "shape": [3, *LIVE_SHAPE], "cpu_pairs": LIVE_CPU_PAIRS, "value": float(got),
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "compute_ms": compute_ms, "peak_device_mb": _peak_mb(base), "launches_per_metric": per_metric,
+           "max_abs_diff_vs_cpu": diff}
+    log(f"LIVE VIF: {json.dumps(res)}")
+    return res
+
+
+def jpeg_pair(g: torch.Generator, b: int):
+    """(b, 1, 512, 512) float32 in [0, 255] on the card: a smooth image, and the same image with each 8 x 8
+    block's mean quantized to steps of ``JPEG_STEP`` (the DC term of a JPEG block)."""
+    coarse = torch.rand((b, 1, JPEG_SIZE // 16, JPEG_SIZE // 16), generator=g, device="cuda")
+    target = F.interpolate(coarse, size=(JPEG_SIZE, JPEG_SIZE), mode="bilinear", align_corners=False) * 255
+    target = (target + 3 * torch.randn(target.shape, generator=g, device="cuda")).clamp(0, 255)
+    means = F.avg_pool2d(target, 8)
+    shift = F.interpolate(torch.round(means / JPEG_STEP) * JPEG_STEP - means, scale_factor=8, mode="nearest")
+    return (target + shift).clamp(0, 255), target
+
+
+def jpeg_psnrb(seed: int) -> dict:
+    """PSNR-B over 100 grayscale 512 x 512 images with 8 x 8 blocking, updates of 10. CPU check: the first 10
+    through card and CPU metrics."""
+    from metrics_tpu_torch.image import PeakSignalNoiseRatio, PeakSignalNoiseRatioWithBlockedEffect
+
+    g = _generator(seed + 16)
+    gpu = PeakSignalNoiseRatioWithBlockedEffect(device="cuda")
+    psnr = PeakSignalNoiseRatio(data_range=255.0, device="cuda")
+    update_ms, diff = [], None
+    base = _reset_peak()
+    for start in range(0, JPEG_IMAGES, JPEG_UPDATE):
+        preds, target = jpeg_pair(g, JPEG_UPDATE)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        psnr.update(preds, target)
+        if start == 0:
+            card = PeakSignalNoiseRatioWithBlockedEffect(device="cuda")
+            card.update(preds[:JPEG_CPU_IMAGES], target[:JPEG_CPU_IMAGES])
+            cpu = PeakSignalNoiseRatioWithBlockedEffect(device="cpu")
+            cpu.update(preds[:JPEG_CPU_IMAGES].cpu(), target[:JPEG_CPU_IMAGES].cpu())
+            diff = _agree("JPEG PSNR-B", card.compute(), cpu.compute(), False, IMAGE_RTOL, 0.0)
+    got, compute_ms = _timed(gpu.compute)
+    plain_psnr = float(psnr.compute())
+    if not 0.0 < float(got) < plain_psnr:
+        fail(f"JPEG PSNR-B {float(got)} is not below the PSNR {plain_psnr} of blocky images")
+    res = {"images": JPEG_IMAGES, "shape": [1, JPEG_SIZE, JPEG_SIZE], "cpu_images": JPEG_CPU_IMAGES,
+           "value": float(got), "psnr": plain_psnr, "first_update_ms": update_ms[0],
+           "later_update_ms_median": _median_ms(update_ms), "compute_ms": compute_ms,
+           "peak_device_mb": _peak_mb(base), "max_abs_diff_vs_cpu": diff}
+    log(f"JPEG PSNR-B: {json.dumps(res)}")
+    return res
+
+
+def div2k_total_variation(seed: int) -> dict:
+    """Total variation with reduction "sum", "mean" and None, and image gradients, over the 100 DIV2K-sized
+    images (the high-resolution images of the PSNR/SSIM path's generator), updates of 4. CPU check: the first 2
+    images through card and CPU metrics, and their gradients."""
+    from metrics_tpu_torch.functional.image import image_gradients
+    from metrics_tpu_torch.image import TotalVariation
+
+    def make(device):
+        return {str(r): TotalVariation(reduction=r, device=device) for r in ("sum", "mean", None)}
+
+    g = _generator(seed + 8)
+    gpu = make("cuda")
+    update_ms, gradient_ms, diff = [], [], None
+    base = _reset_peak()
+    for start in range(0, DIV2K_IMAGES, TV_UPDATE):
+        img = torch.cat([div2k_pair(g)[1] for _ in range(TV_UPDATE)])
+        update_ms.append(_timed(lambda: [m.update(img) for m in gpu.values()])[1])
+        (dy, dx), ms = _timed(lambda: image_gradients(img))
+        gradient_ms.append(ms)
+        if start == 0:
+            slab = img[:DIV2K_CPU_IMAGES]
+            card, cpu = make("cuda"), make("cpu")
+            for m in card.values():
+                m.update(slab)
+            for m in cpu.values():
+                m.update(slab.cpu())
+            diff = {k: _agree(f"DIV2K TV[{k}]", card[k].compute(), cpu[k].compute(), False, IMAGE_RTOL, 0.0)
+                    for k in cpu}
+            for name, got, want in zip(("dy", "dx"), (dy[:DIV2K_CPU_IMAGES], dx[:DIV2K_CPU_IMAGES]),
+                                       image_gradients(slab.cpu())):
+                diff[name] = _agree(f"DIV2K image gradients[{name}]", got, want, True)
+    values, compute_ms = _timed(lambda: {k: m.compute() for k, m in gpu.items()})
+    if values["None"].shape != (DIV2K_IMAGES,) or not torch.allclose(values["None"].sum(), values["sum"], rtol=1e-4):
+        fail("DIV2K TV: the per-image scores do not add up to the sum")
+    res = {"images": DIV2K_IMAGES, "shape": [3, *DIV2K_SHAPE], "cpu_images": DIV2K_CPU_IMAGES,
+           "values": {"sum": float(values["sum"]), "mean": float(values["mean"])},
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "gradients_ms_median": _median_ms(gradient_ms), "compute_ms": compute_ms, "peak_device_mb": _peak_mb(base),
+           "max_abs_diff_vs_cpu": diff}
+    log(f"DIV2K total variation: {json.dumps(res)}")
+    return res
+
+
+def cityscapes_maps(g: torch.Generator, b: int):
+    """(b, 1024, 2048) int64 (prediction, target) label maps on the card: 19 classes on a 16 x 32 grid of 64 x 64
+    cells (coarse regions, as road, buildings and sky make a street scene), void 255 on the bottom 64 rows (the
+    ego vehicle); the prediction moves the region borders by a smooth displacement of a few pixels and gives 5 %
+    of the cells another class."""
+    h, w = CITY_SHAPE
+    gh, gw = h // 64, w // 64
+    cells = (torch.rand((b, gh, gw), generator=g, device="cuda") * CITY_CLASSES).long()
+    ys = torch.arange(h, device="cuda", dtype=torch.float32)[None, :, None] + 0.5
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)[None, None, :] + 0.5
+
+    def paint(cells, dy, dx):
+        yy = ((ys + dy) / 64).floor().clamp(0, gh - 1).long()
+        xx = ((xs + dx) / 64).floor().clamp(0, gw - 1).long()
+        return torch.gather(cells.reshape(b, -1), 1, (yy * gw + xx).expand(b, h, w).reshape(b, -1)).reshape(b, h, w)
+
+    target = paint(cells, 0.0, 0.0)
+    target[:, -64:] = 255
+    disp = F.interpolate(6 * torch.randn((b, 2, h // 128, w // 128), generator=g, device="cuda"), size=(h, w),
+                         mode="bilinear", align_corners=False)
+    other = (cells + 1 + (torch.rand(cells.shape, generator=g, device="cuda") * (CITY_CLASSES - 1)).long())
+    wrong = torch.rand(cells.shape, generator=g, device="cuda") < 0.05
+    preds = paint(torch.where(wrong, other % CITY_CLASSES, cells), disp[:, 0], disp[:, 1])
+    return preds, target
+
+
+def cityscapes_segmentation(seed: int) -> dict:
+    """``MeanIoU(per_class=True)``, ``DiceScore(average="macro")`` and ``GeneralizedDiceScore`` in one collection
+    over 100 label maps of 1024 x 2048 (19 classes, index input), updates of 4: counted on the card, no one-hot
+    masks. CPU check: the first update's states and scores, counts equal, scores within ``SEG_RTOL``."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.segmentation import DiceScore, GeneralizedDiceScore, MeanIoU
+
+    def make(device):
+        kw = {"num_classes": CITY_CLASSES, "input_format": "index", "device": device}
+        return MetricCollection({"miou": MeanIoU(per_class=True, **kw), "dice": DiceScore(average="macro", **kw),
+                                 "gdice": GeneralizedDiceScore(**kw)})
+
+    g = _generator(seed + 17)
+    gpu, cpu = make("cuda"), make("cpu")
+    update_ms, diff = [], None
+    base = _reset_peak()
+    for start in range(0, CITY_MAPS, CITY_UPDATE):
+        preds, target = cityscapes_maps(g, CITY_UPDATE)
+        update_ms.append(_timed(lambda: gpu.update(preds, target))[1])
+        if start == 0:
+            cpu.update(preds.cpu(), target.cpu())
+            _same_states("Cityscapes dice", gpu["dice"], cpu["dice"])  # per-map, per-class counts: equal
+            for name in ("miou", "gdice"):  # sums of float scores
+                _same_states(f"Cityscapes {name}", gpu[name], cpu[name], rtol=SEG_RTOL)
+            got, want = gpu.compute(), cpu.compute()
+            diff = {k: _agree(f"Cityscapes {k}", got[k], want[k], False, SEG_RTOL, 0.0) for k in want}
+    got, compute_ms = _timed(gpu.compute)
+    if got["miou"].shape != (CITY_CLASSES,) or not all(0.0 < float(got[k].mean()) < 1.0 for k in got):
+        fail(f"Cityscapes: scores out of (0, 1): { {k: float(v.mean()) for k, v in got.items()} }")
+    res = {"maps": CITY_MAPS, "shape": list(CITY_SHAPE), "classes": CITY_CLASSES, "cpu_maps": CITY_UPDATE,
+           "values": {"miou": float(got["miou"].mean()), "dice": float(got["dice"]), "gdice": float(got["gdice"])},
+           "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+           "update_ms_per_map": _median_ms(update_ms) / CITY_UPDATE, "compute_ms": compute_ms,
+           "peak_device_mb": _peak_mb(base), "max_abs_diff_vs_cpu": diff}
+    log(f"Cityscapes segmentation: {json.dumps(res)}")
+    return res
+
+
+def brats_labels(g: torch.Generator):
+    """(1, 155, 240, 240) int64 BraTS-like labels and a prediction on the card: a tumour at a random centre,
+    necrotic core (1) inside enhancing tumour (3) inside edema (2), each a blob whose radius varies smoothly
+    with direction; the prediction moves the centre by up to 3 voxels and scales the blob by up to 10 %.
+    Returns the centre too."""
+    d, h, w = BRATS_SHAPE
+    rand = lambda *shape: torch.rand(shape, generator=g, device="cuda")  # noqa: E731
+    centre = torch.tensor([d / 2, h / 2, w / 2], device="cuda") + (rand(3) - 0.5) * torch.tensor([40., 60., 60.],
+                                                                                                 device="cuda")
+    axes = torch.tensor([30.0, 45.0, 40.0], device="cuda")
+    bumps = F.interpolate(rand(1, 1, 5, 6, 6) - 0.5, size=BRATS_SHAPE, mode="trilinear", align_corners=False)[0, 0]
+    grid = torch.meshgrid(*(torch.arange(n, device="cuda", dtype=torch.float32) for n in BRATS_SHAPE),
+                          indexing="ij")
+
+    def paint(centre, scale):
+        r = sum(((x - c) / (a * scale)) ** 2 for x, c, a in zip(grid, centre, axes)).sqrt() * (1 + 0.3 * bumps)
+        labels = torch.zeros(BRATS_SHAPE, dtype=torch.int64, device="cuda")
+        labels[r < 1.0] = 2
+        labels[r < 0.55] = 3
+        labels[r < 0.35] = 1
+        return labels[None]
+
+    target = paint(centre, 1.0)
+    preds = paint(centre + (rand(3) - 0.5) * 6, 1.0 + (float(rand(1)) - 0.5) * 0.2)
+    return preds, target, [int(c) for c in centre]
+
+
+def hausdorff_cityscapes_brats(seed: int) -> dict:
+    """``HausdorffDistance`` (index input, background left out) over 10 Cityscapes maps (19 classes) and 3
+    BraTS-sized volumes (4 labels), one map or volume an update: edges and their distances on the card in
+    float64. CPU check: a stated crop of the first map and of the first volume through the function on the card
+    and on the CPU, equal."""
+    from metrics_tpu_torch.functional.segmentation import hausdorff_distance
+    from metrics_tpu_torch.segmentation import HausdorffDistance
+
+    def check(name, preds, target, num_classes):
+        got = hausdorff_distance(preds, target, num_classes, input_format="index").cpu()
+        t0 = time.perf_counter()
+        want = hausdorff_distance(preds.cpu(), target.cpu(), num_classes, input_format="index")
+        cpu_s = time.perf_counter() - t0
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"{name}: the card's Hausdorff distances on the crop differ from the CPU run's")
+        return {"crop_values": got.tolist(), "cpu_s": cpu_s}
+
+    res = {}
+    g = _generator(seed + 18)
+    city = HausdorffDistance(num_classes=CITY_CLASSES, input_format="index", device="cuda")
+    update_ms = []
+    base = _reset_peak()
+    for i in range(CITY_HD_MAPS):
+        preds, target = cityscapes_maps(g, 1)
+        update_ms.append(_timed(lambda: city.update(preds, target))[1])
+        if i == 0:
+            h, w = CITY_CROP
+            crop = check("Cityscapes Hausdorff", preds[:, :h, :w], target[:, :h, :w], CITY_CLASSES)
+    value, compute_ms = _timed(city.compute)
+    res["cityscapes"] = {"maps": CITY_HD_MAPS, "shape": list(CITY_SHAPE), "value": float(value),
+                         "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+                         "compute_ms": compute_ms, "peak_device_mb": _peak_mb(base), "cpu_crop": list(CITY_CROP),
+                         **crop}
+    brats = HausdorffDistance(num_classes=4, input_format="index", device="cuda")
+    update_ms = []
+    base = _reset_peak()
+    for i in range(BRATS_HD_VOLUMES):
+        preds, target, centre = brats_labels(g)
+        update_ms.append(_timed(lambda: brats.update(preds, target))[1])
+        if i == 0:
+            box = [slice(max(0, c - n // 2), max(0, c - n // 2) + n) for c, n in zip(centre, BRATS_HD_CROP)]
+            crop = check("BraTS Hausdorff", preds[(slice(None), *box)], target[(slice(None), *box)], 4)
+    value, compute_ms = _timed(brats.compute)
+    res["brats"] = {"volumes": BRATS_HD_VOLUMES, "shape": list(BRATS_SHAPE), "value": float(value),
+                    "first_update_ms": update_ms[0], "later_update_ms_median": _median_ms(update_ms),
+                    "compute_ms": compute_ms, "peak_device_mb": _peak_mb(base), "cpu_crop": list(BRATS_HD_CROP),
+                    **crop}
+    if not all(0.0 < r["value"] < float("inf") for r in res.values()):
+        fail(f"Hausdorff: values out of (0, inf): { {k: r['value'] for k, r in res.items()} }")
+    log(f"Cityscapes and BraTS Hausdorff: {json.dumps(res)}")
+    return res
+
+
+def measure_vif_scales(seed: int) -> list:
+    """The window kernel alone (cold L2) at each VIF scale's two launches at the LIVE path's size (200 pairs,
+    luminance): the low-pass of preds and target together (scales 1-3) and the five statistics."""
+    from metrics_tpu_torch.functional.image._helpers import _gaussian_taps_np
+    from metrics_tpu_torch.ops.profile import flush_buffer, time_ms
+    from metrics_tpu_torch.ops.ssim_window import ssim_window
+
+    flush, (h, w), rows = flush_buffer(), LIVE_SHAPE, []
+    for scale in range(VIF_SCALES):
+        n = 2 ** (4 - scale) + 1
+        taps = _gaussian_taps_np(n, n / 5.0)
+        row = {"scale": scale, "taps": n}
+        if scale > 0:
+            x = torch.rand((2 * LIVE_PAIRS, h, w), device="cuda")
+            row["low_pass"] = {"planes": list(x.shape), "ms": time_ms(lambda: ssim_window(x, taps, taps), flush=flush)}
+            h, w = (h - n + 2) // 2, (w - n + 2) // 2
+        x = torch.rand((5 * LIVE_PAIRS, h, w), device="cuda")
+        row["statistics"] = {"planes": list(x.shape), "ms": time_ms(lambda: ssim_window(x, taps, taps), flush=flush)}
+        rows.append(row)
+        del x
+    return rows
 
 
 # ----------------------------------------------------------------------------- phase 4, regression and wrappers
@@ -2410,6 +2933,30 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
                                                     .abs().max())
     res["ssim_window[div2k]"] = row
+
+    # B2 at the new windows: VIF's 17-tap gaussian (sigma 3.4) over the LIVE path's scale-0 statistics (1,000
+    # planes of 512 x 768, VALID), and the 8-tap uniform window over SCC's statistics at WorldView-3 reduced
+    # resolution (800 planes of 256 x 256, padded to 263 x 263)
+    windows = [("ssim_window[gauss17]", 5 * LIVE_PAIRS, LIVE_SHAPE, _gaussian_taps_np(17, 3.4)),
+               ("ssim_window[uniform8]", 5 * WV3_IMAGES * WV3_BANDS, (263, 263), np.full(8, 0.125, dtype=np.float32))]
+    for key, planes, (hp, wp), taps in windows:
+        n = len(taps)
+        h, w = hp - n + 1, wp - n + 1
+        x = torch.from_numpy(rng.random((planes, hp, wp), dtype=np.float32)).cuda()
+        moved = 4 * planes * (hp * wp + h * w)
+        ops = 2 * planes * (n * h * wp + n * h * w)
+        row = {"shape": [planes, hp, wp, n, n], "ms": time_ms(lambda: ssim_window(x, taps, taps), flush=flush),
+               "plain_ms": None, **bound(moved, ops), "library_ms": None}
+        if plain:
+            weight = torch.from_numpy(np.outer(taps, taps).astype(np.float32)).reshape(1, 1, n, n).cuda()
+            x4 = x.unsqueeze(1)
+            torch.backends.cudnn.allow_tf32 = False
+            row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, taps, taps), reps=5, flush=flush)
+            row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
+            row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, taps, taps))
+                                                        .abs().max())
+        res[key] = row
+        del x
     return res
 
 
@@ -2536,6 +3083,7 @@ def main() -> int:
     for name, row in timing.items():
         log(f"{name}: {json.dumps(row)}")
     log(f"MS-SSIM update of one DIV2K pair: {json.dumps(measure_ms_ssim(seed))}")
+    log(f"VIF's window launches at the LIVE size, by scale: {json.dumps(measure_vif_scales(seed))}")
 
     sources = {"binned_counts[binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                          "metrics_tpu/ops/binned_hist.py:151"),
@@ -2550,7 +3098,11 @@ def main() -> int:
                "ssim_window": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
                                "metrics_tpu/ops/ssim_window.py:60"),
                "ssim_window[div2k]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
-                                      "metrics_tpu/ops/ssim_window.py:60")}
+                                      "metrics_tpu/ops/ssim_window.py:60"),
+               "ssim_window[gauss17]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
+                                        "metrics_tpu/ops/ssim_window.py:60"),
+               "ssim_window[uniform8]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
+                                         "metrics_tpu/ops/ssim_window.py:60")}
     kernels = []
     for key, (name, source, replaces) in sources.items():
         row = timing[key]

@@ -1,6 +1,6 @@
 """Functional classification metrics, exported in the order of the JAX package's ``__all__``.
 
-Not ported yet: the ``generalized_dice_score`` alias of the segmentation domain.
+``generalized_dice_score`` is the segmentation domain's, re-exported here as the JAX package does.
 """
 
 from metrics_tpu_torch.functional.classification.calibration_error import (
@@ -143,10 +143,11 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
     multiclass_stat_scores,
     multilabel_stat_scores,
 )
-
+from metrics_tpu_torch.functional.segmentation.metrics import generalized_dice_score
 
 __all__ = [
     "dice",
+    "generalized_dice_score",
     "binary_calibration_error", "calibration_error", "multiclass_calibration_error",
     "binary_fairness", "binary_groups_stat_rates", "demographic_parity", "equal_opportunity",
     "binary_hinge_loss", "hinge_loss", "multiclass_hinge_loss",

@@ -15,16 +15,9 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from metrics_tpu_torch.functional.image._helpers import _reflect_pad, avg_pool2d, reduce
+from metrics_tpu_torch.functional.image._helpers import _gaussian_taps_np, _reflect_pad, avg_pool2d, reduce
 from metrics_tpu_torch.ops.ssim_window import separable_depthwise_conv, windowed_sum_nchw
 from metrics_tpu_torch.utils.checks import _check_same_shape
-
-
-def _gaussian_taps_np(kernel_size: int, sigma: float) -> np.ndarray:
-    """1-D gaussian taps in float32, computed on the host with the JAX package's formula."""
-    dist = np.arange((1 - kernel_size) / 2, (1 + kernel_size) / 2, 1.0, dtype=np.float32)
-    gauss = np.exp(-(dist**2) / np.float32(2 * sigma**2))
-    return (gauss / gauss.sum()).astype(np.float32)
 
 
 def _ssim_check_inputs(preds: torch.Tensor, target: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

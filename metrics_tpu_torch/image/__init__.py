@@ -5,13 +5,37 @@ order.
 """
 
 from metrics_tpu_torch.image.metrics import (
+    ErrorRelativeGlobalDimensionlessSynthesis,
     MultiScaleStructuralSimilarityIndexMeasure,
     PeakSignalNoiseRatio,
+    PeakSignalNoiseRatioWithBlockedEffect,
+    QualityWithNoReference,
+    RelativeAverageSpectralError,
+    RootMeanSquaredErrorUsingSlidingWindow,
+    SpatialCorrelationCoefficient,
+    SpatialDistortionIndex,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
     StructuralSimilarityIndexMeasure,
+    TotalVariation,
+    UniversalImageQualityIndex,
+    VisualInformationFidelity,
 )
 
 __all__ = [
+    "ErrorRelativeGlobalDimensionlessSynthesis",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
+    "PeakSignalNoiseRatioWithBlockedEffect",
+    "QualityWithNoReference",
+    "RelativeAverageSpectralError",
+    "RootMeanSquaredErrorUsingSlidingWindow",
+    "SpatialCorrelationCoefficient",
+    "SpatialDistortionIndex",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
     "StructuralSimilarityIndexMeasure",
+    "TotalVariation",
+    "UniversalImageQualityIndex",
+    "VisualInformationFidelity",
 ]

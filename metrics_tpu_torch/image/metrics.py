@@ -1,11 +1,32 @@
-"""Image metrics (counterpart of ``metrics_tpu/image/metrics.py``): PSNR, SSIM (2-D and 3-D) and MS-SSIM."""
+"""Image metrics (counterpart of ``metrics_tpu/image/metrics.py``).
+
+PSNR, SSIM (2-D and 3-D) and MS-SSIM keep sums or per-image values; UQI, SAM,
+ERGAS, RASE, RMSE-SW, SCC, PSNR-B, VIF and D_lambda keep every input in "cat"
+list states and compute over their concatenation (``_SampleStoreImageMetric``),
+as D_s and QNR do with their four lists; total variation keeps a sum and a
+count, or the per-image scores.
+"""
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.functional.image.metrics import (
+    error_relative_global_dimensionless_synthesis,
+    peak_signal_noise_ratio_with_blocked_effect,
+    quality_with_no_reference,
+    relative_average_spectral_error,
+    root_mean_squared_error_using_sliding_window,
+    spatial_correlation_coefficient,
+    spatial_distortion_index,
+    spectral_angle_mapper,
+    spectral_distortion_index,
+    total_variation,
+    universal_image_quality_index,
+    visual_information_fidelity,
+)
 from metrics_tpu_torch.functional.image.psnr import _psnr_compute, _psnr_update
 from metrics_tpu_torch.functional.image.ssim import _multiscale_ssim_update, _ssim_check_inputs, _ssim_update
 from metrics_tpu_torch.metric import Metric
@@ -244,3 +265,314 @@ class MultiScaleStructuralSimilarityIndexMeasure(Metric):
         if self.reduction == "sum":
             return self.similarity
         return dim_zero_cat(self.similarity)
+
+
+class _SampleStoreImageMetric(Metric):
+    """An image metric that keeps every batch of predictions and targets in "cat" list states and computes over
+    their concatenation."""
+
+    is_differentiable = True
+    full_state_update = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.add_state("preds", [], dist_reduce_fx="cat")
+        self.add_state("target", [], dist_reduce_fx="cat")
+
+    def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
+        """Update state with predictions and targets."""
+        self.preds.append(preds)
+        self.target.append(target)
+
+
+class UniversalImageQualityIndex(_SampleStoreImageMetric):
+    """UQI over every (B, C, H, W) batch seen so far: one window-kernel launch at ``compute()`` on the card.
+
+    >>> import numpy as np
+    >>> rng = np.random.RandomState(42)
+    >>> preds = torch.from_numpy(rng.rand(2, 3, 32, 32).astype(np.float32))
+    >>> uqi = UniversalImageQualityIndex(device="cpu")
+    >>> uqi.update(preds, preds * 0.75)
+    >>> round(float(uqi.compute()), 4)
+    0.9216
+    """
+
+    higher_is_better = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
+    def __init__(
+        self,
+        kernel_size: Sequence[int] = (11, 11),
+        sigma: Sequence[float] = (1.5, 1.5),
+        reduction: Optional[str] = "elementwise_mean",
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(**kwargs)
+        self.kernel_size = kernel_size
+        self.sigma = sigma
+        self.reduction = reduction
+
+    def compute(self) -> torch.Tensor:
+        """UQI over every update so far."""
+        return universal_image_quality_index(
+            dim_zero_cat(self.preds), dim_zero_cat(self.target), self.kernel_size, self.sigma, self.reduction
+        )
+
+
+class SpectralAngleMapper(_SampleStoreImageMetric):
+    """SAM, in radians, over every batch seen so far."""
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, reduction: Optional[str] = "elementwise_mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.reduction = reduction
+
+    def compute(self) -> torch.Tensor:
+        """SAM over every update so far."""
+        return spectral_angle_mapper(dim_zero_cat(self.preds), dim_zero_cat(self.target), self.reduction)
+
+
+class ErrorRelativeGlobalDimensionlessSynthesis(_SampleStoreImageMetric):
+    """ERGAS over every batch seen so far; ``ratio`` is the ratio of high to low resolution."""
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, ratio: float = 4, reduction: Optional[str] = "elementwise_mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.ratio = ratio
+        self.reduction = reduction
+
+    def compute(self) -> torch.Tensor:
+        """ERGAS over every update so far."""
+        return error_relative_global_dimensionless_synthesis(
+            dim_zero_cat(self.preds), dim_zero_cat(self.target), self.ratio, self.reduction
+        )
+
+
+def _check_window_size(window_size: Any) -> None:
+    if not isinstance(window_size, int) or window_size < 1:
+        raise ValueError(f"Argument `window_size` is expected to be a positive integer, but got {window_size}")
+
+
+class RelativeAverageSpectralError(_SampleStoreImageMetric):
+    """RASE over every batch seen so far: two window-kernel launches at ``compute()`` on the card."""
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, window_size: int = 8, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        _check_window_size(window_size)
+        self.window_size = window_size
+
+    def compute(self) -> torch.Tensor:
+        """RASE over every update so far."""
+        return relative_average_spectral_error(dim_zero_cat(self.preds), dim_zero_cat(self.target), self.window_size)
+
+
+class RootMeanSquaredErrorUsingSlidingWindow(_SampleStoreImageMetric):
+    """Sliding-window RMSE over every batch seen so far: one window-kernel launch at ``compute()`` on the card."""
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, window_size: int = 8, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        _check_window_size(window_size)
+        self.window_size = window_size
+
+    def compute(self) -> torch.Tensor:
+        """RMSE-SW over every update so far."""
+        return root_mean_squared_error_using_sliding_window(
+            dim_zero_cat(self.preds), dim_zero_cat(self.target), self.window_size
+        )
+
+
+class TotalVariation(Metric):
+    """Total variation of every image seen so far: with ``reduction`` "sum" or "mean" a running sum and count,
+    with "none" or None every image's score.
+
+    >>> import numpy as np
+    >>> rng = np.random.RandomState(42)
+    >>> tv = TotalVariation(device="cpu")
+    >>> tv.update(torch.from_numpy(rng.rand(2, 3, 16, 16).astype(np.float32)))
+    >>> float(tv.compute()) > 0
+    True
+    """
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound = 0.0
+
+    def __init__(self, reduction: Optional[str] = "sum", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if reduction is not None and reduction not in ("sum", "mean", "none"):
+            raise ValueError("Expected argument `reduction` to either be 'sum', 'mean', 'none' or None")
+        self.reduction = reduction
+        if reduction in ("sum", "mean"):
+            self.add_state("score", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+            self.add_state("num_elements", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
+        else:
+            self.add_state("score_list", [], dist_reduce_fx="cat")
+
+    def update(self, img: torch.Tensor) -> None:
+        """Update state with a batch of images."""
+        score = total_variation(img, reduction="none")
+        if self.reduction in ("sum", "mean"):
+            self.score = self.score + score.sum()
+            self.num_elements = self.num_elements + img.shape[0]
+        else:
+            self.score_list.append(score)
+
+    def compute(self) -> torch.Tensor:
+        """Total variation over every update so far."""
+        if self.reduction == "sum":
+            return self.score
+        if self.reduction == "mean":
+            return self.score / self.num_elements
+        return dim_zero_cat(self.score_list)
+
+
+class SpatialCorrelationCoefficient(_SampleStoreImageMetric):
+    """SCC over every batch seen so far: one window-kernel launch at ``compute()`` on the card."""
+
+    higher_is_better = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
+
+    def __init__(self, hp_filter: Optional[torch.Tensor] = None, window_size: int = 8, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.hp_filter = hp_filter
+        self.window_size = window_size
+
+    def compute(self) -> torch.Tensor:
+        """SCC over every update so far."""
+        return spatial_correlation_coefficient(
+            dim_zero_cat(self.preds), dim_zero_cat(self.target), self.hp_filter, self.window_size
+        )
+
+
+class PeakSignalNoiseRatioWithBlockedEffect(_SampleStoreImageMetric):
+    """PSNR-B over every grayscale batch seen so far, pooled."""
+
+    higher_is_better = True
+    plot_lower_bound = 0.0
+
+    def __init__(self, block_size: int = 8, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(block_size, int) or block_size < 1:
+            raise ValueError("Argument `block_size` should be a positive integer")
+        self.block_size = block_size
+
+    def compute(self) -> torch.Tensor:
+        """PSNR-B over every update so far."""
+        return peak_signal_noise_ratio_with_blocked_effect(
+            dim_zero_cat(self.preds), dim_zero_cat(self.target), self.block_size
+        )
+
+
+class VisualInformationFidelity(_SampleStoreImageMetric):
+    """VIF-p over every batch seen so far: seven window-kernel launches at ``compute()`` on the card."""
+
+    higher_is_better = True
+    plot_lower_bound = 0.0
+
+    def __init__(self, sigma_n_sq: float = 2.0, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(sigma_n_sq, (float, int)) or sigma_n_sq < 0:
+            raise ValueError(f"Argument `sigma_n_sq` is expected to be a positive float or int, but got {sigma_n_sq}")
+        self.sigma_n_sq = float(sigma_n_sq)
+
+    def compute(self) -> torch.Tensor:
+        """VIF over every update so far."""
+        return visual_information_fidelity(dim_zero_cat(self.preds), dim_zero_cat(self.target), self.sigma_n_sq)
+
+
+class SpectralDistortionIndex(_SampleStoreImageMetric):
+    """D_lambda over every batch seen so far: two window-kernel launches at ``compute()`` on the card."""
+
+    higher_is_better = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
+    def __init__(self, p: int = 1, reduction: Optional[str] = "elementwise_mean", **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        if not isinstance(p, int) or p <= 0:
+            raise ValueError(f"Expected `p` to be a positive integer. Got p: {p}.")
+        self.p = p
+        self.reduction = reduction
+
+    def compute(self) -> torch.Tensor:
+        """D_lambda over every update so far."""
+        return spectral_distortion_index(dim_zero_cat(self.preds), dim_zero_cat(self.target), self.p, self.reduction)
+
+
+class SpatialDistortionIndex(Metric):
+    """D_s over every batch seen so far; the target is a dict ``{"ms", "pan"[, "pan_lr"]}``, kept in four "cat"
+    list states."""
+
+    is_differentiable = True
+    higher_is_better = False
+    full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+
+    def __init__(self, norm_order: int = 1, window_size: int = 7, **kwargs: Any) -> None:
+        super().__init__(**kwargs)
+        self.norm_order = norm_order
+        self.window_size = window_size
+        self.add_state("preds", [], dist_reduce_fx="cat")
+        self.add_state("ms", [], dist_reduce_fx="cat")
+        self.add_state("pan", [], dist_reduce_fx="cat")
+        self.add_state("pan_lr", [], dist_reduce_fx="cat")
+
+    def update(self, preds: torch.Tensor, target: Dict[str, torch.Tensor]) -> None:
+        """Update state with the fused image and the ``{ms, pan[, pan_lr]}`` dict."""
+        if not isinstance(target, dict) or "ms" not in target or "pan" not in target:
+            raise ValueError("Expected `target` to be a dict with keys ('ms', 'pan').")
+        self.preds.append(preds)
+        self.ms.append(target["ms"])
+        self.pan.append(target["pan"])
+        if "pan_lr" in target:
+            self.pan_lr.append(target["pan_lr"])
+
+    def _target_dict(self) -> Dict[str, torch.Tensor]:
+        target = {"ms": dim_zero_cat(self.ms), "pan": dim_zero_cat(self.pan)}
+        if self.pan_lr:
+            target["pan_lr"] = dim_zero_cat(self.pan_lr)
+        return target
+
+    def compute(self) -> torch.Tensor:
+        """D_s over every update so far."""
+        return spatial_distortion_index(
+            dim_zero_cat(self.preds), self._target_dict(), norm_order=self.norm_order, window_size=self.window_size
+        )
+
+
+class QualityWithNoReference(SpatialDistortionIndex):
+    """QNR over every batch seen so far, on D_s's four list states."""
+
+    higher_is_better = True
+
+    def __init__(
+        self, alpha: float = 1.0, beta: float = 1.0, norm_order: int = 1, window_size: int = 7, **kwargs: Any
+    ) -> None:
+        super().__init__(norm_order, window_size, **kwargs)
+        self.alpha = alpha
+        self.beta = beta
+
+    def compute(self) -> torch.Tensor:
+        """QNR over every update so far."""
+        return quality_with_no_reference(
+            dim_zero_cat(self.preds),
+            self._target_dict(),
+            alpha=self.alpha,
+            beta=self.beta,
+            norm_order=self.norm_order,
+            window_size=self.window_size,
+        )

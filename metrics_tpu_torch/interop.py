@@ -8,7 +8,8 @@ updating and computing as if it had seen the same batches: counters and
 confusion matrices, an aggregator's value with its Neumaier ``_comp``
 companion, list states such as Spearman's kept samples or a retrieval
 metric's rows, the moments of Pearson, concordance, explained variance and
-NRMSE, ``MeanAveragePrecision``'s per-image host arrays, and every wrapper's
+NRMSE, the image metrics' kept inputs (D_s's and QNR's four lists among them),
+``DiceScore``'s per-sample sums, ``MeanAveragePrecision``'s per-image host arrays, and every wrapper's
 children (a ``BootStrapper``'s or ``MultioutputWrapper``'s copies, a
 ``MetricTracker``'s steps, a ``MultitaskWrapper``'s tasks).
 :func:`load_reference_collection_state` does the same for a whole

@@ -821,3 +821,105 @@ def test_wrapper_refuses_metrics_on_the_card_and_the_cpu(cuda_device):
     with pytest.raises(ValueError, match="one device"):
         tw.MinMaxMetric(tr.MeanSquaredError(device=cuda_device), device="cpu")
     assert tw.MetricTracker(tr.MeanSquaredError(device=cuda_device)).device.type == "cuda"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    ("shape", "taps"),
+    [
+        ((4, 512, 768), ("gauss", 17)),  # VIF's scale-0 window on its LIVE planes
+        ((6, 130, 200), ("gauss", 9)),
+        ((6, 70, 90), ("gauss", 5)),
+        ((7, 33, 47), ("gauss", 3)),     # a plane under one 64 x 64 tile
+        ((10, 263, 263), ("uniform", 8)),  # the scipy-style uniform filter and SCC's window on 256 x 256
+        ((10, 262, 262), ("uniform", 7)),
+    ],
+)
+def test_window_kernel_matches_plain_at_the_image_metrics_windows(cuda_device, shape, taps):
+    kind, n = taps
+    k = _gaussian_taps_np(n, n / 5.0) if kind == "gauss" else np.full(n, np.float32(1) / np.float32(n), np.float32)
+    x = torch.rand(shape, generator=torch.Generator().manual_seed(n)).to(cuda_device)
+    before = ssim_window.launches
+    got = ssim_window(x, k, k)
+    torch.cuda.synchronize()
+    assert ssim_window.launches == before + 1
+    torch.testing.assert_close(got, ssim_window_plain(x, k, k), rtol=0, atol=SSIM_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    ("name", "launches"),
+    [("universal_image_quality_index", 1), ("visual_information_fidelity", 7), ("relative_average_spectral_error", 2),
+     ("spatial_correlation_coefficient", 1), ("root_mean_squared_error_using_sliding_window", 1)],
+)
+def test_window_metrics_on_the_card_match_the_cpu_with_their_launches(cuda_device, name, launches):
+    import metrics_tpu_torch.functional.image as tfi
+
+    rng = np.random.RandomState(31)
+    a = rng.rand(3, 3, 64, 72).astype(np.float32) * 255
+    b = (0.8 * a + 0.2 * rng.rand(*a.shape) * 255).astype(np.float32)
+    fn = getattr(tfi, name)
+    before = ssim_window.launches
+    got = fn(torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device))
+    torch.cuda.synchronize()
+    assert ssim_window.launches == before + launches
+    want = fn(torch.from_numpy(a), torch.from_numpy(b))
+    rtol = 1e-4 if name == "visual_information_fidelity" else 1e-5
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_pan_lr", [False, True])
+def test_pansharpening_indices_on_the_card_match_the_cpu_with_their_launches(cuda_device, with_pan_lr):
+    import metrics_tpu_torch.functional.image as tfi
+
+    rng = np.random.RandomState(32)
+    preds, pan = (torch.from_numpy(rng.rand(2, 4, 64, 64).astype(np.float32)) for _ in range(2))
+    ms, pan_lr = (torch.from_numpy(rng.rand(2, 4, 16, 16).astype(np.float32)) for _ in range(2))
+    target = {"ms": ms, "pan": pan, **({"pan_lr": pan_lr} if with_pan_lr else {})}
+    card_target = {k: v.to(cuda_device) for k, v in target.items()}
+    for fn, launches in ((tfi.spatial_distortion_index, 2 if with_pan_lr else 3),
+                         (tfi.quality_with_no_reference, 4 if with_pan_lr else 5)):
+        before = ssim_window.launches
+        got = fn(preds.to(cuda_device), card_target)
+        torch.cuda.synchronize()
+        assert ssim_window.launches == before + launches
+        torch.testing.assert_close(got.cpu(), fn(preds, target), rtol=1e-5, atol=1e-6)
+    before = ssim_window.launches
+    got = tfi.spectral_distortion_index(preds.to(cuda_device), ms.to(cuda_device))
+    assert ssim_window.launches == before + 2
+    torch.testing.assert_close(got.cpu(), tfi.spectral_distortion_index(preds, ms), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("distance_metric", ["euclidean", "chessboard", "taxicab"])
+def test_hausdorff_blocked_on_the_card_equals_the_cpu(cuda_device, distance_metric, monkeypatch):
+    """The card's distances in float64, in blocks of 7 rows of the first edge set and in one block, equal the
+    CPU's."""
+    from metrics_tpu_torch.functional.segmentation import hausdorff_distance
+    from metrics_tpu_torch.functional.segmentation import metrics as seg
+
+    rng = np.random.RandomState(33)
+    target = torch.from_numpy(np.kron(rng.randint(0, 5, (2, 6, 8)), np.ones((1, 12, 12), np.int64)))
+    preds = torch.roll(target, shifts=(2, -3), dims=(1, 2))
+    args = (5, False, distance_metric, (0.8, 1.1), False, "index")
+    want = hausdorff_distance(preds, target, *args)
+    got = hausdorff_distance(preds.to(cuda_device), target.to(cuda_device), *args)
+    assert torch.equal(got.cpu(), want)
+    monkeypatch.setattr(seg, "_distance_block_rows", lambda e1, e2, device: 7)
+    got = hausdorff_distance(preds.to(cuda_device), target.to(cuda_device), *args)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_segmentation_counts_on_the_card_equal_the_cpu(cuda_device):
+    from metrics_tpu_torch.functional.segmentation import metrics as seg
+
+    rng = np.random.RandomState(34)
+    preds = torch.from_numpy(rng.randint(-1, 21, (3, 128, 256)))
+    target = torch.from_numpy(rng.randint(0, 19, (3, 128, 256)))
+    target[:, -8:] = 255
+    want = seg._class_sums(preds, target, 19, "index", False)
+    got = seg._class_sums(preds.to(cuda_device), target.to(cuda_device), 19, "index", False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)

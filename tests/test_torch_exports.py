@@ -28,6 +28,9 @@ PAIRS = [
     ("metrics_tpu.functional.regression", "metrics_tpu_torch.functional.regression"),
     ("metrics_tpu.image", "metrics_tpu_torch.image"),
     ("metrics_tpu.functional.image", "metrics_tpu_torch.functional.image"),
+    ("metrics_tpu.segmentation", "metrics_tpu_torch.segmentation"),
+    ("metrics_tpu.functional.segmentation", "metrics_tpu_torch.functional.segmentation"),
+    ("metrics_tpu.functional.classification", "metrics_tpu_torch.functional.classification"),
 ]
 
 
@@ -172,3 +175,41 @@ def test_the_regression_domain_and_the_slice_s_wrappers_are_whole():
     assert tr.__all__ == jr.__all__ and len(tr.__all__) == 20
     assert tf.__all__ == jf.__all__ and len(tf.__all__) == 20
     assert sorted(set(jw.__all__) - set(tw.__all__)) == ["FeatureShare", "NetworkCache", "ReplicatedWrapper"]
+
+
+def test_image_beyond_the_models_and_segmentation_are_whole():
+    """Every image class and function but the model-based ones (FID, KID, IS, MiFID, LPIPS, PPL), and the whole
+    segmentation domain, are ported; ``generalized_dice_score`` is also in the classification namespace."""
+    import metrics_tpu.functional.classification as jfc
+    import metrics_tpu.functional.image as jfi
+    import metrics_tpu.functional.segmentation as jfs
+    import metrics_tpu.image as ji
+    import metrics_tpu.segmentation as js
+    import metrics_tpu_torch.functional.classification as tfc
+    import metrics_tpu_torch.functional.image as tfi
+    import metrics_tpu_torch.functional.segmentation as tfs
+    import metrics_tpu_torch.image as ti
+    import metrics_tpu_torch.segmentation as ts
+
+    assert sorted(set(ji.__all__) - set(ti.__all__)) == [
+        "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
+        "LearnedPerceptualImagePatchSimilarity", "MemorizationInformedFrechetInceptionDistance",
+        "PerceptualPathLength",
+    ]
+    assert sorted(set(jfi.__all__) - set(tfi.__all__)) == [
+        "learned_perceptual_image_patch_similarity", "perceptual_path_length",
+    ]
+    assert ts.__all__ == js.__all__ and tfs.__all__ == jfs.__all__
+    assert tfc.__all__ == jfc.__all__
+    assert tfc.generalized_dice_score is tfs.generalized_dice_score
+    from metrics_tpu_torch import (  # noqa: F401
+        ErrorRelativeGlobalDimensionlessSynthesis,
+        RelativeAverageSpectralError,
+        RootMeanSquaredErrorUsingSlidingWindow,
+        SpectralAngleMapper,
+        SpectralDistortionIndex,
+        TotalVariation,
+        UniversalImageQualityIndex,
+        segmentation,
+    )
+    from metrics_tpu_torch.functional import image_gradients, segmentation as fseg, total_variation  # noqa: F401
