@@ -86,7 +86,21 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    generalized Dice over 100 Cityscapes-sized label maps (1024 x 2048, 19
    classes) and the Hausdorff distance over 10 of those maps and 3 BraTS-sized
    volumes (155 x 240 x 240, 4 labels); each window metric's launches read
-   around its compute;
+   around its compute; then pairwise, clustering, nominal and shape, which
+   launch no kernel: cosine, euclidean and linear similarity of CIFAR-10's
+   10,000 test against its 50,000 train embeddings at ResNet-18 width (512)
+   with every reduction, manhattan and Minkowski distances in row blocks, the
+   nine label clustering metrics over ImageNet-1k's 1,281,167 train labels
+   against 1,000 clusters (AMI's expected mutual information over about 1.3e9
+   terms on the card), Calinski-Harabasz, Davies-Bouldin and Dunn over 50,000
+   ResNet-50-wide embeddings with 1,000 labels, the four nominal ``*_matrix``
+   functions over 2^20 rows of UCI Adult's nine categorical columns (1 % NaN,
+   both ``nan_strategy``s) and the four classes on (occupation, income),
+   Fleiss' kappa at CIFAR-10H size in both modes, Procrustes disparity over
+   2^17 Human3.6M-sized poses (and the host syncs of ``torch.linalg.svd``);
+   then ``to_device`` card -> CPU -> card mid-stream, ``state_fingerprint``
+   across devices, the forward-state check on the card and ``plot()`` (it
+   raises the JAX package's error where matplotlib is not installed);
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -202,6 +216,33 @@ IMAGE_RTOL = 1e-5  # image scores of sums over whole batches, taken in another o
 WINDOW_VALUE_ATOL = 1e-5  # UQI, SCC and RMSE-SW values, as the CPU tests hold them against the JAX package
 VIF_RTOL = 1e-4  # VIF's log10 sums over whole maps, as the CPU tests hold it
 SEG_RTOL = 1e-6  # segmentation scores from equal counts, reduced on the card in another order
+# CIFAR-10 k-NN evaluation: the 10,000 test against the 50,000 train embeddings of ResNet-18 width (512), 10
+# classes; the p-norm distances take the test embeddings against themselves; the CPU check covers the first
+# 1,000 test against the first 5,000 train (or test) embeddings
+KNN_TEST, KNN_TRAIN, KNN_DIM, KNN_CLASSES, KNN_CPU = 10_000, 50_000, 512, 10, (1000, 5000)
+PAIR_RTOL, PAIR_ATOL = 1e-5, 1e-5  # as the CPU tests hold the pairwise functions against the JAX package
+# cluster evaluation on ImageNet-1k (SCAN, DeepCluster): the 1,281,167 train labels against 1,000 clusters, in
+# updates of 2^17; the CPU check runs the 50,000-image validation scale on the same 1,000 x 1,000 vocabulary
+IN_TRAIN, IN_VAL, CLUSTER_UPDATE = 1_281_167, 50_000, 1 << 17
+LABEL_RTOL, AMI_RTOL = 1e-6, 1e-5  # float32 sums over the table in another order; AMI: float64 EMI sums too
+# ResNet-50 pooled embeddings (2048) of 50,000 images with 1,000 cluster labels, updates of 10,000; the CPU
+# check: 5,000 embeddings with 100 labels
+EMBED_N, EMBED_DIM, EMBED_K, EMBED_UPDATE, EMBED_CPU_N, EMBED_CPU_K = 50_000, 2048, 1000, 10_000, 5000, 100
+INTRINSIC_RTOL = 1e-5
+# UCI Adult's nine categorical columns at their cardinalities, 2^20 rows (about 21 Adult sets) in updates of
+# 2^18, 1 % of the cells NaN; the CPU check covers the first 2^16 rows
+ADULT_CARDS = {"workclass": 9, "education": 16, "marital-status": 7, "occupation": 15, "relationship": 6,
+               "race": 5, "sex": 2, "native-country": 42, "income": 2}
+ADULT_ROWS, ADULT_UPDATE, ADULT_CPU_ROWS, ADULT_NAN = 1 << 20, 1 << 18, 1 << 16, 0.01
+NOMINAL_RTOL, NOMINAL_ATOL = 1e-6, 1e-6  # as the CPU tests hold them: differences of order-1 float32 values
+# CIFAR-10H: the 10,000 CIFAR-10 test images, 10 classes, 50 human ratings each; probs mode in updates of 1,000
+C10H_IMAGES, C10H_CLASSES, C10H_RATERS, C10H_UPDATE = 10_000, 10, 50, 1000
+# a Human3.6M-sized pose evaluation (PA-MPJPE's alignment): 2^17 poses of 17 joints x 3 in updates of 1,024,
+# one pose in 64 degenerate (every joint at one point); the CPU check covers the first 4,096
+POSE_N, POSE_JOINTS, POSE_UPDATE, POSE_CPU_N, POSE_DEGENERATE_EVERY = 1 << 17, 17, 1024, 4096, 64
+PROCRUSTES_RTOL, ROTATION_ATOL = 1e-5, 1e-5
+# the JAX package's error for a plot without matplotlib (``metrics_tpu/utils/plot.py``), which the port repeats
+MATPLOTLIB_ERROR = "Plot function expects `matplotlib` to be installed. Please install with `pip install matplotlib`"
 COCO_NAMES = [
     "person", "bicycle", "car", "motorcycle", "airplane", "bus", "train", "truck", "boat", "traffic light",
     "fire hydrant", "stop sign", "parking meter", "bench", "bird", "cat", "dog", "horse", "sheep", "cow",
@@ -476,6 +517,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     imagenet, imagenet_gpu = section("collections and sync", collections_and_sync, seed, wrappers, out)
     dryrun_checks(seed, wrappers, out, imagenet, imagenet_gpu)
     regression_and_wrappers(seed, wrappers, out, imagenet, imagenet_gpu)
+    pairwise_clustering_nominal_shape(seed, wrappers, out)
     return out
 
 
@@ -2830,6 +2872,458 @@ def multitask(imagenet, imagenet_gpu, x, y) -> dict:
     res["value"] = {k: float(v) for k, v in got.items()}
     res["max_abs_diff_vs_cpu"] = _agree_dict("MultitaskWrapper", got, cpu.compute(), False, SUM_RTOL, SUM_ATOL)
     return res
+
+
+# ----------------------------------------------------------------------------- phase 4, pairwise to shape, runtime
+def pairwise_clustering_nominal_shape(seed: int, wrappers: dict, out: dict) -> None:
+    """Pairwise distances at CIFAR-10 k-NN scale, the nine label clustering metrics at ImageNet-1k train scale
+    (AMI's expected mutual information over about 1.3e9 terms), the embedding clustering metrics on ResNet-50
+    pooled features, the nominal association of UCI Adult's nine categorical columns, Fleiss' kappa at CIFAR-10H
+    scale, Procrustes disparity over Human3.6M-sized poses, then the runtime's leftovers (``to_device``,
+    ``state_fingerprint``, the forward-state check, ``plot``). None of them launches a kernel; each is checked
+    against the port's CPU run of a stated subset."""
+
+    def counting(name, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = section(name, body)
+        torch.cuda.synchronize()
+        result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": {}})
+        out[name] = result
+
+    counting("CIFAR-10 k-NN pairwise distances", lambda: cifar_knn_pairwise(seed))
+    counting("ImageNet-1k extrinsic clustering[9 label metrics]", lambda: imagenet_label_clustering(seed))
+    counting("ResNet-50 embedding clustering[CH, DB, Dunn p=2, p=1]", lambda: embedding_clustering(seed))
+    counting("UCI Adult nominal association", lambda: adult_nominal(seed))
+    counting("CIFAR-10H Fleiss kappa", lambda: cifar10h_fleiss(seed))
+    counting("Human3.6M-sized Procrustes disparity", lambda: pose_procrustes(seed))
+    counting("runtime: to_device, state_fingerprint, forward-state check, plot", lambda: runtime_leftovers(seed))
+
+
+def cifar_knn_pairwise(seed: int) -> dict:
+    """Cosine, euclidean and linear similarity of the 10,000 test against the 50,000 train embeddings (a 2 GB
+    matrix) with each reduction, and the manhattan and Minkowski (p = 3) distances of the test embeddings
+    against themselves, in blocks of rows; ``torch.cdist`` of the same is timed beside them (a library call the
+    port does not use). The embeddings are ReLU features around 10 class centres: the nearest train embedding's
+    class is the test embedding's for most of them."""
+    from metrics_tpu_torch import functional as tf
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 is on: the float32 products would lose their float32 meaning")
+    g = _generator(seed + 30)
+    centres = torch.randn(KNN_CLASSES, KNN_DIM, generator=g, device="cuda")
+
+    def embed(n):
+        labels = torch.randint(0, KNN_CLASSES, (n,), generator=g, device="cuda")
+        return torch.relu(centres[labels] + 1.5 * torch.randn(n, KNN_DIM, generator=g, device="cuda")), labels
+
+    test, test_labels = embed(KNN_TEST)
+    train, train_labels = embed(KNN_TRAIN)
+    ct, cr = KNN_CPU
+    res = {"test": KNN_TEST, "train": KNN_TRAIN, "dim": KNN_DIM, "cpu_check": [ct, cr], "ms": {},
+           "peak_device_mb": {}, "max_abs_diff_vs_cpu": {}}
+
+    def check(key, fn, full, x_cpu, y_cpu, x_gpu, y_gpu, **kw):
+        want = fn(x_cpu, y_cpu, **kw)
+        diff = _agree(f"pairwise {key}", fn(x_gpu, y_gpu, **kw), want, False, PAIR_RTOL, PAIR_ATOL)
+        if full is not None:  # the full matrix's corner is the subset's matrix
+            diff = max(diff, _agree(f"pairwise {key}[corner]", full[:ct, :cr].contiguous(), want, False,
+                                    PAIR_RTOL, PAIR_ATOL))
+        res["max_abs_diff_vs_cpu"][key] = diff
+
+    for name in ("cosine_similarity", "euclidean_distance", "linear_similarity"):
+        fn = getattr(tf, f"pairwise_{name}")
+        for reduction in (None, "mean", "sum"):
+            key = f"{name}[{reduction}]"
+            base = _reset_peak()
+            got, res["ms"][key] = _timed(lambda: fn(test, train, reduction=reduction))
+            res["peak_device_mb"][key] = _peak_mb(base)
+            want_shape = (KNN_TEST, KNN_TRAIN) if reduction is None else (KNN_TEST,)
+            if tuple(got.shape) != want_shape or not bool(torch.isfinite(got).all()):
+                fail(f"pairwise {key}: shape {tuple(got.shape)} or non-finite values")
+            if reduction is None:
+                nearest = got.argmin(1) if name == "euclidean_distance" else got.argmax(1)
+                res[f"{name}_1nn_accuracy"] = float((train_labels[nearest] == test_labels).float().mean())
+                if res[f"{name}_1nn_accuracy"] < 0.5:
+                    fail(f"pairwise {key}: 1-NN accuracy {res[f'{name}_1nn_accuracy']} over 10 classes")
+            check(key, fn, got if reduction is None else None, test[:ct].cpu(), train[:cr].cpu(), test[:ct],
+                  train[:cr], reduction=reduction)
+            del got
+    for name, kw, p in (("manhattan_distance", {}, 1.0), ("minkowski_distance", {"exponent": 3}, 3.0)):
+        fn = getattr(tf, f"pairwise_{name}")
+        base = _reset_peak()
+        got, res["ms"][name] = _timed(lambda: fn(test, **kw))
+        res["peak_device_mb"][name] = _peak_mb(base)
+        lib, res["ms"][f"{name}[torch.cdist]"] = _timed(lambda: torch.cdist(test, test, p=p))
+        lib.fill_diagonal_(0.0)
+        res["max_rel_diff_vs_cdist"] = max(res.get("max_rel_diff_vs_cdist", 0.0),
+                                           float(((got - lib).abs() / lib.clamp(min=1e-6)).max()))
+        del lib
+        if tuple(got.shape) != (KNN_TEST, KNN_TEST) or not bool(torch.isfinite(got).all()):
+            fail(f"pairwise {name}: shape {tuple(got.shape)} or non-finite values")
+        check(name, fn, got, test[:ct].cpu(), test[:cr].cpu(), test[:ct], test[:cr], **kw)
+        del got
+    log(f"CIFAR-10 k-NN pairwise: {json.dumps(res)}")
+    return res
+
+
+def _cluster_labels(g: torch.Generator, n: int, purity: torch.Tensor, perm: torch.Tensor):
+    """(cluster ids, class labels) of ``n`` images on the card: uniform classes over 1,000; each image keeps its
+    class's cluster with its class's purity and falls into a uniform cluster otherwise; the cluster ids are a
+    permutation of the class ids."""
+    target = torch.randint(0, 1000, (n,), generator=g, device="cuda")
+    keep = torch.rand(n, generator=g, device="cuda") < purity[target]
+    noise = torch.randint(0, 1000, (n,), generator=g, device="cuda")
+    return perm[torch.where(keep, target, noise)], target
+
+
+LABEL_METRICS = ("MutualInfoScore", "RandScore", "AdjustedRandScore", "FowlkesMallowsIndex", "HomogeneityScore",
+                 "CompletenessScore", "VMeasureScore", "NormalizedMutualInfoScore", "AdjustedMutualInfoScore")
+
+
+def imagenet_label_clustering(seed: int) -> dict:
+    """The nine label metrics in one collection over the 1,281,167 ImageNet-1k train labels against 1,000
+    clusters (class purities uniform in [0.2, 0.9]), updates of 2^17; each compute timed alone, AMI's expected
+    mutual information timed alone with its terms counted and its peak memory. CPU check: the same metrics at
+    the 50,000-image validation scale."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch import clustering as tcl
+    from metrics_tpu_torch.functional.clustering import extrinsic as tx
+
+    g = _generator(seed + 31)
+    purity = 0.2 + 0.7 * torch.rand(1000, generator=g, device="cuda")
+    perm = torch.randperm(1000, generator=g, device="cuda")
+
+    def make(device):
+        return MetricCollection({n: getattr(tcl, n)(device=device) for n in LABEL_METRICS})
+
+    preds, target = _cluster_labels(g, IN_TRAIN, purity, perm)
+    gpu = make("cuda")
+    batches = [(preds[i:i + CLUSTER_UPDATE], target[i:i + CLUSTER_UPDATE]) for i in range(0, IN_TRAIN, CLUSTER_UPDATE)]
+    res = _updates_timed(gpu, batches)
+    res.update({"labels": IN_TRAIN, "clusters": 1000, "classes": 1000, "compute_ms": {}, "values": {}})
+    for name in LABEL_METRICS:
+        base = _reset_peak()
+        value, res["compute_ms"][name] = _timed(gpu[name].compute)
+        if name == "AdjustedMutualInfoScore":
+            res["ami_compute_peak_device_mb"] = _peak_mb(base)
+        if not bool(torch.isfinite(value)):
+            fail(f"ImageNet clustering {name}: {float(value)}")
+        res["values"][name] = float(value)
+    c = tx.calculate_contingency_matrix(preds, target)
+    a, b, n = c.sum(1).long(), c.sum(0).long(), IN_TRAIN
+    spans = torch.minimum(a[:, None], b[None, :]) - torch.clamp(a[:, None] + b[None, :] - n, min=1) + 1
+    res["emi_terms"] = int(spans.sum())
+    base = _reset_peak()
+    emi, res["emi_ms"] = _timed(lambda: tx._expected_mutual_info(c))
+    res["emi_peak_device_mb"] = _peak_mb(base)
+    res["emi"] = float(emi)
+    if not 0.0 < res["values"]["NormalizedMutualInfoScore"] < 1.0 or not math.isfinite(res["emi"]):
+        fail(f"ImageNet clustering: NMI {res['values']['NormalizedMutualInfoScore']}, EMI {res['emi']}")
+    del preds, target, batches, c, spans
+    vp, vt = _cluster_labels(g, IN_VAL, purity, perm)
+    gpu_val, cpu_val = make("cuda"), make("cpu")
+    gpu_val.update(vp, vt)
+    cpu_val.update(vp.cpu(), vt.cpu())
+    got, want = gpu_val.compute(), cpu_val.compute()
+    res["max_abs_diff_vs_cpu"] = {k: _agree(f"ImageNet val clustering {k}", got[k], want[k], False,
+                                            AMI_RTOL if k == "AdjustedMutualInfoScore" else LABEL_RTOL, 0.0)
+                                  for k in LABEL_METRICS}
+    res["cpu_check_labels"] = IN_VAL
+    log(f"ImageNet-1k extrinsic clustering: {json.dumps(res)}")
+    return res
+
+
+def _blob_embeddings(g: torch.Generator, n: int, k: int):
+    """(n, 2048) ReLU features around ``k`` cluster centres on the card, and their labels."""
+    centres = 0.5 * torch.randn(k, EMBED_DIM, generator=g, device="cuda")
+    labels = torch.randint(0, k, (n,), generator=g, device="cuda")
+    return torch.relu(centres[labels] + torch.randn(n, EMBED_DIM, generator=g, device="cuda")), labels
+
+
+def embedding_clustering(seed: int) -> dict:
+    """Calinski-Harabasz, Davies-Bouldin and Dunn (p = 2 and p = 1) over 50,000 ResNet-50-wide embeddings with
+    1,000 labels, updates of 10,000; each compute timed with its peak memory. CPU check: 5,000 embeddings with
+    100 labels through the same metrics."""
+    from metrics_tpu_torch import clustering as tcl
+
+    def make(device):
+        return {"CalinskiHarabaszScore": tcl.CalinskiHarabaszScore(device=device),
+                "DaviesBouldinScore": tcl.DaviesBouldinScore(device=device),
+                "DunnIndex[p=2]": tcl.DunnIndex(p=2.0, device=device),
+                "DunnIndex[p=1]": tcl.DunnIndex(p=1.0, device=device)}
+
+    g = _generator(seed + 32)
+    data, labels = _blob_embeddings(g, EMBED_N, EMBED_K)
+    gpu = make("cuda")
+    res = {"embeddings": EMBED_N, "dim": EMBED_DIM, "clusters": EMBED_K, "update_ms": {}, "compute_ms": {},
+           "peak_device_mb": {}, "values": {}}
+    for name, metric in gpu.items():
+        res["update_ms"][name] = _updates_timed(metric, [(data[i:i + EMBED_UPDATE], labels[i:i + EMBED_UPDATE])
+                                                         for i in range(0, EMBED_N, EMBED_UPDATE)])
+        base = _reset_peak()
+        value, res["compute_ms"][name] = _timed(metric.compute)
+        res["peak_device_mb"][name] = _peak_mb(base)
+        if not bool(torch.isfinite(value)) or float(value) <= 0:
+            fail(f"embedding clustering {name}: {float(value)}")
+        res["values"][name] = float(value)
+    del data, labels, gpu
+    data, labels = _blob_embeddings(g, EMBED_CPU_N, EMBED_CPU_K)
+    gpu, cpu = make("cuda"), make("cpu")
+    res["max_abs_diff_vs_cpu"] = {}
+    for name in gpu:
+        gpu[name].update(data, labels)
+        cpu[name].update(data.cpu(), labels.cpu())
+        res["max_abs_diff_vs_cpu"][name] = _agree(f"embedding clustering {name}", gpu[name].compute(),
+                                                  cpu[name].compute(), False, INTRINSIC_RTOL, 0.0)
+    log(f"ResNet-50 embedding clustering: {json.dumps(res)}")
+    return res
+
+
+def adult_table(g: torch.Generator, n: int) -> torch.Tensor:
+    """(n, 9) float32 codes of UCI Adult's categorical columns at their cardinalities, each tied in part to a
+    shared latent (education, occupation and income move together), 1 % of the cells NaN."""
+    latent = torch.randn(n, generator=g, device="cuda")
+    cols = []
+    for i, k in enumerate(ADULT_CARDS.values()):
+        weight = 0.3 + 0.1 * (i % 5)
+        mixed = weight * latent + (1 - weight) * torch.randn(n, generator=g, device="cuda")
+        cols.append(torch.clamp(((mixed + 2.5) / 5 * k).floor(), 0, k - 1))
+    table = torch.stack(cols, dim=1)
+    table[torch.rand(table.shape, generator=g, device="cuda") < ADULT_NAN] = float("nan")
+    return table
+
+
+NOMINAL_MATRICES = ("cramers_v_matrix", "tschuprows_t_matrix", "pearsons_contingency_coefficient_matrix",
+                    "theils_u_matrix")
+
+
+def adult_nominal(seed: int) -> dict:
+    """The four ``*_matrix`` functions over 2^20 rows of Adult's nine categorical columns under both
+    ``nan_strategy``s, and the four classes on (occupation, income) in updates of 2^18; each timed. CPU check:
+    the first 2^16 rows through the same functions and classes."""
+    import warnings
+
+    from metrics_tpu_torch import functional as tf
+    from metrics_tpu_torch import nominal as tno
+
+    g = _generator(seed + 33)
+    table = adult_table(g, ADULT_ROWS)
+    small, small_cpu = table[:ADULT_CPU_ROWS], table[:ADULT_CPU_ROWS].cpu()
+    res = {"rows": ADULT_ROWS, "columns": list(ADULT_CARDS), "ms": {}, "peak_device_mb": {}, "max_abs_diff_vs_cpu": {},
+           "values": {}}
+    occ, inc = list(ADULT_CARDS).index("occupation"), list(ADULT_CARDS).index("income")
+    with warnings.catch_warnings():
+        # a NaN from a zero bias-corrected denominator fails the path
+        warnings.filterwarnings("error", message="Unable to compute Cramer's V")
+        for name in NOMINAL_MATRICES:
+            fn = getattr(tf, name)
+            for strategy in ("replace", "drop"):
+                key = f"{name}[{strategy}]"
+                base = _reset_peak()
+                got, res["ms"][key] = _timed(lambda: fn(table, nan_strategy=strategy))
+                res["peak_device_mb"][key] = _peak_mb(base)
+                if tuple(got.shape) != (9, 9) or not bool(torch.isfinite(got).all()):
+                    fail(f"Adult {key}: shape {tuple(got.shape)} or non-finite values")
+                res["values"][key] = float(got[occ, inc])
+                res["max_abs_diff_vs_cpu"][key] = _agree(f"Adult {key}", fn(small, nan_strategy=strategy),
+                                                         fn(small_cpu, nan_strategy=strategy), False, NOMINAL_RTOL,
+                                                         NOMINAL_ATOL)
+        classes = {"CramersV": {"num_classes": 15}, "CramersV[drop]": {"num_classes": 15, "nan_strategy": "drop"},
+                   "TschuprowsT": {"num_classes": 15}, "PearsonsContingencyCoefficient": {"num_classes": 15},
+                   "TheilsU": {"num_classes": 15}}
+        for key, kw in classes.items():
+            cls = getattr(tno, key.split("[")[0])
+            gpu = cls(device="cuda", **kw)
+            res["ms"][f"{key} updates"] = _updates_timed(gpu, [(table[i:i + ADULT_UPDATE, occ],
+                                                                 table[i:i + ADULT_UPDATE, inc])
+                                                                for i in range(0, ADULT_ROWS, ADULT_UPDATE)])
+            value, res["ms"][f"{key} compute"] = _timed(gpu.compute)
+            res["values"][key] = float(value)
+            part, cpu = cls(device="cuda", **kw), cls(device="cpu", **kw)
+            part.update(small[:, occ], small[:, inc])
+            cpu.update(small_cpu[:, occ], small_cpu[:, inc])
+            res["max_abs_diff_vs_cpu"][key] = _agree(f"Adult {key}", part.compute(), cpu.compute(), False,
+                                                     NOMINAL_RTOL, NOMINAL_ATOL)
+    log(f"UCI Adult nominal association: {json.dumps(res)}")
+    return res
+
+
+def cifar10h_fleiss(seed: int) -> dict:
+    """Fleiss' kappa over 10,000 images x 10 classes x 50 ratings: counts mode in one update, probs mode on
+    (10,000, 10, 50) in updates of 1,000. Each rater votes for the image's class with the image's reliability
+    (uniform in [0.5, 1]) and uniformly otherwise; the probabilities put each rater's maximum on its vote. Both
+    modes equal the single stream of the same votes; CPU check: both modes over the same ratings."""
+    from metrics_tpu_torch.functional.nominal import fleiss_kappa
+    from metrics_tpu_torch.nominal import FleissKappa
+
+    g = _generator(seed + 34)
+    n, k, r = C10H_IMAGES, C10H_CLASSES, C10H_RATERS
+    true = torch.randint(0, k, (n, 1), generator=g, device="cuda")
+    reliable = torch.rand((n, r), generator=g, device="cuda") < (0.5 + 0.5 * torch.rand((n, 1), generator=g,
+                                                                                       device="cuda"))
+    votes = torch.where(reliable, true, torch.randint(0, k, (n, r), generator=g, device="cuda"))
+    counts = torch.zeros((n, k), device="cuda").scatter_add_(1, votes, torch.ones((n, r), device="cuda"))
+    noise = torch.rand((n, k, r), generator=g, device="cuda")
+    probs = torch.softmax(noise + 4.0 * F.one_hot(votes, k).transpose(1, 2), dim=1)
+    res = {"images": n, "classes": k, "raters": r}
+    base = _reset_peak()
+    counts_metric, probs_metric = FleissKappa(mode="counts", device="cuda"), FleissKappa(mode="probs", device="cuda")
+    res["counts"] = _updates_timed(counts_metric, [(counts,)])
+    res["probs"] = _updates_timed(probs_metric, [(probs[i:i + C10H_UPDATE],) for i in range(0, n, C10H_UPDATE)])
+    got_counts, res["counts"]["compute_ms"] = _timed(counts_metric.compute)
+    got_probs, res["probs"]["compute_ms"] = _timed(probs_metric.compute)
+    res["peak_device_mb"] = _peak_mb(base)
+    single = fleiss_kappa(probs, "probs")
+    if not (torch.equal(got_probs, single) and torch.equal(got_counts, fleiss_kappa(counts, "counts"))
+            and torch.equal(got_probs, got_counts)):
+        fail(f"Fleiss kappa: probs stream {float(got_probs)}, single {float(single)}, counts {float(got_counts)}")
+    res["value"] = float(got_probs)
+    if not 0.0 < res["value"] < 1.0:
+        fail(f"Fleiss kappa {res['value']} outside (0, 1)")
+    res["max_abs_diff_vs_cpu"] = max(
+        _agree("Fleiss kappa counts", got_counts, fleiss_kappa(counts.cpu(), "counts"), False, NOMINAL_RTOL, 0.0),
+        _agree("Fleiss kappa probs", got_probs, fleiss_kappa(probs.cpu(), "probs"), False, NOMINAL_RTOL, 0.0))
+    log(f"CIFAR-10H Fleiss kappa: {json.dumps(res)}")
+    return res
+
+
+def pose_pairs(g: torch.Generator, n: int):
+    """(predicted, ground-truth) poses of 17 joints x 3 on the card: the ground truth in metres about the
+    pelvis, the prediction that pose rotated, scaled by 0.8-1.2, moved and noised by 2 cm; one pose in 64 is
+    degenerate (every predicted joint at one point of quarter-integer coordinates)."""
+    gt = 0.3 * torch.randn((n, POSE_JOINTS, 3), generator=g, device="cuda")
+    q, rr = torch.linalg.qr(torch.randn((n, 3, 3), generator=g, device="cuda"))
+    rot = q * torch.sign(torch.diagonal(rr, dim1=1, dim2=2))[:, None, :]
+    scale = 0.8 + 0.4 * torch.rand((n, 1, 1), generator=g, device="cuda")
+    move = torch.randn((n, 1, 3), generator=g, device="cuda")
+    pred = scale * gt @ rot.transpose(1, 2) + move + 0.02 * torch.randn(gt.shape, generator=g, device="cuda")
+    point = torch.randint(-8, 8, (n, 1, 3), generator=g, device="cuda") / 4
+    degenerate = torch.arange(n, device="cuda") % POSE_DEGENERATE_EVERY == 0
+    pred = torch.where(degenerate[:, None, None], point.expand_as(pred), pred)
+    return pred, gt, degenerate
+
+
+def pose_procrustes(seed: int) -> dict:
+    """``ProcrustesDisparity`` over 2^17 poses in updates of 1,024, and ``procrustes_disparity(return_all=True)``
+    on one update; the synchronizations ``torch.linalg.svd`` makes, counted by CUDA's sync debug mode. CPU check:
+    the first 4,096 poses."""
+    import warnings
+
+    from metrics_tpu_torch.functional.shape import procrustes_disparity
+    from metrics_tpu_torch.shape import ProcrustesDisparity
+
+    g = _generator(seed + 35)
+    pred, gt, degenerate = pose_pairs(g, POSE_N)
+    gpu = ProcrustesDisparity(device="cuda")
+    base = _reset_peak()
+    res = _updates_timed(gpu, [(pred[i:i + POSE_UPDATE], gt[i:i + POSE_UPDATE]) for i in range(0, POSE_N, POSE_UPDATE)])
+    value, res["compute_ms"] = _timed(gpu.compute)
+    res["peak_device_mb"] = _peak_mb(base)
+    res.update({"poses": POSE_N, "joints": POSE_JOINTS, "value": float(value), "degenerate": int(degenerate.sum())})
+    b = slice(0, POSE_UPDATE)
+    (d, s, rot), res["return_all_ms"] = _timed(lambda: procrustes_disparity(pred[b], gt[b], return_all=True))
+    eye = torch.eye(3, device="cuda")
+    deg = degenerate[b]
+    if not (bool((d[deg] == 0).all()) and bool((s[deg] == 1).all()) and bool((rot[deg] == eye).all())
+            and bool((d[~deg] < 0.05).all()) and bool(torch.isfinite(rot).all())):
+        fail("Procrustes: degenerate poses not guarded, or a fit beyond the noise")
+
+    def syncs(fn):
+        """The synchronizations CUDA's sync debug mode reports during ``fn()``."""
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+    res["host_syncs_per_procrustes_call"] = syncs(lambda: procrustes_disparity(pred[b], gt[b]))
+    svd_input = torch.randn((POSE_UPDATE, 3, 3), device="cuda")
+    res["host_syncs_per_svd_call"] = syncs(lambda: torch.linalg.svd(svd_input, full_matrices=False))
+    part, cpu = ProcrustesDisparity(device="cuda"), ProcrustesDisparity(device="cpu")
+    for i in range(0, POSE_CPU_N, POSE_UPDATE):
+        part.update(pred[i:i + POSE_UPDATE], gt[i:i + POSE_UPDATE])
+        cpu.update(pred[i:i + POSE_UPDATE].cpu(), gt[i:i + POSE_UPDATE].cpu())
+    want = procrustes_disparity(pred[b].cpu(), gt[b].cpu(), return_all=True)
+    res["max_abs_diff_vs_cpu"] = {
+        "mean_disparity": _agree("Procrustes mean", part.compute(), cpu.compute(), False, PROCRUSTES_RTOL, 0.0),
+        "disparity": _agree("Procrustes disparity", d, want[0], False, PROCRUSTES_RTOL, 1e-7),
+        "scale": _agree("Procrustes scale", s, want[1], False, PROCRUSTES_RTOL, 0.0),
+        "rotation": _agree("Procrustes rotation", rot, want[2], False, 0.0, ROTATION_ATOL)}
+    log(f"Human3.6M-sized Procrustes: {json.dumps(res)}")
+    return res
+
+
+def runtime_leftovers(seed: int) -> dict:
+    """``to_device`` card -> CPU -> card between updates against the single stream on the card (a list-state and
+    a sum-state metric); ``state_fingerprint`` of a card metric and its CPU twin; the forward-state check on the
+    card; ``plot()``, which draws where matplotlib is installed and raises the JAX package's error where not."""
+    import contextlib
+    import io
+
+    from metrics_tpu_torch.clustering import MutualInfoScore
+    from metrics_tpu_torch.regression import MeanSquaredError
+    from metrics_tpu_torch.utils import plot as tplot
+    from metrics_tpu_torch.utils.checks import check_forward_full_state_property
+
+    g = _generator(seed + 36)
+    batches = [(torch.randint(0, 50, (1 << 16,), generator=g, device="cuda"),
+                torch.randint(0, 40, (1 << 16,), generator=g, device="cuda")) for _ in range(4)]
+    res = {"to_device_ms": []}
+    moved, single, twin = MutualInfoScore(device="cuda"), MutualInfoScore(device="cuda"), MutualInfoScore(device="cpu")
+    mse_moved, mse_single = MeanSquaredError(device="cuda"), MeanSquaredError(device="cuda")
+    for i, (p, t) in enumerate(batches):
+        moved.update(p.to(moved.device), t.to(moved.device))
+        mse_moved.update(p.float().to(mse_moved.device), t.float().to(mse_moved.device))
+        single.update(p, t)
+        mse_single.update(p.float(), t.float())
+        twin.update(p.cpu(), t.cpu())
+        if i in (0, 2):
+            dest = "cpu" if i == 0 else "cuda"
+            _, ms = _timed(lambda: (moved.to_device(dest), mse_moved.to_device(dest)))
+            res["to_device_ms"].append(ms)
+    if moved.device.type != "cuda" or any(v.device.type != "cuda" for v in moved.preds + moved.target):
+        fail("to_device: the metric's states did not come back to the card")
+    if not torch.equal(moved.compute(), single.compute()):
+        fail("to_device: the moved metric differs from the single stream")
+    res["mse_abs_diff_vs_single"] = _agree("to_device MSE", mse_moved.compute(), mse_single.compute().cpu(), False,
+                                           1e-6, 0.0)
+    digests = {single.state_fingerprint(), twin.state_fingerprint(), moved.state_fingerprint()}
+    if len(digests) != 1:
+        fail("state_fingerprint: the card metric, its CPU twin and the moved metric differ")
+    res["fingerprint"] = digests.pop()
+    x, y = torch.rand(1 << 16, generator=g, device="cuda"), torch.rand(1 << 16, generator=g, device="cuda")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        (res["forward_check_partial_state_ok"], res["forward_check_ms"]) = _timed(
+            lambda: check_forward_full_state_property(MeanSquaredError, {"device": "cuda"}, {"preds": x, "target": y},
+                                                      num_update_to_compare=(10, 100), reps=2))
+    res["forward_check_printed"] = printed.getvalue().strip().splitlines()
+    if not res["forward_check_printed"][-1].startswith("Recommended setting `full_state_update="):
+        fail(f"forward-state check: {res['forward_check_printed']}")
+    if tplot._MATPLOTLIB_AVAILABLE:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        fig, ax = single.plot()
+        if not ax.get_lines():
+            fail("plot: nothing drawn")
+        res["plot"] = "drawn (matplotlib installed)"
+    else:
+        try:
+            single.plot()
+        except ModuleNotFoundError as err:
+            if str(err) != MATPLOTLIB_ERROR:
+                fail(f"plot without matplotlib raised {err!r}")
+            res["plot"] = "raised the missing-matplotlib error"
+        else:
+            fail("plot without matplotlib did not raise")
+    log(f"runtime leftovers: {json.dumps(res)}")
+    return res
+
 
 
 # ----------------------------------------------------------------------------- phase 5

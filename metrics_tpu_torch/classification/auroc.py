@@ -10,7 +10,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -43,6 +43,8 @@ class BinaryAUROC(BinaryPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -75,6 +77,9 @@ class MulticlassAUROC(MulticlassPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(
         self,
@@ -104,6 +109,9 @@ class MultilabelAUROC(MultilabelPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(
         self,
@@ -163,3 +171,6 @@ class AUROC(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
             return MultilabelAUROC(num_labels, average, **kwargs)
         raise ValueError(f"Not handled value: {task}")
+
+
+_plot_as_scalar(BinaryAUROC, MulticlassAUROC, MultilabelAUROC)

@@ -10,7 +10,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -42,6 +42,8 @@ class BinaryAveragePrecision(BinaryPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def compute(self) -> Tensor:
         """The average precision."""
@@ -60,6 +62,9 @@ class MulticlassAveragePrecision(MulticlassPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(
         self,
@@ -89,6 +94,9 @@ class MultilabelAveragePrecision(MultilabelPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(
         self,
@@ -147,3 +155,6 @@ class AveragePrecision(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
             return MultilabelAveragePrecision(num_labels, average, **kwargs)
         raise ValueError(f"Not handled value: {task}")
+
+
+_plot_as_scalar(BinaryAveragePrecision, MulticlassAveragePrecision, MultilabelAveragePrecision)

@@ -20,3 +20,10 @@ class _ClassificationTaskWrapper(Metric):
     def compute(self) -> None:
         """Unreachable: ``__new__`` returns a task class."""
         raise NotImplementedError(f"{self.__class__.__name__} metric does not have a compute method.")
+
+
+def _plot_as_scalar(*classes: type) -> None:
+    """Give back the generic value plot to scalar metrics that inherit the curve or confusion-matrix classes for
+    their states (AUROC, average precision, Jaccard, ...), as the JAX package does."""
+    for cls in classes:
+        cls.plot = Metric.plot

@@ -46,6 +46,8 @@ class BinaryCalibrationError(Metric):
     full_state_update = False
     confidences: List[Tensor]
     accuracies: List[Tensor]
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -91,6 +93,8 @@ class MulticlassCalibrationError(Metric):
     full_state_update = False
     confidences: List[Tensor]
     accuracies: List[Tensor]
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -9,7 +9,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.confusion_matrix import BinaryConfusionMatrix, MulticlassConfusionMatrix
 from metrics_tpu_torch.functional.classification.cohen_kappa import _cohen_kappa_reduce
 from metrics_tpu_torch.metric import Metric
@@ -32,6 +32,8 @@ class BinaryCohenKappa(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -69,6 +71,8 @@ class MulticlassCohenKappa(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -123,3 +127,6 @@ class CohenKappa(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_classes` is expected to be `int` but `{type(num_classes)}` was passed.")
             return MulticlassCohenKappa(num_classes, **kwargs)
         raise ValueError(f"Not handled value: {task}")
+
+
+_plot_as_scalar(BinaryCohenKappa, MulticlassCohenKappa)

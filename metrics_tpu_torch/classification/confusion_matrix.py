@@ -32,6 +32,17 @@ from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.enums import ClassificationTask
 
 
+def _confusion_matrix_plot(self, val=None, ax=None, add_text: bool = True, labels=None, cmap=None):
+    """Draw the confusion matrix (``compute()`` when ``val`` is None) as a heatmap, each cell's count written
+    in it unless ``add_text`` is False, the ticks named by ``labels``; needs matplotlib."""
+    from metrics_tpu_torch.utils.plot import _to_host, plot_confusion_matrix
+
+    val = _to_host(val if val is not None else self.compute())
+    if val.ndim not in (2, 3):
+        raise ValueError(f"Expected a (C, C) or (L, 2, 2) confusion matrix to plot, got shape {val.shape}")
+    return plot_confusion_matrix(val, ax=ax, add_text=add_text, labels=labels, cmap=cmap)
+
+
 class BinaryConfusionMatrix(Metric):
     """Compute the confusion matrix for binary tasks.
 
@@ -77,6 +88,8 @@ class BinaryConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """Compute confusion matrix."""
         return _binary_confusion_matrix_compute(self.confmat, self.normalize)
+
+    plot = _confusion_matrix_plot
 
 
 class MulticlassConfusionMatrix(Metric):
@@ -125,6 +138,8 @@ class MulticlassConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """Compute confusion matrix."""
         return _multiclass_confusion_matrix_compute(self.confmat, self.normalize)
+
+    plot = _confusion_matrix_plot
 
 
 class MultilabelConfusionMatrix(Metric):
@@ -182,6 +197,8 @@ class MultilabelConfusionMatrix(Metric):
     def compute(self) -> Tensor:
         """Compute confusion matrix."""
         return _multilabel_confusion_matrix_compute(self.confmat, self.normalize)
+
+    plot = _confusion_matrix_plot
 
 
 class ConfusionMatrix(_ClassificationTaskWrapper):

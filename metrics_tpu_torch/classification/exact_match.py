@@ -69,6 +69,8 @@ class MulticlassExactMatch(_AbstractExactMatch):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -117,6 +119,8 @@ class MultilabelExactMatch(_AbstractExactMatch):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -30,6 +30,8 @@ class BinaryFBetaScore(BinaryStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -77,6 +79,9 @@ class MulticlassFBetaScore(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(
         self,
@@ -120,6 +125,9 @@ class MultilabelFBetaScore(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(
         self,

@@ -29,6 +29,8 @@ class BinaryHammingDistance(BinaryStatScores):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def compute(self) -> Tensor:
         """Compute metric."""
@@ -42,6 +44,9 @@ class MulticlassHammingDistance(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def compute(self) -> Tensor:
         """Compute metric."""
@@ -55,6 +60,9 @@ class MultilabelHammingDistance(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def compute(self) -> Tensor:
         """Compute metric."""

@@ -44,6 +44,7 @@ class BinaryHingeLoss(Metric):
     full_state_update = False
     measures: Tensor
     total: Tensor
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -85,6 +86,7 @@ class MulticlassHingeLoss(Metric):
     full_state_update = False
     measures: Tensor
     total: Tensor
+    plot_lower_bound = 0.0
 
     def __init__(
         self,

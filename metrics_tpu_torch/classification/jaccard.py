@@ -9,7 +9,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     MulticlassConfusionMatrix,
@@ -36,6 +36,8 @@ class BinaryJaccardIndex(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -69,6 +71,9 @@ class MulticlassJaccardIndex(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(
         self,
@@ -110,6 +115,9 @@ class MultilabelJaccardIndex(MultilabelConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(
         self,
@@ -178,3 +186,6 @@ class JaccardIndex(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
             return MultilabelJaccardIndex(num_labels, threshold, average, **kwargs)
         raise ValueError(f"Not handled value: {task}")
+
+
+_plot_as_scalar(BinaryJaccardIndex, MulticlassJaccardIndex, MultilabelJaccardIndex)

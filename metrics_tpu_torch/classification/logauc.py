@@ -10,7 +10,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -45,6 +45,8 @@ class BinaryLogAUC(BinaryPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -72,6 +74,9 @@ class MulticlassLogAUC(MulticlassPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def __init__(
         self,
@@ -104,6 +109,9 @@ class MultilabelLogAUC(MultilabelPrecisionRecallCurve):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def __init__(
         self,
@@ -156,3 +164,6 @@ class LogAUC(_ClassificationTaskWrapper):
         if not isinstance(num_labels, int):
             raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
         return MultilabelLogAUC(num_labels, fpr_range=fpr_range, average=average, **kwargs)
+
+
+_plot_as_scalar(BinaryLogAUC, MulticlassLogAUC, MultilabelLogAUC)

@@ -9,7 +9,7 @@ from typing import Any, Optional
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     MulticlassConfusionMatrix,
@@ -36,6 +36,8 @@ class BinaryMatthewsCorrCoef(BinaryConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -67,6 +69,8 @@ class MulticlassMatthewsCorrCoef(MulticlassConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -90,6 +94,8 @@ class MultilabelMatthewsCorrCoef(MultilabelConfusionMatrix):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -148,3 +154,6 @@ class MatthewsCorrCoef(_ClassificationTaskWrapper):
                 raise ValueError(f"`num_labels` is expected to be `int` but `{type(num_labels)}` was passed.")
             return MultilabelMatthewsCorrCoef(num_labels, threshold, **kwargs)
         raise ValueError(f"Not handled value: {task}")
+
+
+_plot_as_scalar(BinaryMatthewsCorrCoef, MulticlassMatthewsCorrCoef, MultilabelMatthewsCorrCoef)

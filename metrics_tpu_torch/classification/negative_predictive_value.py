@@ -32,6 +32,8 @@ class BinaryNegativePredictiveValue(BinaryStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def compute(self) -> Tensor:
         """Compute metric."""
@@ -47,6 +49,9 @@ class MulticlassNegativePredictiveValue(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Class"
 
     def compute(self) -> Tensor:
         """Compute metric."""
@@ -62,6 +67,9 @@ class MultilabelNegativePredictiveValue(MultilabelStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
+    plot_legend_name = "Label"
 
     def compute(self) -> Tensor:
         """Compute metric."""

@@ -25,6 +25,8 @@ class _PrecisionRecallMixin:
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, *args: Any, zero_division: float = 0, **kwargs: Any) -> None:
         super().__init__(*args, **kwargs)
@@ -65,6 +67,7 @@ class MulticlassPrecision(_PrecisionRecallMixin, MulticlassStatScores):
     """
 
     _stat = "precision"
+    plot_legend_name = "Class"
 
     def compute(self) -> Tensor:
         """Compute metric."""
@@ -79,6 +82,7 @@ class MultilabelPrecision(_PrecisionRecallMixin, MultilabelStatScores):
     """Compute Precision for multilabel tasks."""
 
     _stat = "precision"
+    plot_legend_name = "Label"
 
     def compute(self) -> Tensor:
         """Compute metric."""

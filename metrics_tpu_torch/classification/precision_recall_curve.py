@@ -38,6 +38,30 @@ from metrics_tpu_torch.utils.enums import ClassificationTask
 Tensor = torch.Tensor
 
 
+def _curve_family_plot(self, curve=None, score=None, ax=None, *, swap_xy, label_names, auc_direction):
+    """Draw the curve (``compute()`` when ``curve`` is None); with ``score=True`` a single computed curve is
+    annotated with the trapezoidal area under it; needs matplotlib."""
+    from metrics_tpu_torch.utils.compute import _auc_compute_without_check
+    from metrics_tpu_torch.utils.plot import plot_curve
+
+    computed = curve if curve is not None else self.compute()
+    if swap_xy:  # recall along x, precision along y
+        computed = (computed[1], computed[0]) + tuple(computed[2:])
+    auc_score = None
+    if curve is None and score is True:
+        x, y = computed[0], computed[1]
+        if not isinstance(x, (list, tuple)) and x.ndim == 1:
+            auc_score = _auc_compute_without_check(x, y, auc_direction)
+    return plot_curve(computed, score=auc_score, ax=ax, label_names=label_names, name=self.__class__.__name__)
+
+
+def _precision_recall_curve_plot(self, curve=None, score=None, ax=None):
+    """Draw the precision-recall curve; see :func:`_curve_family_plot`."""
+    return _curve_family_plot(
+        self, curve, score, ax, swap_xy=True, label_names=("Recall", "Precision"), auc_direction=-1.0
+    )
+
+
 class _CurveStates(Metric):
     """The two state layouts of the curve metrics."""
 
@@ -102,6 +126,8 @@ class BinaryPrecisionRecallCurve(_CurveStates):
         """Precision, recall and thresholds."""
         return _binary_precision_recall_curve_compute(self._final_state(), self.thresholds)
 
+    plot = _precision_recall_curve_plot
+
 
 class MulticlassPrecisionRecallCurve(_CurveStates):
     """Precision-recall curve for multiclass tasks (one-vs-rest per class)."""
@@ -144,6 +170,8 @@ class MulticlassPrecisionRecallCurve(_CurveStates):
         return _multiclass_precision_recall_curve_compute(
             self._final_state(), self.num_classes, self.thresholds, self.average
         )
+
+    plot = _precision_recall_curve_plot
 
 
 class MultilabelPrecisionRecallCurve(_CurveStates):
@@ -194,6 +222,8 @@ class MultilabelPrecisionRecallCurve(_CurveStates):
         return _multilabel_precision_recall_curve_compute(
             self._final_state(), self.num_labels, self.thresholds, self.ignore_index
         )
+
+    plot = _precision_recall_curve_plot
 
 
 class PrecisionRecallCurve(_ClassificationTaskWrapper):

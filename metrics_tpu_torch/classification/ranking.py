@@ -30,6 +30,7 @@ class _MultilabelRankingBase(Metric):
     total: Tensor
 
     _update_fn = None  # set by subclasses
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -95,6 +96,7 @@ class MultilabelRankingAveragePrecision(_MultilabelRankingBase):
 
     higher_is_better = True
     _update_fn = staticmethod(_multilabel_ranking_average_precision_update)
+    plot_upper_bound = 1.0
 
 
 class MultilabelRankingLoss(_MultilabelRankingBase):

@@ -11,6 +11,7 @@ import torch
 
 from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
 from metrics_tpu_torch.classification.precision_recall_curve import (
+    _curve_family_plot,
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
@@ -27,6 +28,16 @@ from metrics_tpu_torch.utils.enums import ClassificationTask
 Tensor = torch.Tensor
 
 
+def _roc_plot(self, curve=None, score=None, ax=None):
+    """Draw the ROC curve: false positive rate along x, true positive rate along y."""
+    return _curve_family_plot(
+        self, curve, score, ax,
+        swap_xy=False,
+        label_names=("False positive rate", "True positive rate"),
+        auc_direction=1.0,
+    )
+
+
 class BinaryROC(BinaryPrecisionRecallCurve):
     """ROC curve for binary tasks.
 
@@ -41,6 +52,8 @@ class BinaryROC(BinaryPrecisionRecallCurve):
         """fpr, tpr and thresholds."""
         return _binary_roc_compute(self._final_state(), self.thresholds)
 
+    plot = _roc_plot
+
 
 class MulticlassROC(MulticlassPrecisionRecallCurve):
     """ROC curve for multiclass tasks (one-vs-rest per class)."""
@@ -49,6 +62,8 @@ class MulticlassROC(MulticlassPrecisionRecallCurve):
         """Per-class fpr, tpr and thresholds (or their average)."""
         return _multiclass_roc_compute(self._final_state(), self.num_classes, self.thresholds, self.average)
 
+    plot = _roc_plot
+
 
 class MultilabelROC(MultilabelPrecisionRecallCurve):
     """ROC curve for multilabel tasks (one curve per label)."""
@@ -56,6 +71,8 @@ class MultilabelROC(MultilabelPrecisionRecallCurve):
     def compute(self) -> Union[Tuple[Tensor, Tensor, Tensor], Tuple[List[Tensor], List[Tensor], List[Tensor]]]:
         """Per-label fpr, tpr and thresholds."""
         return _multilabel_roc_compute(self._final_state(), self.num_labels, self.thresholds, self.ignore_index)
+
+    plot = _roc_plot
 
 
 class ROC(_ClassificationTaskWrapper):

@@ -10,7 +10,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper
+from metrics_tpu_torch.classification.base import _ClassificationTaskWrapper, _plot_as_scalar
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -139,3 +139,6 @@ class SpecificityAtSensitivity(_ClassificationTaskWrapper):
         return MultilabelSpecificityAtSensitivity(
             num_labels, min_sensitivity, thresholds, ignore_index, validate_args, **kwargs
         )
+
+
+_plot_as_scalar(BinarySpecificityAtSensitivity, MulticlassSpecificityAtSensitivity, MultilabelSpecificityAtSensitivity)

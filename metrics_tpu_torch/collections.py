@@ -345,6 +345,49 @@ class MetricCollection:
         """Each metric's result, in one flat dict (each metric syncs inside its own ``compute``)."""
         return self._flatten_results({k: m.compute() for k, m in self._modules.items()})
 
+    def plot(self, val: Any = None, ax: Any = None, together: bool = False):
+        """Plot each metric's value: one figure per metric, or all on one axis (``together``).
+
+        Args:
+            val: a ``compute()``/``forward()`` result dict, or a list of them (one per step);
+                defaults to ``compute()``.
+            ax: with ``together=True`` a single matplotlib axis; otherwise a sequence of
+                axes, one per metric.
+            together: plot all metrics onto one shared axis instead of one figure each.
+
+        Returns:
+            ``(fig, ax)`` when ``together`` else a list of per-metric ``(fig, ax)`` pairs.
+        """
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        if not isinstance(together, bool):
+            raise ValueError(f"Expected argument `together` to be a boolean, but got {type(together)}")
+        if ax is not None:
+            import matplotlib.axes
+
+            if together and not isinstance(ax, matplotlib.axes.Axes):
+                raise ValueError(
+                    f"Expected argument `ax` to be a matplotlib axis object, but got {type(ax)} when `together=True`"
+                )
+            if not together and not (isinstance(ax, Sequence) and len(ax) == len(self)):
+                raise ValueError(
+                    "Expected argument `ax` to be a sequence of matplotlib axis objects of the same "
+                    f"length as the number of metrics in the collection, but got {type(ax)} when `together=False`"
+                )
+        val = val if val is not None else self.compute()
+        if together:
+            return plot_single_or_multi_val(val, ax=ax)
+        fig_axs = []
+        for i, (k, m) in enumerate(self.items()):
+            if isinstance(val, dict):
+                f, a = m.plot(val[k], ax=ax[i] if ax is not None else None)
+            elif isinstance(val, Sequence):
+                f, a = m.plot([v[k] for v in val], ax=ax[i] if ax is not None else None)
+            else:
+                raise TypeError(f"Expected argument `val` to be None, a dict, or a sequence of dicts, got {type(val)}")
+            fig_axs.append((f, a))
+        return fig_axs
+
     def functional(self) -> CollectionFunctions:
         """Pure ``(init, update, compute)`` over the whole collection.
 

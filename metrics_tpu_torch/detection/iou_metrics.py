@@ -49,6 +49,8 @@ class IntersectionOverUnion(Metric):
     _iou_fn = staticmethod(intersection_over_union)
     _iou_type: str = "iou"
     _invalid_val: float = -1.0
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -119,6 +121,7 @@ class GeneralizedIntersectionOverUnion(IntersectionOverUnion):
 
     _iou_fn = staticmethod(generalized_intersection_over_union)
     _iou_type = "giou"
+    plot_lower_bound = -1.0
 
 
 class DistanceIntersectionOverUnion(IntersectionOverUnion):
@@ -126,6 +129,7 @@ class DistanceIntersectionOverUnion(IntersectionOverUnion):
 
     _iou_fn = staticmethod(distance_intersection_over_union)
     _iou_type = "diou"
+    plot_lower_bound = -1.0
 
 
 class CompleteIntersectionOverUnion(IntersectionOverUnion):
@@ -133,3 +137,4 @@ class CompleteIntersectionOverUnion(IntersectionOverUnion):
 
     _iou_fn = staticmethod(complete_intersection_over_union)
     _iou_type = "ciou"
+    plot_lower_bound = -1.0

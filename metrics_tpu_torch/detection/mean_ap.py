@@ -101,6 +101,8 @@ class MeanAveragePrecision(Metric):
     full_state_update = True
     # the list states hold host numpy arrays, None areas and lists of RLE objects, not tensors
     _host_list_states = True
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

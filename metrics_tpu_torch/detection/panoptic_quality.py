@@ -108,6 +108,8 @@ class PanopticQuality(Metric):
     higher_is_better = True
     full_state_update = False
     _modified = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -51,6 +51,7 @@ class PeakSignalNoiseRatio(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(
         self,
@@ -127,6 +128,8 @@ class StructuralSimilarityIndexMeasure(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -208,6 +211,8 @@ class MultiScaleStructuralSimilarityIndexMeasure(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

@@ -20,6 +20,7 @@ leader's tensors on the same rule.
 from __future__ import annotations
 
 import copy
+import hashlib
 import inspect
 import operator
 import types
@@ -27,6 +28,7 @@ from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Union
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.utils.data import _flatten, dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
@@ -117,6 +119,9 @@ class Metric(ABC):
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
         object.__setattr__(self, "_defaults", {})
@@ -729,6 +734,21 @@ class Metric(ABC):
         self._computed = None
         return self
 
+    def to_device(self, device: Union[str, torch.device]) -> "Metric":
+        """Move every state, list states included, and every default to ``device``, which becomes the metric's:
+        later updates and ``compute`` run there. List states that ``compute_on_cpu`` keeps on the CPU stay there.
+        Returns ``self``."""
+        device = resolve_device(device)
+        for key in ("_state", "_defaults"):
+            store = self.__dict__[key]
+            for k, v in store.items():
+                if key == "_state" and isinstance(v, list) and self.compute_on_cpu:
+                    continue
+                store[k] = _map_tensors(v, lambda t: t.to(device))
+        self.device = device
+        self._computed = None
+        return self
+
     def type(self, dst_type: torch.dtype) -> "Metric":
         return self.set_dtype(dst_type)
 
@@ -743,6 +763,42 @@ class Metric(ABC):
         return self.set_dtype(torch.bfloat16)
 
     # ------------------------------------------------------------------ misc API
+    def state_fingerprint(self) -> str:
+        """Content digest of the live state: the class name, the update count, and each state in sorted name
+        order with its length (a tensor counts as a list of one), and each tensor's numpy ``dtype.str``, shape
+        and host bytes.
+
+        Two metrics agree on it exactly when their states are bit-equal, wherever they live (a NaN hashes by
+        its bits). The recipe is the JAX package's, so the digests agree wherever the two packages' state
+        types do (bfloat16 hashes as ``<V2``, numpy's code for it there).
+        """
+        digest = hashlib.sha256(f"{type(self).__name__}:{int(self._update_count)}".encode())
+        for name in sorted(self._defaults):
+            v = self._state[name]
+            parts = v if isinstance(v, list) else [v]
+            digest.update(f"|{name}[{len(parts)}]".encode())
+            for part in parts:
+                arr, code = _host_bytes(part)
+                digest.update(f":{code}{arr.shape}".encode())
+                digest.update(arr.tobytes())
+        return digest.hexdigest()
+
+    def plot(self, val: Any = None, ax: Any = None):
+        """Plot one or more values of the metric (its ``compute()`` when ``val`` is None) into a new figure or
+        into the matplotlib axis ``ax``; returns ``(fig, ax)``. Needs matplotlib."""
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=self.__class__.__name__,
+        )
+
     def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
         """The keyword arguments that the update's signature takes."""
         params = self._update_signature.parameters
@@ -803,6 +859,17 @@ def _map_tensors(value: Any, fn: Callable[[torch.Tensor], torch.Tensor]) -> Any:
     if isinstance(value, list):
         return [fn(v) if isinstance(v, torch.Tensor) else v for v in value]
     return fn(value) if isinstance(value, torch.Tensor) else value
+
+
+def _host_bytes(value: Any) -> tuple:
+    """A state's value as a contiguous numpy array for hashing, and the numpy ``dtype.str`` it hashes under."""
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:
+            return np.ascontiguousarray(value.view(torch.int16).numpy()), "<V2"
+        value = value.numpy()
+    arr = np.ascontiguousarray(np.asarray(value))
+    return arr, arr.dtype.str
 
 
 def _neg(x: torch.Tensor) -> torch.Tensor:

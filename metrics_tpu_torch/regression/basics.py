@@ -66,6 +66,7 @@ class MeanSquaredError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, squared: bool = True, num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -101,6 +102,7 @@ class MeanAbsoluteError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -133,6 +135,7 @@ class MeanSquaredLogError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -162,6 +165,7 @@ class MeanAbsolutePercentageError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -191,6 +195,7 @@ class SymmetricMeanAbsolutePercentageError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -220,6 +225,7 @@ class WeightedMeanAbsolutePercentageError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -249,6 +255,7 @@ class LogCoshError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -281,6 +288,7 @@ class MinkowskiDistance(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, p: float, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -310,6 +318,7 @@ class TweedieDevianceScore(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, power: float = 0.0, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -347,6 +356,8 @@ class CriticalSuccessIndex(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(self, threshold: float, keep_sequence_dim: Optional[int] = None, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -405,6 +416,7 @@ class NormalizedRootMeanSquaredError(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, normalization: str = "mean", num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)

@@ -71,6 +71,8 @@ class PearsonCorrCoef(Metric):
     is_differentiable = True
     higher_is_better = None
     full_state_update = True
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(self, num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -127,6 +129,8 @@ class SpearmanCorrCoef(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(self, num_outputs: int = 1, **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -158,6 +162,8 @@ class KendallRankCorrCoef(Metric):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,
@@ -206,6 +212,7 @@ class R2Score(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_upper_bound = 1.0
 
     def __init__(
         self, num_outputs: int = 1, adjusted: int = 0, multioutput: str = "uniform_average", **kwargs: Any
@@ -303,6 +310,7 @@ class ExplainedVariance(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_upper_bound = 1.0
 
     def __init__(self, multioutput: str = "uniform_average", **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -361,6 +369,8 @@ class CosineSimilarity(Metric):
     is_differentiable = True
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = -1.0
+    plot_upper_bound = 1.0
 
     def __init__(self, reduction: Optional[str] = "sum", **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -394,6 +404,7 @@ class KLDivergence(Metric):
     is_differentiable = True
     higher_is_better = False
     full_state_update = False
+    plot_lower_bound = 0.0
 
     def __init__(self, log_prob: bool = False, reduction: Optional[str] = "mean", **kwargs: Any) -> None:
         super().__init__(**kwargs)

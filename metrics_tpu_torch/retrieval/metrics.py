@@ -18,6 +18,7 @@ from metrics_tpu_torch.retrieval.base import (
     _segment_sum,
     shared_grouped_view,
 )
+from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.compute import _safe_divide
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
@@ -242,6 +243,14 @@ class RetrievalPrecisionRecallCurve(RetrievalMetric):
         recall_k = (recall_kg * valid[None, :]).sum(dim=1) / denom
         return precision_k, recall_k, torch.arange(1, max_k + 1, device=preds.device)
 
+    def plot(self, curve: Optional[Tuple[Tensor, Tensor, Tensor]] = None, ax: Any = None):
+        """Draw the retrieval precision-recall curve, recall along x and precision along y; needs matplotlib."""
+        from metrics_tpu_torch.utils.plot import plot_curve
+
+        computed = curve if curve is not None else self.compute()
+        curve_xy = (computed[1], computed[0]) + tuple(computed[2:])
+        return plot_curve(curve_xy, ax=ax, label_names=("Recall", "Precision"), name=self.__class__.__name__)
+
 
 class RetrievalRecallAtFixedPrecision(RetrievalPrecisionRecallCurve):
     """The highest recall@k whose precision@k is at least ``min_precision``, with its k."""
@@ -263,3 +272,8 @@ class RetrievalRecallAtFixedPrecision(RetrievalPrecisionRecallCurve):
         best = int(np.argmax(np.where(ok, r, -1.0)))
         return (torch.tensor(r[best], dtype=torch.float32, device=self.device),
                 torch.tensor(int(k[best]), device=self.device))
+
+    def plot(self, val: Any = None, ax: Any = None):
+        """The generic value plot of the best recall."""
+        val = val if val is not None else self.compute()[0]
+        return Metric.plot(self, val, ax)

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -47,6 +47,15 @@ def acc_dtype() -> torch.dtype:
     """The float type of long-horizon accumulators: ``torch.get_default_dtype()``, float32 unless the caller
     chose float64, the counterpart of the JAX package's x32 default and its x64 switch."""
     return torch.get_default_dtype()
+
+
+def log_factorial_table(n: int, device: Union[str, torch.device, None] = None) -> torch.Tensor:
+    """``log(k!)`` for ``k = 0..n + 1`` in float64 (``lgamma(k + 1)``), on ``device``.
+
+    >>> log_factorial_table(3).exp()
+    tensor([ 1.0000,  1.0000,  2.0000,  6.0000, 24.0000], dtype=torch.float64)
+    """
+    return torch.lgamma(torch.arange(n + 2, dtype=torch.float64, device=device) + 1)
 
 
 def neumaier_add(total: torch.Tensor, comp: torch.Tensor, value: torch.Tensor) -> tuple:

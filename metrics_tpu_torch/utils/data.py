@@ -124,3 +124,35 @@ def bincount_weighted(x: torch.Tensor, weights: torch.Tensor, minlength: int) ->
     weights = weights.reshape(-1)
     out = torch.zeros(minlength, dtype=weights.dtype, device=weights.device)
     return out.index_add_(0, x.reshape(-1), weights)
+
+
+def to_categorical(x: torch.Tensor, argmax_dim: int = 1) -> torch.Tensor:
+    """Probability-like scores to categorical labels: the arg-max along ``argmax_dim`` (the first of ties).
+
+    >>> to_categorical(torch.tensor([[0.2, 0.5], [0.9, 0.1]]))
+    tensor([1, 0])
+    """
+    return torch.argmax(x, dim=argmax_dim)
+
+
+def allclose(tensor1: torch.Tensor, tensor2: torch.Tensor) -> bool:
+    """``torch.allclose`` after casting ``tensor2`` to ``tensor1``'s type (rtol 1e-5, atol 1e-8, as
+    ``jnp.allclose``).
+
+    >>> allclose(torch.tensor([1.0, 2.0]), torch.tensor([1, 2]))
+    True
+    """
+    if tensor1.dtype != tensor2.dtype:
+        tensor2 = tensor2.to(tensor1.dtype)
+    return bool(torch.allclose(tensor1, tensor2))
+
+
+def compact_labels(x: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Map the values of ``x`` (flattened) to ``0..K-1`` in sorted order, on ``x``'s device, as ``np.unique``'s
+    ``return_inverse`` does; returns the codes and ``K`` (one host read).
+
+    >>> compact_labels(torch.tensor([7, 3, 7, 10]))
+    (tensor([1, 0, 1, 2]), 3)
+    """
+    uniq, codes = torch.unique(x.reshape(-1), sorted=True, return_inverse=True)
+    return codes, int(uniq.numel())

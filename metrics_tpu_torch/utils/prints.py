@@ -5,11 +5,14 @@ The rank is ``torch.distributed.get_rank()`` when a process group is up, else 0.
 
 from __future__ import annotations
 
+import logging
 import warnings
 from functools import wraps
 from typing import Any, Callable
 
 import torch
+
+log = logging.getLogger("metrics_tpu_torch")
 
 
 def _process_index() -> int:
@@ -33,3 +36,13 @@ def rank_zero_only(fn: Callable) -> Callable:
 @rank_zero_only
 def rank_zero_warn(message: str, category: type = UserWarning, stacklevel: int = 3, **kwargs: Any) -> None:
     warnings.warn(message, category=category, stacklevel=stacklevel, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_info(message: str, **kwargs: Any) -> None:
+    log.info(message, **kwargs)
+
+
+@rank_zero_only
+def rank_zero_debug(message: str, **kwargs: Any) -> None:
+    log.debug(message, **kwargs)

@@ -63,6 +63,12 @@ class WrapperMetric(Metric):
                 expand(attr, value, out)
         return out
 
+    def to_device(self, device: Union[str, torch.device]) -> "WrapperMetric":
+        """Move every child metric, then the wrapper's own states, to ``device``."""
+        for _, child in self._children():
+            child.to_device(device)
+        return super().to_device(device)
+
     # non-metric state a subclass persists beside its children (e.g. Running's window)
     _extra_state_keys: Tuple[str, ...] = ()
 

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from copy import deepcopy
-from typing import Any, Dict, Iterator, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
@@ -83,6 +83,38 @@ class MultitaskWrapper(WrapperMetric):
     def compute(self) -> Dict[str, Any]:
         """Each task's value."""
         return {f"{self._prefix}{n}{self._postfix}": m.compute() for n, m in self.task_metrics.items()}
+
+
+    def plot(self, val: Any = None, axes: Any = None) -> List[Any]:
+        """Draw each task's metric into its own figure, or into ``axes`` (one matplotlib axis per task).
+
+        Args:
+            val: a ``compute()``/``forward()`` result dict (or list of them); defaults to ``compute()``.
+            axes: optional sequence of matplotlib axes, one per task.
+        """
+        if axes is not None:
+            if not isinstance(axes, Sequence):
+                raise TypeError(f"Expected argument `axes` to be a Sequence. Found type(axes) = {type(axes)}")
+            if len(axes) != len(self.task_metrics):
+                raise ValueError(
+                    "Expected argument `axes` to be a Sequence of the same length as the number of tasks."
+                    f"Found len(axes) = {len(axes)} and {len(self.task_metrics)} tasks"
+                )
+        val = val if val is not None else self.compute()
+        fig_axs = []
+        for i, (task_name, task_metric) in enumerate(self.task_metrics.items()):
+            ax = axes[i] if axes is not None else None
+            key = f"{self._prefix}{task_name}{self._postfix}"
+            if isinstance(val, dict):
+                f, a = task_metric.plot(val[key], ax=ax)
+            elif isinstance(val, Sequence):
+                f, a = task_metric.plot([v[key] for v in val], ax=ax)
+            else:
+                raise TypeError(
+                    f"Expected argument `val` to be None or of type Dict or Sequence[Dict]. Found type(val)= {type(val)}"
+                )
+            fig_axs.append((f, a))
+        return fig_axs
 
     def forward(self, task_preds: Dict[str, Any], task_targets: Dict[str, Any]) -> Dict[str, Any]:
         """Each task's batch value."""

@@ -93,6 +93,14 @@ class MetricTracker(WrapperMetric):
         except (TypeError, ValueError, RuntimeError):  # ragged or otherwise unstackable values
             return res
 
+
+    def plot(self, val: Any = None, ax: Any = None):
+        """Draw the tracked value(s) over the steps (``compute_all()`` when ``val`` is None); needs matplotlib."""
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute_all()
+        return plot_single_or_multi_val(val, ax=ax, name=self.__class__.__name__)
+
     def best_metric(
         self, return_step: bool = False
     ) -> Union[Optional[torch.Tensor], Tuple[Any, Any], Dict[str, Any]]:

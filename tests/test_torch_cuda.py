@@ -923,3 +923,85 @@ def test_segmentation_counts_on_the_card_equal_the_cpu(cuda_device):
     got = seg._class_sums(preds.to(cuda_device), target.to(cuda_device), 19, "index", False)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 4096])
+def test_expected_mutual_info_blocked_on_the_card_equals_the_cpu(cuda_device, budget, monkeypatch):
+    """AMI's expected mutual information on the card, in one block or in blocks of 4,096 terms, against the
+    CPU's one block: float64 sums in another order, the same float32 result within 1 ulp."""
+    from metrics_tpu_torch.functional.clustering import extrinsic as tx
+
+    rng = np.random.RandomState(31)
+    target = rng.randint(0, 20, 3000)
+    preds = np.where(rng.rand(3000) < 0.5, target, rng.randint(0, 25, 3000))
+    cpu = tx.calculate_contingency_matrix(torch.from_numpy(preds), torch.from_numpy(target))
+    want = tx._expected_mutual_info(cpu)
+    if budget is not None:
+        monkeypatch.setattr(tx, "_emi_block_terms", lambda device: budget)
+    got = tx._expected_mutual_info(cpu.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1.2e-7, atol=0)
+    ami = tx.adjusted_mutual_info_score(torch.from_numpy(preds).to(cuda_device), torch.from_numpy(target).to(cuda_device))
+    torch.testing.assert_close(ami.cpu(), tx.adjusted_mutual_info_score(torch.from_numpy(preds), torch.from_numpy(target)),
+                               rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", [None, 3])
+def test_blocked_l1_and_minkowski_on_the_card_equal_the_cpu(cuda_device, exponent, monkeypatch):
+    """Manhattan and Minkowski distances on the card in blocks of 7 rows against the CPU's one block."""
+    from metrics_tpu_torch.functional import pairwise as tp
+    from metrics_tpu_torch.functional.pairwise import metrics as tpm
+
+    rng = np.random.RandomState(32)
+    x, y = torch.from_numpy(rng.randn(300, 64).astype(np.float32)), torch.from_numpy(rng.randn(200, 64).astype(np.float32))
+    fn = (lambda a, b: tp.pairwise_manhattan_distance(a, b)) if exponent is None else (
+        lambda a, b: tp.pairwise_minkowski_distance(a, b, exponent=exponent))
+    want = fn(x, y)
+    monkeypatch.setattr(tpm, "_distance_block_rows", lambda n, m, d, device: 7)
+    got = fn(x.to(cuda_device), y.to(cuda_device))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_clustering_nominal_and_shape_classes_on_the_card_match_the_cpu(cuda_device):
+    import metrics_tpu_torch.clustering as tcl
+    import metrics_tpu_torch.nominal as tno
+    import metrics_tpu_torch.shape as tsh
+
+    rng = np.random.RandomState(33)
+    labels_t = rng.randint(0, 6, 1000)
+    labels_p = np.where(rng.rand(1000) < 0.6, labels_t, rng.randint(0, 8, 1000))
+    data = (rng.randn(1000, 16) + 3 * labels_t[:, None]).astype(np.float32)
+    pc1 = rng.randn(64, 17, 3).astype(np.float32)
+    pc2 = (1.3 * pc1 + 0.05 * rng.randn(64, 17, 3)).astype(np.float32)
+    cases = [(tcl.AdjustedMutualInfoScore, {}, (labels_p, labels_t)), (tcl.AdjustedRandScore, {}, (labels_p, labels_t)),
+             (tcl.DaviesBouldinScore, {}, (data, labels_t)), (tcl.DunnIndex, {"p": 1.0}, (data, labels_t)),
+             (tno.CramersV, {"num_classes": 8}, (labels_p, labels_t)), (tno.TheilsU, {"num_classes": 8}, (labels_p, labels_t)),
+             (tsh.ProcrustesDisparity, {}, (pc1, pc2))]
+    for cls, kwargs, args in cases:
+        gpu, cpu = cls(device=cuda_device, **kwargs), cls(device="cpu", **kwargs)
+        for i in range(2):
+            gpu.update(*(torch.from_numpy(a[i::2]).to(cuda_device) for a in args))
+            cpu.update(*(torch.from_numpy(a[i::2]) for a in args))
+        torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_to_device_mid_stream_and_fingerprints_across_devices(cuda_device):
+    """A metric moved card -> CPU -> card between updates equals the single stream on the card, and a card
+    metric and its CPU twin with bit-equal states have one fingerprint."""
+    import metrics_tpu_torch.clustering as tcl
+
+    rng = np.random.RandomState(34)
+    batches = [(torch.from_numpy(rng.randint(0, 5, 200)), torch.from_numpy(rng.randint(0, 4, 200))) for _ in range(3)]
+    moved, single, twin = (tcl.NormalizedMutualInfoScore(device=d) for d in (cuda_device, cuda_device, "cpu"))
+    for i, (p, t) in enumerate(batches):
+        device = moved.device
+        moved.update(p.to(device), t.to(device))
+        single.update(p.to(cuda_device), t.to(cuda_device))
+        twin.update(p, t)
+        moved.to_device("cpu" if i == 0 else cuda_device)
+    assert moved.device.type == "cuda" and all(v.device.type == "cuda" for v in moved.preds)
+    assert torch.equal(moved.compute(), single.compute())
+    assert single.state_fingerprint() == twin.state_fingerprint() == moved.state_fingerprint()

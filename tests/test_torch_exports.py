@@ -31,6 +31,13 @@ PAIRS = [
     ("metrics_tpu.segmentation", "metrics_tpu_torch.segmentation"),
     ("metrics_tpu.functional.segmentation", "metrics_tpu_torch.functional.segmentation"),
     ("metrics_tpu.functional.classification", "metrics_tpu_torch.functional.classification"),
+    ("metrics_tpu.functional.pairwise", "metrics_tpu_torch.functional.pairwise"),
+    ("metrics_tpu.clustering", "metrics_tpu_torch.clustering"),
+    ("metrics_tpu.functional.clustering", "metrics_tpu_torch.functional.clustering"),
+    ("metrics_tpu.nominal", "metrics_tpu_torch.nominal"),
+    ("metrics_tpu.functional.nominal", "metrics_tpu_torch.functional.nominal"),
+    ("metrics_tpu.shape", "metrics_tpu_torch.shape"),
+    ("metrics_tpu.functional.shape", "metrics_tpu_torch.functional.shape"),
 ]
 
 
@@ -213,3 +220,25 @@ def test_image_beyond_the_models_and_segmentation_are_whole():
         segmentation,
     )
     from metrics_tpu_torch.functional import image_gradients, segmentation as fseg, total_variation  # noqa: F401
+
+
+def test_pairwise_clustering_nominal_and_shape_are_whole():
+    """Every class and function of the pairwise, clustering, nominal and shape domains is ported, and the top
+    level and ``functional`` export the JAX package's names of them: the five nominal classes and the three
+    submodules; the five pairwise and nine nominal functions and the four submodules."""
+    import metrics_tpu.functional as jf
+
+    for domain in ("clustering", "nominal", "shape", "functional.pairwise", "functional.clustering",
+                   "functional.nominal", "functional.shape"):
+        ref = importlib.import_module(f"metrics_tpu.{domain}")
+        port = importlib.import_module(f"metrics_tpu_torch.{domain}")
+        assert port.__all__ == ref.__all__, domain
+    new_top = ["CramersV", "FleissKappa", "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT", "clustering",
+               "nominal", "shape"]
+    assert [n for n in metrics_tpu.__all__ if n in new_top] == [n for n in metrics_tpu_torch.__all__ if n in new_top]
+    assert set(new_top) < set(metrics_tpu_torch.__all__)
+    new_functional = [n for n in jf.__all__ if n.startswith(("pairwise", "cramers", "fleiss", "pearsons_contingency",
+                                                              "theils", "tschuprows"))
+                      or n in ("clustering", "nominal", "shape")]
+    assert len(new_functional) == 18
+    assert [n for n in metrics_tpu_torch.functional.__all__ if n in new_functional] == new_functional
