@@ -100,7 +100,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    2^17 Human3.6M-sized poses (and the host syncs of ``torch.linalg.svd``);
    then ``to_device`` card -> CPU -> card mid-stream, ``state_fingerprint``
    across devices, the forward-state check on the card and ``plot()`` (it
-   raises the JAX package's error where matplotlib is not installed);
+   raises the JAX package's error where matplotlib is not installed); then the
+   streaming family, which launches no kernel: a Criteo-sized click stream
+   (45,840,617 rows in updates of 2^20) through StreamingAUROC,
+   StreamingCalibrationError, HyperLogLog of a Zipf id column and
+   ReservoirSample, CUSUM on its per-update click rate, DDSketch over 2^26
+   request latencies, PSI and KS of the 13 integer features, one hour of
+   timestamped updates through TimeDecayed (plain and compensated),
+   TumblingWindow, DecayedDDSketch and DecayedHLL, and MetricLogbook over two
+   ImageNet-1k epochs; each against the port's CPU run of a stated subset, its
+   four shards merged on the card against the single stream, and exact
+   answers where they exist; a later sketch or drift update that synchronizes
+   with the host fails the run;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -241,6 +252,26 @@ C10H_IMAGES, C10H_CLASSES, C10H_RATERS, C10H_UPDATE = 10_000, 10, 50, 1000
 # one pose in 64 degenerate (every joint at one point); the CPU check covers the first 4,096
 POSE_N, POSE_JOINTS, POSE_UPDATE, POSE_CPU_N, POSE_DEGENERATE_EVERY = 1 << 17, 17, 1024, 4096, 64
 PROCRUSTES_RTOL, ROTATION_ATOL = 1e-5, 1e-5
+# Criteo's display-advertising challenge (Kaggle) train set: 45,840,617 rows with 13 integer and 26 categorical
+# features and a 25.6 % click rate, in updates of 2^20 rows; one categorical column's ids Zipf-distributed
+# (exponent 1 over 10^8 ranks: about 1.0e7 distinct values in the stream); a logit level shift from update 30
+CRITEO_ROWS, CRITEO_UPDATE, CRITEO_INT_FEATURES, CRITEO_ZIPF_RANKS = 45_840_617, 1 << 20, 13, 10**8
+CRITEO_LOGIT_MU, CRITEO_LOGIT_SD, CRITEO_SCORE_NOISE, CRITEO_SHIFT_AT, CRITEO_SHIFT = -1.3, 1.2, 0.6, 30, 0.1
+CRITEO_AUROC_BINS, CRITEO_ECE_BINS, CRITEO_HLL_P, CRITEO_RESERVOIR, CRITEO_EXACT_ROWS = 2048, 15, 14, 10_000, 1 << 22
+CUSUM_K, CUSUM_H = 0.005, 0.02  # per-update click-rate deviation: half the shift to detect, and the alarm level
+# request latencies: 2^26 log-normal values (median 50 ms) in updates of 2^20, 1 % exact zeros, 0.1 % non-finite
+LATENCY_N, LATENCY_ZEROS, LATENCY_NONFINITE, LATENCY_ALPHA = 1 << 26, 0.01, 0.001, 0.01
+LATENCY_QUANTILES = (0.5, 0.9, 0.99, 0.999)
+# feature drift: PSI and KS of Criteo's 13 integer features, one day (a seventh of the rows) of reference against
+# one live day in updates of 2^20, 64 bins; the live day's mean shifted by 0.6 sigma on 3 features
+DRIFT_DAY_ROWS, DRIFT_BINS, DRIFT_SHIFTED, DRIFT_SHIFT_SD = 6_548_660, 64, (1, 4, 9), 0.6
+# time windows: one hour of a service's events, one update a second of 4,096 events, 1 % of the updates late by up
+# to two panes; half-life 300 s, 60 panes of 60 s; the CPU check covers the first 300 updates
+WINDOW_SECONDS, WINDOW_EVENTS, WINDOW_LATE, WINDOW_HALF_LIFE = 3600, 4096, 0.01, 300.0
+WINDOW_PANE_S, WINDOW_PANES, WINDOW_CPU_UPDATES = 60.0, 60, 300
+SKETCH_SHARDS = 4  # each stream also split into four shards, merged with merge_state on the card
+SKETCH_RTOL = 1e-6  # float sketch states (confidence sums, decayed states) against the CPU run of the same updates
+MERGE_RTOL = 1e-5  # float sums regrouped by the shard merge: up to 44 float32 additions in another association
 # the JAX package's error for a plot without matplotlib (``metrics_tpu/utils/plot.py``), which the port repeats
 MATPLOTLIB_ERROR = "Plot function expects `matplotlib` to be installed. Please install with `pip install matplotlib`"
 COCO_NAMES = [
@@ -518,6 +549,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     dryrun_checks(seed, wrappers, out, imagenet, imagenet_gpu)
     regression_and_wrappers(seed, wrappers, out, imagenet, imagenet_gpu)
     pairwise_clustering_nominal_shape(seed, wrappers, out)
+    sketches_windows_drift(seed, wrappers, out, imagenet, imagenet_gpu)
     return out
 
 
@@ -3322,6 +3354,467 @@ def runtime_leftovers(seed: int) -> dict:
         else:
             fail("plot without matplotlib did not raise")
     log(f"runtime leftovers: {json.dumps(res)}")
+    return res
+
+
+
+def sketches_windows_drift(seed: int, wrappers: dict, out: dict, imagenet, imagenet_gpu) -> None:
+    """The streaming sketches, time windows and drift detectors, then ``MetricLogbook``: a Criteo-sized
+    click stream (AUROC and ECE sketches, HyperLogLog of a Zipf id column, a reservoir of the scores), DDSketch
+    over 2^26 request latencies, PSI and KS of the 13 integer features, CUSUM on the per-update click rate, one
+    hour of timestamped updates through the four window classes, and two epochs of the ImageNet-1k evaluation
+    logged. None launches a kernel; each is checked against the port's CPU run of a stated subset and against
+    its four shards merged on the card, and the sketch and drift updates must read nothing back from the card."""
+
+    def counting(name, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = section(name, body)
+        torch.cuda.synchronize()
+        result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": {}})
+        out[name] = result
+
+    t0 = time.perf_counter()
+    counting("Criteo click stream[AUROC, ECE, HLL, reservoir], CUSUM", lambda: criteo_stream(seed))
+    counting("request latencies[DDSketch]", lambda: latency_quantiles(seed))
+    counting("Criteo feature drift[13 x (PSI, KS)]", lambda: criteo_drift(seed))
+    counting("one hour of time windows", lambda: time_windows(seed))
+    counting("MetricLogbook over two ImageNet-1k epochs", lambda: logbook_imagenet(imagenet, imagenet_gpu))
+    SECTION_S["sketches_windows_drift"] = time.perf_counter() - t0
+
+
+class _UpdateLog:
+    """Each class's update times, host synchronizations (CUDA's sync debug mode) and peak memory."""
+
+    def __init__(self):
+        self.ms, self.syncs, self.peak_mb = {}, {}, {}
+
+    def run(self, name, fn):
+        import warnings
+
+        # the peak is read on the first updates and every 64th (reading the allocator's statistics costs more
+        # than a small update); every update is timed and watched for synchronizations
+        count = len(self.ms.get(name, ()))
+        peak = count < 3 or count % 64 == 0
+        if peak:
+            base = _reset_peak()
+        else:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        self.ms.setdefault(name, []).append(1000 * (time.perf_counter() - t0))
+        self.syncs.setdefault(name, []).append(
+            sum("called a synchronizing CUDA operation" in str(w.message) for w in caught))
+        if peak:
+            self.peak_mb[name] = max(self.peak_mb.get(name, 0.0), _peak_mb(base))
+
+    def summary(self, name, compute_ms=None):
+        ms, syncs = self.ms[name], self.syncs[name]
+        return {"updates": len(ms), "first_update_ms": ms[0], "later_update_ms_median": _median_ms(ms),
+                "compute_ms": compute_ms, "update_peak_mb": self.peak_mb[name],
+                "host_syncs_per_later_update_max": max(syncs[1:]) if len(syncs) > 1 else None}
+
+
+NO_SYNC_CLASSES = ("HyperLogLog", "DDSketch", "ReservoirSample", "StreamingAUROC", "StreamingCalibrationError", "PSI",
+                   "KSDistance", "CUSUM")
+
+
+def _check_no_sync(log_: _UpdateLog, name: str, cls: str) -> None:
+    if cls in NO_SYNC_CLASSES and any(log_.syncs[name][1:]):
+        fail(f"{name}: a later {cls} update synchronized with the host {max(log_.syncs[name][1:])} times")
+
+
+def _states_agree(name, got: dict, want: dict, rtol: float, atol: float = 0.0) -> dict:
+    """Integer states equal and float states bit-equal where ``rtol`` is 0, else within ``rtol``/``atol``;
+    returns the largest absolute difference of each."""
+    res = {}
+    for key in want:
+        g, w = got[key].detach().cpu(), want[key].detach().cpu()
+        exact = rtol == 0.0 or not w.is_floating_point()
+        res[key] = _agree(f"{name}[{key}]", g, w, exact, rtol, atol)
+        if exact and w.is_floating_point():
+            bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[w.element_size()]
+            if not torch.equal(g.view(bits), w.view(bits)):
+                fail(f"{name}[{key}]: the bits differ")
+    return res
+
+
+def _merged(shards):
+    """The shards folded in stream order with ``merge_state`` (an incoming state counts as the earlier one)."""
+    acc = shards[-1]
+    for shard in reversed(shards[:-1]):
+        acc.merge_state(shard)
+    return acc
+
+
+def criteo_batch(g: torch.Generator, n: int, shift: float):
+    """(score, click, id): a CTR model's scores and clicks drawn from a latent logit, and a Zipf-distributed id."""
+    z = CRITEO_LOGIT_MU + shift + CRITEO_LOGIT_SD * torch.randn(n, generator=g, device="cuda")
+    click = (torch.rand(n, generator=g, device="cuda") < torch.sigmoid(z)).to(torch.int32)
+    score = torch.sigmoid(z + CRITEO_SCORE_NOISE * torch.randn(n, generator=g, device="cuda"))
+    u = torch.rand(n, generator=g, device="cuda", dtype=torch.float64)
+    ids = torch.floor(torch.exp(u * math.log(CRITEO_ZIPF_RANKS + 1.0))).to(torch.int64)
+    return score, click, ids
+
+
+def _exact_ece(score: torch.Tensor, click: torch.Tensor, num_bins: int) -> float:
+    """The top-label ECE over the same bins in float64, from every score."""
+    from metrics_tpu_torch.functional.sketches.ecdf import _bin_index
+
+    conf = torch.maximum(score, 1.0 - score)
+    hit = ((score >= 0.5).to(torch.int32) == click).to(torch.float64)
+    idx = _bin_index(conf, num_bins)
+    cnt = torch.zeros(num_bins, dtype=torch.float64, device=score.device).index_add_(0, idx, torch.ones_like(hit))
+    acc = torch.zeros_like(cnt).index_add_(0, idx, hit)
+    cs = torch.zeros_like(cnt).index_add_(0, idx, conf.to(torch.float64))
+    safe = cnt.clamp(min=1.0)
+    return float((cnt * (acc / safe - cs / safe).abs()).sum() / cnt.sum())
+
+
+def criteo_stream(seed: int) -> dict:
+    """StreamingAUROC, StreamingCalibrationError, HyperLogLog (p = 14) and ReservoirSample (k = 10,000) over the
+    45,840,617 Criteo rows in updates of 2^20, each also in four shards merged on the card; the first update
+    against the CPU run; then CUSUM over the per-update click rates."""
+    from metrics_tpu_torch.drift import CUSUM
+    from metrics_tpu_torch.functional.classification import binary_auroc
+    from metrics_tpu_torch.functional.sketches.hashing import hash32
+    from metrics_tpu_torch.sketches import HyperLogLog, ReservoirSample, StreamingAUROC, StreamingCalibrationError
+
+    makers = {
+        "StreamingAUROC": (lambda d: StreamingAUROC(num_bins=CRITEO_AUROC_BINS, device=d), lambda m, b: m.update(b[0], b[1])),
+        "StreamingCalibrationError": (lambda d: StreamingCalibrationError(num_bins=CRITEO_ECE_BINS, device=d),
+                                      lambda m, b: m.update(b[0], b[1])),
+        "HyperLogLog": (lambda d: HyperLogLog(p=CRITEO_HLL_P, device=d), lambda m, b: m.update(b[2])),
+        "ReservoirSample": (lambda d: ReservoirSample(k=CRITEO_RESERVOIR, seed=seed, device=d),
+                            lambda m, b: m.update(b[0])),
+    }
+    single = {k: make("cuda") for k, (make, _) in makers.items()}
+    shards = {k: [make("cuda") for _ in range(SKETCH_SHARDS)] for k, (make, _) in makers.items()}
+    subset = StreamingAUROC(num_bins=CRITEO_AUROC_BINS, device="cuda")
+    g = _generator(seed + 40)
+    ulog, res = _UpdateLog(), {"rows": CRITEO_ROWS}
+    scores, clicks, ids, ctrs = [], [], [], []
+    steps = -(-CRITEO_ROWS // CRITEO_UPDATE)
+    for i in range(steps):
+        n = min(CRITEO_UPDATE, CRITEO_ROWS - i * CRITEO_UPDATE)
+        b = criteo_batch(g, n, CRITEO_SHIFT if i >= CRITEO_SHIFT_AT else 0.0)
+        scores.append(b[0])
+        clicks.append(b[1])
+        ids.append(b[2])
+        ctrs.append(b[1].to(torch.float32).mean().reshape(1))
+        for name, (_, feed) in makers.items():
+            ulog.run(name, lambda: feed(single[name], b))
+            feed(shards[name][i % SKETCH_SHARDS], b)
+        if i == 0:  # the CPU check: the first 2^20 rows
+            b_cpu = tuple(x.cpu() for x in b)
+            res["max_abs_diff_vs_cpu_first_update"] = {}
+            for name, (make, feed) in makers.items():
+                cpu = make("cpu")
+                feed(cpu, b_cpu)
+                rtol = SKETCH_RTOL if name == "StreamingCalibrationError" else 0.0
+                res["max_abs_diff_vs_cpu_first_update"][name] = _states_agree(
+                    f"Criteo {name} first update", single[name].metric_state, cpu.metric_state, rtol)
+        if i * CRITEO_UPDATE < CRITEO_EXACT_ROWS:
+            subset.update(b[0], b[1])
+    for name in makers:
+        _check_no_sync(ulog, name, name)
+    computed = {}
+    for name in makers:
+        computed[name], ms = _timed(single[name].compute)
+        res[name] = ulog.summary(name, ms)
+    res["merged_4_shards_max_abs_diff"] = {
+        name: _states_agree(f"Criteo {name} merged", _merged(shards[name]).metric_state, single[name].metric_state,
+                            MERGE_RTOL if name == "StreamingCalibrationError" else 0.0) for name in makers}
+    # the sketches against the exact answers
+    score, click, allids = torch.cat(scores), torch.cat(clicks), torch.cat(ids)
+    k = CRITEO_EXACT_ROWS
+    exact_auroc = float(binary_auroc(score[:k], click[:k]))
+    sub_auroc, sub_bound = float(subset.compute()), float(subset.error_bound())
+    res["auroc"] = {"stream": float(computed["StreamingAUROC"]), "stream_bound": float(single["StreamingAUROC"].error_bound()),
+                    "subset_rows": k, "subset_binned": sub_auroc, "subset_exact": exact_auroc,
+                    "binned_auroc_bound": sub_bound}
+    if not abs(sub_auroc - exact_auroc) <= sub_bound + 1e-6:
+        fail(f"StreamingAUROC {sub_auroc} is {abs(sub_auroc - exact_auroc)} from the exact {exact_auroc}, "
+             f"beyond its bound {sub_bound}")
+    exact_ece = _exact_ece(score, click, CRITEO_ECE_BINS)
+    res["ece"] = {"stream": float(computed["StreamingCalibrationError"]), "exact_float64": exact_ece}
+    if not abs(float(computed["StreamingCalibrationError"]) - exact_ece) <= 1e-5:
+        fail(f"StreamingCalibrationError {float(computed['StreamingCalibrationError'])} against {exact_ece}")
+    distinct = int(torch.unique(allids).numel())
+    est = float(computed["HyperLogLog"])
+    res["hll"] = {"estimate": est, "exact_distinct": distinct, "rel_err": abs(est - distinct) / distinct,
+                  "std_error": single["HyperLogLog"].std_error}
+    if not res["hll"]["rel_err"] <= 5 * single["HyperLogLog"].std_error:
+        fail(f"HyperLogLog {est} against {distinct} distinct ids, beyond 5 standard errors")
+    h = hash32(score, seed)
+    key = (h >> 16) * 65536 + (h & 0xFFFF)
+    by_value = torch.sort(score, stable=True).indices
+    oracle = torch.sort(score[by_value[torch.sort(key[by_value], stable=True).indices[:CRITEO_RESERVOIR]]]).values
+    kept = torch.sort(computed["ReservoirSample"]).values
+    if not torch.equal(kept, oracle):
+        fail("ReservoirSample: the sample is not the bottom k of the whole stream")
+    res["reservoir"] = {"k": CRITEO_RESERVOIR, "equals_exact_bottom_k": True}
+    # CUSUM over the per-update click-rate stream: the target is the first ten updates' mean rate
+    rates = torch.cat(ctrs)
+    target = float(rates[:10].mean())
+    cusum, cusum_cpu = CUSUM(target, CUSUM_K, CUSUM_H, device="cuda"), CUSUM(target, CUSUM_K, CUSUM_H, device="cpu")
+    parts = [CUSUM(target, CUSUM_K, CUSUM_H, device="cuda") for _ in range(SKETCH_SHARDS)]
+    bounds = np.linspace(0, steps, SKETCH_SHARDS + 1).astype(int)
+    alarm_before = None
+    for i in range(steps):
+        ulog.run("CUSUM", lambda: cusum.update(rates[i:i + 1]))
+        cusum_cpu.update(rates[i:i + 1].cpu())
+        parts[int(np.searchsorted(bounds, i, side="right")) - 1].update(rates[i:i + 1])
+        if i == CRITEO_SHIFT_AT - 1:
+            alarm_before = float(cusum.compute()[2])
+    _check_no_sync(ulog, "CUSUM", "CUSUM")
+    final, ms = _timed(cusum.compute)
+    res["CUSUM"] = ulog.summary("CUSUM", ms)
+    res["CUSUM"].update({"target_rate": target, "alarm_before_shift": alarm_before, "final": final.tolist(),
+                         "max_abs_diff_vs_cpu": _agree("CUSUM", final, cusum_cpu.compute(), False, 1e-5, 1e-6),
+                         "merged_4_segments_max_abs_diff": _states_agree(
+                             "CUSUM merged", _merged(parts).metric_state, cusum.metric_state, 1e-5, 1e-6)})
+    if alarm_before != 0.0 or float(final[2]) != 1.0:
+        fail(f"CUSUM: alarm {alarm_before} before the shift at update {CRITEO_SHIFT_AT}, {float(final[2])} at the end")
+    log(f"Criteo click stream: {json.dumps(res)}")
+    return res
+
+
+def latency_quantiles(seed: int) -> dict:
+    """DDSketch (alpha 0.01) over 2^26 log-normal latencies with 1 % zeros and 0.1 % non-finite values, in
+    updates of 2^20 and in four shards merged; the first update against the CPU run; each quantile within alpha
+    of the exact one."""
+    from metrics_tpu_torch.sketches import DDSketch
+
+    def make(d):
+        return DDSketch(alpha=LATENCY_ALPHA, quantiles=LATENCY_QUANTILES, device=d)
+
+    g = _generator(seed + 41)
+    single, shards, ulog, res, kept = make("cuda"), [make("cuda") for _ in range(SKETCH_SHARDS)], _UpdateLog(), {}, []
+    for i in range(LATENCY_N // CRITEO_UPDATE):
+        v = torch.exp(math.log(50.0) + 0.8 * torch.randn(CRITEO_UPDATE, generator=g, device="cuda"))
+        u = torch.rand(CRITEO_UPDATE, generator=g, device="cuda")
+        v = torch.where(u < LATENCY_ZEROS, 0.0, v)
+        v = torch.where(u > 1.0 - LATENCY_NONFINITE, torch.where(u > 1.0 - LATENCY_NONFINITE / 2, torch.inf, torch.nan), v)
+        kept.append(v)
+        ulog.run("DDSketch", lambda: single.update(v))
+        shards[i % SKETCH_SHARDS].update(v)
+        if i == 0:
+            cpu = make("cpu")
+            cpu.update(v.cpu())
+            res["state_diff_vs_cpu_first_update"] = _states_agree("DDSketch first update", single.metric_state,
+                                                                   cpu.metric_state, 0.0)
+    _check_no_sync(ulog, "DDSketch", "DDSketch")
+    est, ms = _timed(single.compute)
+    res.update(ulog.summary("DDSketch", ms))
+    res["merged_4_shards"] = _states_agree("DDSketch merged", _merged(shards).metric_state, single.metric_state, 0.0)
+    allv = torch.cat(kept)
+    finite = torch.sort(allv[torch.isfinite(allv)]).values
+    rank = torch.tensor(LATENCY_QUANTILES, dtype=torch.float64, device="cuda") * (finite.numel() - 1)
+    lo = rank.floor().long()
+    frac = (rank - lo).to(torch.float32)
+    exact = finite[lo] + frac * (finite[(lo + 1).clamp(max=finite.numel() - 1)] - finite[lo])
+    rel = ((est - exact).abs() / exact).tolist()
+    res.update({"values": LATENCY_N, "quantiles": list(LATENCY_QUANTILES), "estimate_ms": est.tolist(),
+                "exact_ms": exact.tolist(), "rel_err": rel})
+    if not all(r <= LATENCY_ALPHA + 1e-6 for r in rel):
+        fail(f"DDSketch: relative errors {rel} beyond alpha {LATENCY_ALPHA}")
+    log(f"request latencies: {json.dumps(res)}")
+    return res
+
+
+def criteo_drift(seed: int) -> dict:
+    """PSI and KS distance of each of Criteo's 13 integer features (a log-normal count per feature), one day of
+    reference against one live day whose mean is shifted by 0.6 sigma on three features, in updates of 2^20;
+    each feature's pair is one collection (a collection feeds every member the same inputs; the pair shares one
+    compute group). The first update against the CPU run, four shards merged, and standalone PSI and KS updates
+    for the host-sync count."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.drift import KSDistance, PSI
+
+    mu = [0.5 + 0.2 * f for f in range(CRITEO_INT_FEATURES)]
+    sd = [0.8 + 0.07 * f for f in range(CRITEO_INT_FEATURES)]
+    hi = [float(math.ceil(math.exp(m + 3.0 * s))) for m, s in zip(mu, sd)]
+
+    def make(f, d):
+        return MetricCollection({"psi": PSI(lo=0.0, hi=hi[f], num_bins=DRIFT_BINS, device=d),
+                                 "ks": KSDistance(lo=0.0, hi=hi[f], num_bins=DRIFT_BINS, device=d)})
+
+    def column(g, n, f, live):
+        shift = DRIFT_SHIFT_SD * sd[f] if live and f in DRIFT_SHIFTED else 0.0
+        return torch.floor(torch.exp(mu[f] + shift + sd[f] * torch.randn(n, generator=g, device="cuda")))
+
+    g = _generator(seed + 42)
+    single = [make(f, "cuda") for f in range(CRITEO_INT_FEATURES)]
+    shards = [[make(f, "cuda") for f in range(CRITEO_INT_FEATURES)] for _ in range(SKETCH_SHARDS)]
+    probes = {"PSI": PSI(lo=0.0, hi=hi[0], num_bins=DRIFT_BINS, device="cuda"),
+              "KSDistance": KSDistance(lo=0.0, hi=hi[0], num_bins=DRIFT_BINS, device="cuda")}
+    ulog, res = _UpdateLog(), {"features": CRITEO_INT_FEATURES, "day_rows": DRIFT_DAY_ROWS}
+    steps = -(-DRIFT_DAY_ROWS // CRITEO_UPDATE)
+    for i in range(steps):
+        n = min(CRITEO_UPDATE, DRIFT_DAY_ROWS - i * CRITEO_UPDATE)
+        for f in range(CRITEO_INT_FEATURES):
+            live, ref = column(g, n, f, True), column(g, n, f, False)
+            if f == 0:
+                ulog.run("13 collections", lambda: single[f].update(live, ref))
+            else:
+                single[f].update(live, ref)
+            shards[i % SKETCH_SHARDS][f].update(live, ref)
+            if f == 0:
+                for name, m in probes.items():
+                    ulog.run(name, lambda: m.update(live, ref))
+            if i == 0:
+                cpu = make(f, "cpu")
+                cpu.update(live.cpu(), ref.cpu())
+                for key in ("psi", "ks"):
+                    _states_agree(f"drift I{f + 1} {key} first update", single[f][key].metric_state,
+                                  cpu[key].metric_state, 0.0)
+    for name in probes:
+        _check_no_sync(ulog, name, name)
+    values, ms = _timed(lambda: [c.compute() for c in single])
+    res["compute_13_collections_ms"] = ms
+    for name in probes:
+        res[name] = ulog.summary(name)
+    res["feature_I1_collection_update"] = ulog.summary("13 collections")
+    for f in range(CRITEO_INT_FEATURES):
+        for key in ("psi", "ks"):
+            merged = _merged([shards[s][f][key] for s in range(SKETCH_SHARDS)])
+            _states_agree(f"drift I{f + 1} {key} merged", merged.metric_state, single[f][key].metric_state, 0.0)
+    res["psi"] = [float(v["psi"]) for v in values]
+    res["ks"] = [float(v["ks"]) for v in values]
+    res["first_update_and_merge"] = "states equal on every feature"
+    for f in range(CRITEO_INT_FEATURES):
+        shifted = f in DRIFT_SHIFTED
+        if shifted != (res["psi"][f] > 0.25) or (not shifted and res["psi"][f] >= 0.1):
+            fail(f"PSI of feature I{f + 1}: {res['psi'][f]} (shifted: {shifted})")
+        if shifted != (res["ks"][f] > 0.1):
+            fail(f"KS of feature I{f + 1}: {res['ks'][f]} (shifted: {shifted})")
+    log(f"Criteo feature drift: {json.dumps(res)}")
+    return res
+
+
+def time_windows(seed: int) -> dict:
+    """One hour of a service's events, one update a second of 4,096 (1 % of the updates late by up to two panes),
+    through TimeDecayed over a mean (plain and compensated), TumblingWindow over a sum, DecayedDDSketch and
+    DecayedHLL; each against the port's CPU run of the first 300 updates, against float64 oracles of the whole
+    hour, and with four shards (every fourth second) merged on the card."""
+    from metrics_tpu_torch import MeanMetric, SumMetric
+    from metrics_tpu_torch.windows import DecayedDDSketch, DecayedHLL, TimeDecayed, TumblingWindow
+
+    makers = {
+        "TimeDecayed[MeanMetric]": lambda d: TimeDecayed(MeanMetric(nan_strategy="disable", device=d),
+                                                         half_life_s=WINDOW_HALF_LIFE),
+        "TimeDecayed[MeanMetric, compensated]": lambda d: TimeDecayed(
+            MeanMetric(nan_strategy="disable", device=d), half_life_s=WINDOW_HALF_LIFE, compensated=True),
+        "TumblingWindow[SumMetric]": lambda d: TumblingWindow(SumMetric(nan_strategy="disable", device=d),
+                                                              pane_s=WINDOW_PANE_S, n_panes=WINDOW_PANES),
+        "DecayedDDSketch": lambda d: DecayedDDSketch(half_life_s=WINDOW_HALF_LIFE, device=d),
+        "DecayedHLL": lambda d: DecayedHLL(half_life_s=WINDOW_HALF_LIFE, device=d),
+    }
+    inputs = {"DecayedHLL": 1}  # the index of each class's input in (latency, user id); the rest take latencies
+    rng = np.random.default_rng(seed + 43)
+    late = rng.random(WINDOW_SECONDS) < WINDOW_LATE
+    stamps = np.arange(WINDOW_SECONDS, dtype=np.float64) + 0.5
+    stamps[late] -= rng.uniform(1.0, 2 * WINDOW_PANE_S, late.sum())
+    stamps = np.maximum(stamps, 0.0).astype(np.float32).tolist()
+    g = _generator(seed + 43)
+    single = {k: make("cuda") for k, make in makers.items()}
+    shards = {k: [make("cuda") for _ in range(SKETCH_SHARDS)] for k, make in makers.items()}
+    cpu = {k: make("cpu") for k, make in makers.items()}
+    ulog, res, sums = _UpdateLog(), {"updates": WINDOW_SECONDS, "late_updates": int(late.sum())}, []
+    snapshot = {}
+    for i, t in enumerate(stamps):
+        lat = torch.exp(math.log(50.0) + 0.8 * torch.randn(WINDOW_EVENTS, generator=g, device="cuda"))
+        users = torch.randint(0, 1 << 20, (WINDOW_EVENTS,), generator=g, device="cuda")
+        batch = (lat, users)
+        sums.append(lat.double().sum().reshape(1))
+        for name, m in single.items():
+            x = batch[inputs.get(name, 0)]
+            ulog.run(name, lambda: m.update(t, x))
+            shards[name][i % SKETCH_SHARDS].update(t, x)
+            if i < WINDOW_CPU_UPDATES:
+                cpu[name].update(t, x.cpu())
+        if i == WINDOW_CPU_UPDATES - 1:
+            snapshot = {k: {s: v.clone() for s, v in m.metric_state.items()} for k, m in single.items()}
+    res["state_max_abs_diff_vs_cpu_first_300"] = {
+        k: _states_agree(f"{k} first {WINDOW_CPU_UPDATES} updates", _folded(snapshot[k]), _folded(cpu[k].metric_state),
+                         0.0 if k.startswith("Decayed") else SKETCH_RTOL) for k in makers}
+    for name in makers:
+        value, ms = _timed(single[name].compute)
+        res[name] = ulog.summary(name, ms)
+        res[name]["value"] = value.tolist()
+        res[name]["merged_4_shards_max_abs_diff"] = _agree(
+            f"{name} merged", _merged(shards[name]).compute(), value.cpu(), False, MERGE_RTOL, 0.0)
+    # float64 oracles of the hour: the decayed mean, and the window's sum over the last 60 panes
+    t64 = torch.tensor(stamps, dtype=torch.float64)
+    s64 = torch.cat(sums).cpu()
+    ref = float(t64.max())
+    w = torch.exp2(-(ref - t64) / WINDOW_HALF_LIFE)
+    oracle_mean = float((w * s64).sum() / (w * WINDOW_EVENTS).sum())
+    panes = torch.floor(t64 / WINDOW_PANE_S)
+    in_window = panes > panes.max() - WINDOW_PANES
+    oracle_sum = float(s64[in_window].sum())
+    res["oracles"] = {"decayed_mean": oracle_mean, "window_sum": oracle_sum}
+    for name, want in (("TimeDecayed[MeanMetric]", oracle_mean), ("TimeDecayed[MeanMetric, compensated]", oracle_mean),
+                       ("TumblingWindow[SumMetric]", oracle_sum)):
+        if not abs(res[name]["value"] - want) <= 1e-4 * abs(want):
+            fail(f"{name}: {res[name]['value']} against the float64 oracle {want}")
+    log(f"time windows: {json.dumps(res)}")
+    return res
+
+
+def _folded(state: dict) -> dict:
+    """A state dict with each compensated pair read out (``<name> + <name>_comp``): the residual alone is rounding
+    noise, whose card and CPU values need not be close."""
+    return {k: v + state[f"{k}_comp"] if f"{k}_comp" in state else v for k, v in state.items()
+            if not k.endswith("_comp")}
+
+
+def logbook_imagenet(imagenet, imagenet_gpu) -> dict:
+    """Two epochs of the ImageNet-1k evaluation through ``MetricLogbook``: a ``MeanMetric`` of the per-sample
+    cross-entropy logged per batch (``forward``) and an accuracy collection updated, against the same on the
+    CPU; both epochs must read the same values."""
+    from metrics_tpu_torch import MeanMetric, MetricCollection
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.integration import MetricLogbook
+
+    def epochs(device, batches):
+        book = MetricLogbook()
+        step_losses, ms = [], []
+        for _ in range(2):
+            for logits, target in batches:
+                loss = F.cross_entropy(logits, target, reduction="none")
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step_losses.append(book.log_batch("loss", lambda: MeanMetric(device=device), loss))
+                book.update("val", lambda: MetricCollection({
+                    "top1": tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device=device),
+                    "macro": tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="macro", device=device)}),
+                    logits, target)
+                torch.cuda.synchronize()
+                ms.append(1000 * (time.perf_counter() - t0))
+            book.epoch_end()
+        return book, ms
+
+    book, ms = epochs("cuda", imagenet_gpu)
+    book_cpu, _ = epochs("cpu", imagenet)
+    res = {"epochs": len(book.history), "step_ms_median": _median_ms(ms), "values": {}}
+    if len(book.history) != 2 or book["loss"].update_count != 0:
+        fail("MetricLogbook: two epochs recorded and the metrics reset")
+    for key in ("loss", "val_top1", "val_macro"):
+        first, second, want = book.history[0][key], book.history[1][key], book_cpu.history[0][key]
+        if not torch.equal(first, second):
+            fail(f"MetricLogbook {key}: the two epochs differ")
+        res["values"][key] = float(first)
+        _agree(f"MetricLogbook {key}", first, want, False, STAT_RTOL, STAT_ATOL)
+    log(f"MetricLogbook: {json.dumps(res)}")
     return res
 
 

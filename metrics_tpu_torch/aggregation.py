@@ -25,6 +25,14 @@ __all__ = ["BaseAggregator", "CatMetric", "MaxMetric", "MeanMetric", "MinMetric"
 Tensor = torch.Tensor
 
 
+def _on_device(value: Union[float, Tensor], dtype: torch.dtype, device: torch.device) -> Tensor:
+    """``value`` as a tensor of ``dtype`` on ``device``; a Python number is filled there, so that no host copy
+    (which waits for the device) is made."""
+    if isinstance(value, (bool, int, float)):
+        return torch.full((), float(value), dtype=dtype, device=device)
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
 class BaseAggregator(Metric):
     """Base class for aggregation metrics.
 
@@ -57,6 +65,8 @@ class BaseAggregator(Metric):
                 f"Arg `nan_strategy` should either be a float or one of {allowed_nan_strategy} but got {nan_strategy}."
             )
         self.nan_strategy = nan_strategy
+        if nan_strategy in ("error", "warn"):
+            self._jit_update_opt = False  # the JAX package's mark: the update reads the values on the host
         self.state_name = state_name
         self.add_state(state_name, default=default_value, dist_reduce_fx=fn, merge_associative=merge_associative)
 
@@ -78,8 +88,8 @@ class BaseAggregator(Metric):
         at the same positions. A scalar weight is replaced only when it is NaN
         itself, the JAX package's documented divergence from its reference.
         """
-        x = torch.as_tensor(x, dtype=self._dtype, device=self.device)
-        weight = torch.as_tensor(1.0 if weight is None else weight, dtype=self._dtype, device=self.device)
+        x = _on_device(x, self._dtype, self.device)
+        weight = _on_device(1.0 if weight is None else weight, self._dtype, self.device)
         weight_was_scalar = weight.ndim == 0 or weight.numel() == 1
         weight = torch.broadcast_to(weight, x.shape)
         nan_mask = torch.isnan(x) | torch.isnan(weight)
@@ -94,7 +104,7 @@ class BaseAggregator(Metric):
             return x, weight, ~nan_mask
         if self.nan_strategy == "disable":
             return x, weight, torch.ones_like(nan_mask)
-        repl = torch.tensor(self.nan_strategy, dtype=x.dtype, device=x.device)
+        repl = _on_device(self.nan_strategy, x.dtype, x.device)
         new_weight = torch.where(torch.isnan(weight) if weight_was_scalar else nan_mask, repl, weight)
         return torch.where(nan_mask, repl, x), new_weight, torch.ones_like(nan_mask)
 

@@ -62,6 +62,12 @@ def _spearman_corrcoef_compute(preds: Tensor, target: Tensor, eps: float = 1e-6)
     return torch.squeeze(torch.clamp(corrcoef, -1.0, 1.0))
 
 
+def _canonical_float(x: Tensor) -> Tensor:
+    """float64 in the default float type, as the JAX package's inputs arrive (float32 unless the caller chose
+    float64); float16 and bfloat16 stay, so that the ranks are taken in the input's own type."""
+    return x.to(torch.get_default_dtype()) if x.dtype == torch.float64 else x
+
+
 def spearman_corrcoef(preds: Tensor, target: Tensor) -> Tensor:
     """Spearman rank correlation coefficient.
 
@@ -70,6 +76,7 @@ def spearman_corrcoef(preds: Tensor, target: Tensor) -> Tensor:
     >>> spearman_corrcoef(preds, target)
     tensor(1.0000)
     """
+    preds, target = _canonical_float(preds), _canonical_float(target)
     d = preds.shape[1] if preds.ndim == 2 else 1
     preds, target = _spearman_corrcoef_update(preds, target, num_outputs=d)
     return _spearman_corrcoef_compute(preds, target)

@@ -180,7 +180,7 @@ def retrieval_precision_recall_curve(
     sorted_target = (_sort_by_preds(preds, target) > 0).to(torch.float32)
     padded = torch.cat([sorted_target, sorted_target.new_zeros(max(0, max_k - n))])
     cum_rel = torch.cumsum(padded, 0)[:max_k]
-    ks = torch.arange(1, max_k + 1, device=preds.device)
+    ks = torch.arange(1, max_k + 1, dtype=torch.int32, device=preds.device)
     precision = cum_rel / ks.to(torch.float32)
     total = sorted_target.sum()
     recall = torch.where(total > 0, cum_rel / total.clamp(min=1), 0.0)

@@ -122,6 +122,8 @@ class Metric(ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
+    # the JAX package's mark of a class whose update runs on the host; the time-window wrappers refuse such a base
+    __jit_ineligible__ = False
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
         object.__setattr__(self, "_defaults", {})
@@ -243,6 +245,9 @@ class Metric(ABC):
     @property
     def dtype(self) -> torch.dtype:
         return self._dtype
+
+    def _has_list_state(self) -> bool:
+        return any(isinstance(v, list) for v in self._defaults.values())
 
     def _copy_state(self) -> Dict[str, Any]:
         return {k: (list(v) if isinstance(v, list) else v) for k, v in self._state.items()}

@@ -25,9 +25,15 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.ops import _native
-from metrics_tpu_torch.utils.data import bincount
+from metrics_tpu_torch.utils.data import bincount, bincount_fixed
 
-__all__ = ["binned_counts", "binned_counts_labels", "binned_counts_labels_plain", "binned_counts_plain"]
+__all__ = [
+    "binned_counts",
+    "binned_counts_labels",
+    "binned_counts_labels_plain",
+    "binned_counts_plain",
+    "histogram_counts",
+]
 
 Counts = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -197,3 +203,27 @@ def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: 
 
 
 binned_counts_labels.launches = 0
+
+
+def _bucket_index(values: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """The bin ``[edges[i], edges[i+1])`` of each value, those below the first edge in the first bin and those at
+    or above the last in the last; ``values`` and ``edges`` of one float type on one device."""
+    return torch.clamp(torch.searchsorted(edges, values, right=True) - 1, 0, edges.shape[0] - 2)
+
+
+def histogram_counts(values: torch.Tensor, valid: torch.Tensor, edges: torch.Tensor) -> torch.Tensor:
+    """Masked counts of ``values`` in the bins ``[edges[i], edges[i+1])``; (len(edges) - 1,) int64.
+
+    The counterpart of the JAX package's ``histogram_counts``, plain tensor
+    operations and no kernel. Values below the first edge count in the first
+    bin and values at or above the last edge in the last; NaNs and masked rows
+    go to a discarded overflow bin. The compare runs in float32 against
+    float32 edges whatever the default float type, as in the JAX package; the
+    counts are ``count_dtype()`` (int64) where the JAX package's are int32,
+    and are added into a tensor of the known size, so the card is never read.
+    """
+    num_bins = edges.shape[0] - 1
+    v = values.to(torch.float32).reshape(-1)
+    ok = valid.to(torch.bool).reshape(-1) & ~torch.isnan(v)
+    idx = _bucket_index(v, edges.to(device=v.device, dtype=torch.float32))
+    return bincount_fixed(torch.where(ok, idx, num_bins), num_bins + 1)[:num_bins]

@@ -241,7 +241,7 @@ class RetrievalPrecisionRecallCurve(RetrievalMetric):
         denom = valid.sum().clamp(min=1)
         precision_k = (precision_kg * valid[None, :]).sum(dim=1) / denom
         recall_k = (recall_kg * valid[None, :]).sum(dim=1) / denom
-        return precision_k, recall_k, torch.arange(1, max_k + 1, device=preds.device)
+        return precision_k, recall_k, torch.arange(1, max_k + 1, dtype=torch.int32, device=preds.device)
 
     def plot(self, curve: Optional[Tuple[Tensor, Tensor, Tensor]] = None, ax: Any = None):
         """Draw the retrieval precision-recall curve, recall along x and precision along y; needs matplotlib."""
@@ -268,10 +268,10 @@ class RetrievalRecallAtFixedPrecision(RetrievalPrecisionRecallCurve):
         p, r, k = precision.cpu().numpy(), recall.cpu().numpy(), ks.cpu().numpy()
         ok = p >= self.min_precision
         if not ok.any():
-            return torch.tensor(0.0, device=self.device), torch.tensor(int(k[-1]), device=self.device)
+            return torch.tensor(0.0, device=self.device), torch.tensor(int(k[-1]), dtype=torch.int32, device=self.device)
         best = int(np.argmax(np.where(ok, r, -1.0)))
         return (torch.tensor(r[best], dtype=torch.float32, device=self.device),
-                torch.tensor(int(k[best]), device=self.device))
+                torch.tensor(int(k[best]), dtype=torch.int32, device=self.device))
 
     def plot(self, val: Any = None, ax: Any = None):
         """The generic value plot of the best recall."""

@@ -227,3 +227,6 @@ class HausdorffDistance(Metric):
     def compute(self) -> torch.Tensor:
         """The mean over every (sample, class) cell so far."""
         return self.score / self.total
+
+
+HausdorffDistance.__jit_ineligible__ = True  # host-side point-set distances, as in the JAX package

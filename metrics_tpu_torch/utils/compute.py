@@ -58,6 +58,12 @@ def log_factorial_table(n: int, device: Union[str, torch.device, None] = None) -
     return torch.lgamma(torch.arange(n + 2, dtype=torch.float64, device=device) + 1)
 
 
+def _flush_subnormals(x: torch.Tensor) -> torch.Tensor:
+    """Float32 subnormals as zero (keeping their sign), as the JAX package's backends read them: XLA runs its CPU and
+    TPU programs with subnormals flushed, so a comparison, a hash or a bin of such a value sees a zero."""
+    return torch.where(x.abs() < torch.finfo(torch.float32).tiny, x * 0.0, x)
+
+
 def neumaier_add(total: torch.Tensor, comp: torch.Tensor, value: torch.Tensor) -> tuple:
     """One Neumaier (improved-Kahan) compensated accumulation step; returns the new ``(total, comp)``.
 

@@ -111,6 +111,21 @@ def bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     return torch.bincount(x.reshape(-1), minlength=minlength)[:minlength]
 
 
+def bincount_fixed(x: torch.Tensor, length: int) -> torch.Tensor:
+    """int64 counts of each value of ``x`` in ``[0, length)``; every value must lie there.
+
+    Unlike :func:`bincount` it never reads the data on the host: ``torch.bincount``
+    reads the maximum back from a CUDA device to size its output, and this one
+    adds into a tensor of the known size.
+
+    >>> bincount_fixed(torch.tensor([0, 2, 2]), length=4)
+    tensor([1, 0, 2, 0])
+    """
+    x = x.reshape(-1)
+    ones = torch.ones(x.shape, dtype=torch.int64, device=x.device)
+    return torch.zeros(length, dtype=torch.int64, device=x.device).index_add_(0, x, ones)
+
+
 def bincount_weighted(x: torch.Tensor, weights: torch.Tensor, minlength: int) -> torch.Tensor:
     """Sums of ``weights`` by the value of ``x`` in ``[0, minlength)``, in the weights' type.
 

@@ -9,3 +9,7 @@ class TPUMetricsUserError(Exception):
     The name is kept from the JAX package so that code catching it works with
     either package.
     """
+
+
+class TPUMetricsUserWarning(UserWarning):
+    """Warning for recoverable user-facing issues (the JAX package's name, kept for the same reason)."""

@@ -1005,3 +1005,122 @@ def test_to_device_mid_stream_and_fingerprints_across_devices(cuda_device):
     assert moved.device.type == "cuda" and all(v.device.type == "cuda" for v in moved.preds)
     assert torch.equal(moved.compute(), single.compute())
     assert single.state_fingerprint() == twin.state_fingerprint() == moved.state_fingerprint()
+
+
+# ----------------------------------------------------------------------------- sketches, windows, drift
+def _syncs(fn):
+    """The synchronizations CUDA's sync debug mode reports during ``fn()``."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _sketch_cases():
+    from metrics_tpu_torch.drift import CUSUM, KSDistance, PSI
+    from metrics_tpu_torch.sketches import DDSketch, HyperLogLog, ReservoirSample, StreamingAUROC, StreamingCalibrationError
+
+    def scores(rng):
+        t = rng.randint(0, 2, 4096)
+        return torch.from_numpy(np.clip(0.3 * t + 0.7 * rng.rand(4096), 0, 1).astype(np.float32)), torch.from_numpy(t)
+
+    def values(rng):
+        v = rng.lognormal(0, 2, 4096).astype(np.float32)
+        v[::50], v[::97] = 0.0, np.nan
+        v[::31] = -v[::31]
+        return (torch.from_numpy(v),)
+
+    return {
+        "HyperLogLog": (lambda d: HyperLogLog(p=12, device=d), lambda rng: (torch.from_numpy(rng.randint(0, 10**6, 4096)),)),
+        "DDSketch": (lambda d: DDSketch(num_buckets=1024, device=d), values),
+        "ReservoirSample": (lambda d: ReservoirSample(k=256, seed=3, device=d), values),
+        "StreamingAUROC": (lambda d: StreamingAUROC(num_bins=512, device=d), scores),
+        "StreamingCalibrationError": (lambda d: StreamingCalibrationError(num_bins=15, device=d), scores),
+        "PSI": (lambda d: PSI(lo=-5.0, hi=5.0, num_bins=32, device=d),
+                lambda rng: (torch.from_numpy(rng.randn(4096).astype(np.float32)),
+                             torch.from_numpy(rng.randn(3000).astype(np.float32)))),
+        "KSDistance": (lambda d: KSDistance(lo=-5.0, hi=5.0, num_bins=32, device=d),
+                       lambda rng: (torch.from_numpy(rng.randn(4096).astype(np.float32)),
+                                    torch.from_numpy(rng.randn(3000).astype(np.float32)))),
+        "CUSUM": (lambda d: CUSUM(target=0.0, k=0.5, h=4.0, device=d),
+                  lambda rng: (torch.from_numpy(rng.randn(512).astype(np.float32)),)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["HyperLogLog", "DDSketch", "ReservoirSample", "StreamingAUROC",
+                                  "StreamingCalibrationError", "PSI", "KSDistance", "CUSUM"])
+def test_sketch_and_drift_classes_on_the_card_equal_the_cpu_without_syncs(cuda_device, name):
+    """Integer states, the reservoir and the histograms equal the CPU run's bit for bit; the confidence sums
+    within rtol 1e-6, and CUSUM's summaries within atol 1e-4: differences of float32 prefix sums of 512 values,
+    which reach tens and are scanned in another order on the card, so they differ by a few ulps of those
+    sums; a later update reads nothing back from the card."""
+    make, batch = _sketch_cases()[name]
+    gpu, cpu = make(cuda_device), make("cpu")
+    rng = np.random.RandomState(11)
+    syncs = []
+    for i in range(4):
+        args = batch(rng)
+        cuda_args = [a.to(cuda_device) for a in args]
+        torch.cuda.synchronize()
+        if i:
+            syncs.append(_syncs(lambda: gpu.update(*cuda_args)))
+        else:
+            gpu.update(*cuda_args)
+        cpu.update(*args)
+    assert syncs == [0, 0, 0], syncs
+    for key, value in cpu.metric_state.items():
+        got = gpu.metric_state[key].cpu()
+        assert got.dtype == value.dtype and got.shape == value.shape, key
+        if name == "CUSUM":
+            torch.testing.assert_close(got, value, rtol=1e-5, atol=1e-4)
+        elif key == "conf_sum":
+            torch.testing.assert_close(got, value, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(got, value), key
+    torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5 if name == "CUSUM" else 1e-6,
+                               atol=1e-4 if name == "CUSUM" else 1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["TimeDecayed", "TimeDecayed[compensated]", "TumblingWindow", "DecayedDDSketch",
+                                  "DecayedHLL"])
+def test_window_classes_on_the_card_equal_the_cpu(cuda_device, name):
+    """Decay weights, pane ids and the decayed sketches' states equal the CPU run's bit for bit; the windows
+    over a base's float sums within rtol 1e-6."""
+    from metrics_tpu_torch import MeanMetric, SumMetric
+    from metrics_tpu_torch.windows import DecayedDDSketch, DecayedHLL, TimeDecayed, TumblingWindow
+
+    makers = {
+        "TimeDecayed": lambda d: TimeDecayed(MeanMetric(nan_strategy="disable", device=d), half_life_s=30.0),
+        "TimeDecayed[compensated]": lambda d: TimeDecayed(MeanMetric(nan_strategy="disable", device=d),
+                                                          half_life_s=30.0, compensated=True),
+        "TumblingWindow": lambda d: TumblingWindow(SumMetric(nan_strategy="disable", device=d), pane_s=6.0, n_panes=5),
+        "DecayedDDSketch": lambda d: DecayedDDSketch(half_life_s=30.0, num_buckets=512, device=d),
+        "DecayedHLL": lambda d: DecayedHLL(half_life_s=30.0, p=10, device=d),
+    }
+    gpu, cpu = makers[name](cuda_device), makers[name]("cpu")
+    rng = np.random.RandomState(12)
+    for i in range(40):
+        t = float(i) - (9.0 if i % 13 == 5 else 0.0)  # a late batch now and then
+        v = torch.from_numpy(rng.lognormal(0, 1, 1024).astype(np.float32))
+        if name == "DecayedHLL":
+            v = torch.from_numpy(rng.randint(0, 5000, 1024))
+        gpu.update(t, v.to(cuda_device))
+        cpu.update(t, v)
+    exact = name.startswith("Decayed")
+    for key, value in cpu.metric_state.items():
+        if key.endswith("_comp"):
+            continue
+        got = gpu.metric_state[key].cpu()
+        if exact or not value.is_floating_point():
+            assert torch.equal(got, value), key
+        else:
+            torch.testing.assert_close(got, value, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-6, atol=0.0)

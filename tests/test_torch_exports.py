@@ -38,6 +38,11 @@ PAIRS = [
     ("metrics_tpu.functional.nominal", "metrics_tpu_torch.functional.nominal"),
     ("metrics_tpu.shape", "metrics_tpu_torch.shape"),
     ("metrics_tpu.functional.shape", "metrics_tpu_torch.functional.shape"),
+    ("metrics_tpu.utils", "metrics_tpu_torch.utils"),
+    ("metrics_tpu.sketches", "metrics_tpu_torch.sketches"),
+    ("metrics_tpu.functional.sketches", "metrics_tpu_torch.functional.sketches"),
+    ("metrics_tpu.windows", "metrics_tpu_torch.windows"),
+    ("metrics_tpu.drift", "metrics_tpu_torch.drift"),
 ]
 
 
@@ -242,3 +247,22 @@ def test_pairwise_clustering_nominal_and_shape_are_whole():
                       or n in ("clustering", "nominal", "shape")]
     assert len(new_functional) == 18
     assert [n for n in metrics_tpu_torch.functional.__all__ if n in new_functional] == new_functional
+
+
+def test_the_streaming_slice_and_utils_are_whole():
+    """The sketch, window and drift domains and ``utils`` export every name of the JAX package's, and the top
+    level and ``functional`` the slice's seventeen and one names, in the JAX package's order."""
+    import metrics_tpu.functional as jf
+
+    for domain in ("utils", "sketches", "windows", "drift", "functional.sketches"):
+        ref = importlib.import_module(f"metrics_tpu.{domain}")
+        port = importlib.import_module(f"metrics_tpu_torch.{domain}")
+        assert port.__all__ == ref.__all__, domain
+    assert len(metrics_tpu_torch.utils.__all__) == 25 and len(metrics_tpu_torch.functional.sketches.__all__) == 18
+    new_top = ["CUSUM", "DDSketch", "DecayedDDSketch", "DecayedHLL", "HyperLogLog", "KSDistance", "MetricLogbook",
+               "PSI", "ReservoirSample", "StreamingAUROC", "StreamingCalibrationError", "TimeDecayed",
+               "TumblingWindow", "drift", "integration", "sketches", "windows"]
+    assert [n for n in metrics_tpu.__all__ if n in new_top] == [n for n in metrics_tpu_torch.__all__ if n in new_top]
+    assert set(new_top) < set(metrics_tpu_torch.__all__)
+    assert "sketches" in jf.__all__ and "sketches" in metrics_tpu_torch.functional.__all__
+    from metrics_tpu_torch.utils import bincount, class_reduce, reduce  # noqa: F401
