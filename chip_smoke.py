@@ -272,6 +272,31 @@ WINDOW_PANE_S, WINDOW_PANES, WINDOW_CPU_UPDATES = 60.0, 60, 300
 SKETCH_SHARDS = 4  # each stream also split into four shards, merged with merge_state on the card
 SKETCH_RTOL = 1e-6  # float sketch states (confidence sums, decayed states) against the CPU run of the same updates
 MERGE_RTOL = 1e-5  # float sums regrouped by the shard merge: up to 44 float32 additions in another association
+# LibriSpeech test-clean: 2,620 utterances of 20 words on average, from a 10,000-word vocabulary with Zipf
+# frequencies; the hypotheses carry about 5 % substitutions, 1 % insertions and 1 % deletions; the character
+# metrics (host DPs) take the first 500; updates of 131 utterances, the CPU check the first update
+LIBRI_UTTS, LIBRI_WORDS, LIBRI_VOCAB, LIBRI_UPDATE, LIBRI_CER_UTTS = 2620, 20, 10_000, 131, 500
+LIBRI_SUB, LIBRI_INS, LIBRI_DEL = 0.05, 0.01, 0.01
+# WMT14 newstest2014 en-de: 3,003 segments of about 22 tokens with one reference, in updates of 273; EED over the
+# first 200 pairs, TER over 8 pairs cut to 15 tokens (its shift search is host Python)
+WMT_SEGS, WMT_TOKENS, WMT_UPDATE, WMT_EED_PAIRS, WMT_TER_PAIRS, WMT_TER_TOKENS = 3003, 22, 273, 200, 8, 15
+# CNN/DailyMail test: summaries of 3-4 sentences, about 55 words; 1,000 of them (of 11,490)
+CNNDM_SUMMARIES = 1000
+# SQuAD v1.1 dev: 10,570 questions with 1-3 reference answers each
+SQUAD_QUESTIONS = 10_570
+# WikiText-103 test in GPT-2 tokens: 30 updates of 8 x 1,024 positions x 50,257 float32 logits (246 K tokens),
+# 1 % of the positions ignore_index -100; the CPU check: the first row of the first update
+WIKI_UPDATES, WIKI_BATCH, WIKI_SEQ, WIKI_VOCAB, WIKI_IGNORE = 30, 8, 1024, 50_257, 0.01
+# Libri2Mix test ("min", 8 kHz): 3,000 mixtures of 2 sources cropped to 4 s (32,000 samples), updates of 16;
+# SDR with 512 taps; C-SI-SNR on 512-point STFTs (hop 128); Libri3Mix: 160 mixtures of 3 sources
+MIX_N, MIX_SPK, MIX_LEN, MIX_UPDATE, MIX_FS, MIX_SDR_TAPS, MIX_NFFT = 3000, 2, 32_000, 16, 8000, 512, 512
+MIX3_N = 160
+# STOI and ESTOI: 200 utterances of 3 s at 16 kHz, speech-like bursts with a silent stretch, noise at 5 dB SNR,
+# updates of 20; SRMR: 100 utterances of 4 s at 16 kHz, 23 cochlear filters, updates of 10
+STOI_N, STOI_SECONDS, STOI_FS, STOI_UPDATE, STOI_SNR_DB = 200, 3.0, 16_000, 20, 5.0
+SRMR_N, SRMR_SECONDS, SRMR_FS, SRMR_UPDATE = 100, 4.0, 16_000, 10
+TEXT_SHARDS = 4  # the WER, BLEU and SI-SDR streams also in four shards, merged on the card
+AUDIO_DB_ATOL, SDR_ATOL, STOI_ATOL, SRMR_RTOL, PPL_RTOL = 1e-4, 0.01, 1e-5, 1e-4, 1e-5
 # the JAX package's error for a plot without matplotlib (``metrics_tpu/utils/plot.py``), which the port repeats
 MATPLOTLIB_ERROR = "Plot function expects `matplotlib` to be installed. Please install with `pip install matplotlib`"
 COCO_NAMES = [
@@ -550,6 +575,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     regression_and_wrappers(seed, wrappers, out, imagenet, imagenet_gpu)
     pairwise_clustering_nominal_shape(seed, wrappers, out)
     sketches_windows_drift(seed, wrappers, out, imagenet, imagenet_gpu)
+    text_and_audio(seed, wrappers, out)
     return out
 
 
@@ -3817,6 +3843,558 @@ def logbook_imagenet(imagenet, imagenet_gpu) -> dict:
     log(f"MetricLogbook: {json.dumps(res)}")
     return res
 
+
+
+# ----------------------------------------------------------------------------- phase 4, text and audio
+AUDIO_NO_SYNC = ("SignalNoiseRatio", "ScaleInvariantSignalDistortionRatio", "ScaleInvariantSignalNoiseRatio",
+                 "SourceAggregatedSignalDistortionRatio", "PermutationInvariantTraining", "SignalDistortionRatio",
+                 "ComplexScaleInvariantSignalNoiseRatio", "MetricCollection[Libri2Mix]")
+
+
+def text_and_audio(seed: int, wrappers: dict, out: dict) -> None:
+    """Text and audio without models, all data synthetic from ``seed``: error rates at LibriSpeech test-clean
+    size, BLEU, SacreBLEU, chrF, chrF++, EED and TER at WMT14 en-de size, ROUGE at CNN/DailyMail size, SQuAD at
+    its dev size, perplexity over WikiText-103 test in GPT-2 tokens, the signal-level metrics over Libri2Mix and
+    PIT over Libri3Mix, STOI and ESTOI, SRMR, and the gated metrics. None launches a kernel. Each is checked
+    against the port's CPU run of a stated subset; the WER, BLEU and SI-SDR streams also in four shards merged
+    on the card; a later audio update that synchronizes with the host fails the run (PIT over three sources
+    reads its matrix once an update, by design)."""
+
+    def counting(name, body):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        result = section(name, body)
+        torch.cuda.synchronize()
+        result.update({"launches": {k: w.launches for k, w in wrappers.items()}, "expected_launches": {}})
+        out[name] = result
+
+    t0 = time.perf_counter()
+    vocab = _vocabulary(np.random.default_rng(seed + 60), LIBRI_VOCAB)
+    counting("LibriSpeech test-clean[WER, MER, WIL, WIP, CER, EditDistance]", lambda: librispeech_error_rates(seed, vocab))
+    counting("WMT14 en-de[BLEU, SacreBLEU 13a, chrF, chrF++, EED, TER]", lambda: wmt_translation(seed, vocab))
+    counting("CNN/DailyMail[ROUGE-1/2/L/Lsum]", lambda: cnndm_rouge(seed, vocab))
+    counting("SQuAD v1.1 dev[EM, F1]", lambda: squad_dev(seed, vocab))
+    counting("WikiText-103 test[Perplexity]", lambda: wikitext_perplexity(seed))
+    counting("Libri2Mix test[SNR, SI-SDR, SI-SNR, SA-SDR, PIT, SDR, C-SI-SNR]", lambda: libri2mix(seed))
+    counting("Libri3Mix[PIT, 3 sources]", lambda: libri3mix(seed))
+    counting("STOI and ESTOI", lambda: stoi_speech(seed))
+    counting("SRMR", lambda: srmr_speech(seed))
+    counting("gated audio metrics[PESQ, DNSMOS, NISQA]", gated_audio)
+    SECTION_S["text_and_audio"] = time.perf_counter() - t0
+
+
+def _vocabulary(rng: np.random.Generator, n: int):
+    """``n`` distinct lowercase words of 2-8 letters and the cumulative Zipf probabilities (exponent 1)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    seen, words = set(), []
+    while len(words) < n:
+        w = "".join(rng.choice(letters, int(rng.integers(2, 9))))
+        if w not in seen:
+            seen.add(w)
+            words.append(w)
+    p = np.cumsum(1.0 / np.arange(1, n + 1))
+    return words, p / p[-1]
+
+
+def _draw(rng, vocab, k):
+    words, cdf = vocab
+    return [words[i] for i in np.minimum(np.searchsorted(cdf, rng.random(k)), len(words) - 1)]
+
+
+def _corrupt_tokens(rng, tokens, vocab, sub, ins, dele):
+    """``tokens`` with each token deleted with probability ``dele``, else replaced with probability ``sub``, and
+    a random word inserted after it with probability ``ins``."""
+    words = vocab[0]
+    out = []
+    for tok, r, q in zip(tokens, rng.random(len(tokens)), rng.random(len(tokens))):
+        if r < dele:
+            continue
+        out.append(words[int(rng.integers(len(words)))] if r < dele + sub else tok)
+        if q < ins:
+            out.append(words[int(rng.integers(len(words)))])
+    return out
+
+
+def _text_metric_run(name, make, batches, ulog, res, cpu_check=True):
+    """``make("cuda")`` fed every batch (timed, syncs counted), its states after the first batch against
+    ``make("cpu")``'s (equal); returns the metric."""
+    metric = make("cuda")
+    for i, batch in enumerate(batches):
+        ulog.run(name, lambda: metric.update(*batch))
+        if i == 0 and cpu_check:
+            cpu = make("cpu")
+            cpu.update(*batch)
+            res.setdefault("max_abs_diff_vs_cpu_first_update", {})[name] = _states_agree(
+                f"{name} first update", metric.metric_state, cpu.metric_state, 0.0)
+    return metric
+
+
+def librispeech_error_rates(seed: int, vocab) -> dict:
+    """WER, MER, WIL and WIP over the 2,620 utterances in updates of 131, the WER stream also in four shards;
+    CER and EditDistance over the first 500 (the character DP is host Python); the first update against the CPU
+    run."""
+    from metrics_tpu_torch.text import (
+        CharErrorRate, EditDistance, MatchErrorRate, WordErrorRate, WordInfoLost, WordInfoPreserved,
+    )
+
+    rng = np.random.default_rng(seed + 61)
+    preds, target = [], []
+    for k in rng.poisson(LIBRI_WORDS - 1, LIBRI_UTTS) + 1:
+        ref = _draw(rng, vocab, int(k))
+        target.append(" ".join(ref))
+        preds.append(" ".join(_corrupt_tokens(rng, ref, vocab, LIBRI_SUB, LIBRI_INS, LIBRI_DEL)))
+    batches = [(preds[i:i + LIBRI_UPDATE], target[i:i + LIBRI_UPDATE]) for i in range(0, LIBRI_UTTS, LIBRI_UPDATE)]
+    ulog = _UpdateLog()
+    res = {"utterances": LIBRI_UTTS, "words": sum(len(t.split()) for t in target),
+           "characters": sum(len(t) for t in target)}
+    metrics = {name: _text_metric_run(name, lambda d, c=cls: c(device=d), batches, ulog, res)
+               for name, cls in (("WordErrorRate", WordErrorRate), ("MatchErrorRate", MatchErrorRate),
+                                 ("WordInfoLost", WordInfoLost), ("WordInfoPreserved", WordInfoPreserved))}
+    shards = [WordErrorRate(device="cuda") for _ in range(TEXT_SHARDS)]
+    for i, batch in enumerate(batches):
+        shards[i % TEXT_SHARDS].update(*batch)
+    cer_batches = [(preds[i:i + 100], target[i:i + 100]) for i in range(0, LIBRI_CER_UTTS, 100)]
+    metrics["CharErrorRate"] = _text_metric_run("CharErrorRate", lambda d: CharErrorRate(device=d), cer_batches,
+                                                ulog, res)
+    metrics["EditDistance"] = _text_metric_run("EditDistance", lambda d: EditDistance(device=d), cer_batches,
+                                               ulog, res)
+    for name, metric in metrics.items():
+        value, ms = _timed(metric.compute)
+        res[name] = ulog.summary(name, ms)
+        n = LIBRI_CER_UTTS if name in ("CharErrorRate", "EditDistance") else LIBRI_UTTS
+        res[name].update({"value": float(value), "update_ms_per_utterance": float(sum(ulog.ms[name])) / n})
+    res["WordErrorRate_merged_4_shards"] = _states_agree("WER merged", _merged(shards).metric_state,
+                                                         metrics["WordErrorRate"].metric_state, 0.0)
+    wer, wil, wip = (res[k]["value"] for k in ("WordErrorRate", "WordInfoLost", "WordInfoPreserved"))
+    expected = LIBRI_SUB + LIBRI_INS + LIBRI_DEL
+    if not abs(wer - expected) < 0.02:
+        fail(f"LibriSpeech WER {wer} against the {expected} the hypotheses were drawn with")
+    if float(np.float32(1.0) - np.float32(wip)) != wil:
+        fail(f"LibriSpeech WIL {wil} is not 1 - WIP ({wip})")
+    log(f"LibriSpeech test-clean error rates: {json.dumps(res)}")
+    return res
+
+
+def _wmt_segments(rng, vocab, n):
+    """(hypotheses, references): about 22 tokens each, some with punctuation attached, a capital, a number, a
+    final full stop; hypotheses with 20 % substitutions, 3 % insertions and deletions, and in 30 % of them two
+    spans of three tokens swapped."""
+    punct = [",", ";", ":", "?", "!", "'s", "%", ")"]
+    hyps, refs = [], []
+    for k in rng.poisson(WMT_TOKENS - 3, n) + 2:
+        toks = _draw(rng, vocab, int(k))
+        for j in np.flatnonzero(rng.random(len(toks)) < 0.12):
+            toks[j] = toks[j] + str(rng.choice(punct))
+        toks[0] = toks[0].capitalize()
+        if rng.random() < 0.2:
+            toks.insert(int(rng.integers(0, len(toks))), str(int(rng.integers(1, 2030))))
+        ref = toks + ["."]
+        hyp = _corrupt_tokens(rng, ref, vocab, 0.2, 0.03, 0.03)
+        if rng.random() < 0.3 and len(hyp) > 6:
+            a = int(rng.integers(0, len(hyp) - 6))
+            hyp = hyp[:a] + hyp[a + 3:a + 6] + hyp[a:a + 3] + hyp[a + 6:]
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(hyp))
+    return hyps, refs
+
+
+def wmt_translation(seed: int, vocab) -> dict:
+    """BLEU, SacreBLEU (13a), chrF and chrF++ over the 3,003 segments in updates of 273, the BLEU stream also in
+    four shards; EED over the first 200 pairs and TER over 8 pairs cut to 15 tokens; the first update (and 20
+    EED, 2 TER pairs) against the CPU run; BLEU's device compute against the CPU's on the same counts."""
+    from metrics_tpu_torch.text import BLEUScore, CHRFScore, ExtendedEditDistance, SacreBLEUScore, TranslationEditRate
+
+    rng = np.random.default_rng(seed + 62)
+    hyps, refs = _wmt_segments(rng, vocab, WMT_SEGS)
+    targets = [[r] for r in refs]
+    batches = [(hyps[i:i + WMT_UPDATE], targets[i:i + WMT_UPDATE]) for i in range(0, WMT_SEGS, WMT_UPDATE)]
+    ulog, res = _UpdateLog(), {"segments": WMT_SEGS, "reference_tokens": sum(len(r.split()) for r in refs)}
+    makers = {"BLEUScore": lambda d: BLEUScore(device=d), "SacreBLEUScore[13a]": lambda d: SacreBLEUScore(device=d),
+              "CHRFScore[chrF]": lambda d: CHRFScore(n_word_order=0, device=d),
+              "CHRFScore[chrF++]": lambda d: CHRFScore(device=d)}
+    metrics = {name: _text_metric_run(name, make, batches, ulog, res) for name, make in makers.items()}
+    shards = [BLEUScore(device="cuda") for _ in range(TEXT_SHARDS)]
+    for i, batch in enumerate(batches):
+        shards[i % TEXT_SHARDS].update(*batch)
+    for name, metric in metrics.items():
+        value, ms = _timed(metric.compute)
+        cpu = makers[name]("cpu")
+        cpu.load_merged_state({k: v.cpu() for k, v in metric.metric_state.items()}, metric.update_count)
+        res[name] = ulog.summary(name, ms)
+        res[name].update({"value": float(value), "abs_diff_vs_cpu_compute": _agree(
+            f"{name} compute", value.cpu(), cpu.compute(), False, 1e-6, 0.0)})
+        if not 0.0 < float(value) < 1.0:
+            fail(f"WMT {name} {float(value)} outside (0, 1)")
+    res["BLEUScore_merged_4_shards"] = _states_agree("BLEU merged", _merged(shards).metric_state,
+                                                     metrics["BLEUScore"].metric_state, 0.0)
+    for name, make, n, n_cpu, cut in (
+            ("ExtendedEditDistance", lambda d: ExtendedEditDistance(device=d), WMT_EED_PAIRS, 20, None),
+            ("TranslationEditRate", lambda d: TranslationEditRate(device=d), WMT_TER_PAIRS, 2, WMT_TER_TOKENS)):
+        h = [" ".join(x.split()[:cut]) for x in hyps[:n]] if cut else hyps[:n]
+        r = [[" ".join(x.split()[:cut])] for x in refs[:n]] if cut else targets[:n]
+        metric = make("cuda")
+        metric.update(h, r)
+        value, ms = _timed(metric.compute)
+        sub_gpu, sub_cpu = make("cuda"), make("cpu")
+        sub_gpu.update(h[:n_cpu], r[:n_cpu])
+        sub_cpu.update(h[:n_cpu], r[:n_cpu])
+        got, want = sub_gpu.compute(), sub_cpu.compute()
+        if got.cpu().numpy().tobytes() != want.numpy().tobytes():
+            fail(f"WMT {name}: the card's {float(got)} over the first {n_cpu} pairs, the CPU's {float(want)}")
+        res[name] = {"pairs": n, "value": float(value), "compute_ms": ms, "seconds_per_pair": ms / 1000 / n,
+                     "cpu_subset_pairs": n_cpu, "equal_to_cpu_subset": True}
+        if cut:
+            res[name]["max_tokens"] = cut
+    log(f"WMT14 en-de translation metrics: {json.dumps(res)}")
+    return res
+
+
+def cnndm_rouge(seed: int, vocab) -> dict:
+    """ROUGE-1, -2, -L and -Lsum over 1,000 summaries of 3-4 sentences (about 55 words, one per line), stored
+    in updates of 100 and scored at compute; the first 100 scored on the CPU too (equal)."""
+    from metrics_tpu_torch.text import ROUGEScore
+
+    rng = np.random.default_rng(seed + 63)
+    preds, target = [], []
+    for _ in range(CNNDM_SUMMARIES):
+        sents = [_draw(rng, vocab, int(rng.integers(11, 18))) for _ in range(int(rng.integers(3, 5)))]
+        target.append("\n".join(" ".join(s) + " ." for s in sents))
+        kept = [s for s in sents if rng.random() > 0.15] or sents[:1]
+        preds.append("\n".join(" ".join(_corrupt_tokens(rng, s, vocab, 0.25, 0.05, 0.1)) + " ." for s in kept))
+    metric, ulog = ROUGEScore(device="cuda"), _UpdateLog()
+    for i in range(0, CNNDM_SUMMARIES, 100):
+        ulog.run("ROUGEScore", lambda: metric.update(preds[i:i + 100], target[i:i + 100]))
+    value, ms = _timed(metric.compute)
+    res = {"summaries": CNNDM_SUMMARIES, "words": sum(len(t.split()) for t in target) // CNNDM_SUMMARIES}
+    res["ROUGEScore"] = ulog.summary("ROUGEScore", ms)
+    res["ROUGEScore"]["values"] = {k: float(v) for k, v in value.items()}
+    sub_gpu, sub_cpu = ROUGEScore(device="cuda"), ROUGEScore(device="cpu")
+    sub_gpu.update(preds[:100], target[:100])
+    sub_cpu.update(preds[:100], target[:100])
+    got, want = sub_gpu.compute(), sub_cpu.compute()
+    if any(got[k].cpu().numpy().tobytes() != want[k].numpy().tobytes() for k in want):
+        fail("CNN/DailyMail ROUGE of the first 100 summaries differs between the card and the CPU")
+    if not 0.0 < res["ROUGEScore"]["values"]["rougeLsum_fmeasure"] < 1.0:
+        fail(f"CNN/DailyMail ROUGE-Lsum {res['ROUGEScore']['values']['rougeLsum_fmeasure']}")
+    log(f"CNN/DailyMail ROUGE: {json.dumps(res)}")
+    return res
+
+
+def squad_dev(seed: int, vocab) -> dict:
+    """SQuAD exact match and F1 over 10,570 questions with 1-3 answers, in updates of 1,057; the predictions
+    are an answer (55 %, with its case or an article changed half the time), an answer with extra words (25 %)
+    or other words; the first update against the CPU run."""
+    from metrics_tpu_torch.text import SQuAD
+
+    rng = np.random.default_rng(seed + 64)
+    preds, target = [], []
+    for q in range(SQUAD_QUESTIONS):
+        answers = [" ".join(_draw(rng, vocab, int(rng.integers(1, 5)))) for _ in range(int(rng.integers(1, 4)))]
+        target.append({"answers": {"answer_start": [0] * len(answers), "text": answers}, "id": f"q{q}"})
+        r = rng.random()
+        if r < 0.55:
+            text = answers[int(rng.integers(len(answers)))]
+            text = ("The " + text.upper()) if rng.random() < 0.5 else text
+        elif r < 0.8:
+            text = " ".join(_draw(rng, vocab, 2)) + " " + answers[0]
+        else:
+            text = " ".join(_draw(rng, vocab, 3))
+        preds.append({"prediction_text": text, "id": f"q{q}"})
+    metric, ulog = SQuAD(device="cuda"), _UpdateLog()
+    step = SQUAD_QUESTIONS // 10
+    for i in range(0, SQUAD_QUESTIONS, step):
+        ulog.run("SQuAD", lambda: metric.update(preds[i:i + step], target[i:i + step]))
+    value, ms = _timed(metric.compute)
+    res = {"questions": SQUAD_QUESTIONS, "SQuAD": ulog.summary("SQuAD", ms)}
+    res["SQuAD"]["values"] = {k: float(v) for k, v in value.items()}
+    sub_gpu, sub_cpu = SQuAD(device="cuda"), SQuAD(device="cpu")
+    sub_gpu.update(preds[:step], target[:step])
+    sub_cpu.update(preds[:step], target[:step])
+    got, want = sub_gpu.compute(), sub_cpu.compute()
+    if any(got[k].cpu().numpy().tobytes() != want[k].numpy().tobytes() for k in want):
+        fail("SQuAD of the first update differs between the card and the CPU")
+    if not 50.0 < res["SQuAD"]["values"]["exact_match"] < 60.0:
+        fail(f"SQuAD exact match {res['SQuAD']['values']['exact_match']} against the 55 % drawn")
+    log(f"SQuAD v1.1 dev: {json.dumps(res)}")
+    return res
+
+
+def wikitext_perplexity(seed: int) -> dict:
+    """Perplexity over 30 updates of 8 x 1,024 positions x 50,257 float32 logits made on the card (standard
+    normal, the target's logit raised by 8), 1 % of the positions ignored; the first row of the first update on
+    the CPU and against a float64 log-softmax."""
+    from metrics_tpu_torch.text import Perplexity
+
+    g = _generator(seed + 65)
+    metric, ulog = Perplexity(ignore_index=-100, device="cuda"), _UpdateLog()
+    res = {"updates": WIKI_UPDATES, "logits_shape": [WIKI_BATCH, WIKI_SEQ, WIKI_VOCAB],
+           "logits_gb_per_update": WIKI_BATCH * WIKI_SEQ * WIKI_VOCAB * 4 / 1e9}
+    shape = (WIKI_BATCH, WIKI_SEQ)
+    for i in range(WIKI_UPDATES):
+        target = torch.randint(0, WIKI_VOCAB, shape, generator=g, device="cuda")
+        logits = torch.randn(*shape, WIKI_VOCAB, generator=g, device="cuda")
+        logits.scatter_add_(2, target[..., None], torch.full((*shape, 1), 8.0, device="cuda"))
+        target = torch.where(torch.rand(shape, generator=g, device="cuda") < WIKI_IGNORE, -100, target)
+        ulog.run("Perplexity", lambda: metric.update(logits, target))
+        if i == 0:
+            row_gpu, row_cpu = Perplexity(ignore_index=-100, device="cuda"), Perplexity(ignore_index=-100, device="cpu")
+            row_gpu.update(logits[:1], target[:1])
+            row_cpu.update(logits[:1].cpu(), target[:1].cpu())
+            res["first_row_vs_cpu"] = _states_agree("Perplexity first row", row_gpu.metric_state,
+                                                    row_cpu.metric_state, PPL_RTOL)
+            t64 = target[:1].reshape(-1)
+            keep = t64 != -100
+            lp = torch.log_softmax(logits[:1].reshape(-1, WIKI_VOCAB).double(), -1)
+            exact = float(-lp[keep].gather(1, t64[keep][:, None]).sum())
+            res["first_row_vs_float64"] = abs(float(row_gpu.total_log_probs) - exact) / exact
+            if res["first_row_vs_float64"] > PPL_RTOL:
+                fail(f"Perplexity's first row {float(row_gpu.total_log_probs)} against float64 {exact}")
+        del logits
+    value, ms = _timed(metric.compute)
+    res["Perplexity"] = ulog.summary("Perplexity", ms)
+    res["Perplexity"].update({"value": float(value), "tokens_scored": int(metric.count),
+                              "bound_ms_per_update": WIKI_BATCH * WIKI_SEQ * WIKI_VOCAB * 4 / HBM_BYTES_PER_S * 1e3})
+    if not (math.isfinite(float(value)) and 1.0 < float(value) < WIKI_VOCAB):
+        fail(f"WikiText-103 perplexity {float(value)}")
+    log(f"WikiText-103 perplexity: {json.dumps(res)}")
+    return res
+
+
+def _mixtures(g: torch.Generator, n: int, spk: int):
+    """(estimates, sources): sources of unit variance; each estimate its source plus 0.2 of the others and 0.1
+    of noise, the estimates' order shuffled in half of the mixtures; and the aligned estimates."""
+    sources = torch.randn(n, spk, MIX_LEN, generator=g, device="cuda")
+    leak = (sources.sum(1, keepdim=True) - sources) * 0.2
+    aligned = sources + leak + 0.1 * torch.randn(n, spk, MIX_LEN, generator=g, device="cuda")
+    order = torch.argsort(torch.rand(n, spk, generator=g, device="cuda"), dim=1)
+    swap = torch.rand(n, 1, generator=g, device="cuda") < 0.5
+    order = torch.where(swap, order, torch.arange(spk, device="cuda"))
+    return torch.gather(aligned, 1, order[..., None].expand_as(aligned)), sources, aligned
+
+
+def _audio_states_agree(name, gpu, cpu, atol_each, rtol=0.0):
+    """``total`` equal; ``sum_value`` within ``atol_each`` dB per value summed, or within ``rtol``."""
+    if int(gpu.total) != int(cpu.total):
+        fail(f"{name}: {int(gpu.total)} values on one side, {int(cpu.total)} on the other")
+    return _agree(f"{name}[sum_value]", gpu.sum_value.cpu(), cpu.sum_value.cpu(), False, rtol,
+                  atol_each * int(cpu.total))
+
+
+def libri2mix(seed: int) -> dict:
+    """SNR, SI-SDR, SI-SNR, SA-SDR and PIT over SI-SDR in one collection, each also alone (its update's time and
+    host syncs), SDR with 512 taps and C-SI-SNR on 512-point STFTs, over 3,000 two-source mixtures of 32,000
+    samples in updates of 16; the SI-SDR stream also in four shards; the first update against the CPU run."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.audio import (
+        ComplexScaleInvariantSignalNoiseRatio, PermutationInvariantTraining, ScaleInvariantSignalDistortionRatio,
+        ScaleInvariantSignalNoiseRatio, SignalDistortionRatio, SignalNoiseRatio, SourceAggregatedSignalDistortionRatio,
+    )
+    from metrics_tpu_torch.functional.audio import permutation_invariant_training, scale_invariant_signal_distortion_ratio
+
+    makers = {
+        "SignalNoiseRatio": lambda d: SignalNoiseRatio(device=d),
+        "ScaleInvariantSignalDistortionRatio": lambda d: ScaleInvariantSignalDistortionRatio(device=d),
+        "ScaleInvariantSignalNoiseRatio": lambda d: ScaleInvariantSignalNoiseRatio(device=d),
+        "SourceAggregatedSignalDistortionRatio": lambda d: SourceAggregatedSignalDistortionRatio(device=d),
+        "PermutationInvariantTraining": lambda d: PermutationInvariantTraining(scale_invariant_signal_distortion_ratio,
+                                                                               device=d),
+    }
+    aligned_makers = {"SignalDistortionRatio": lambda d: SignalDistortionRatio(filter_length=MIX_SDR_TAPS, device=d),
+                      "ComplexScaleInvariantSignalNoiseRatio": lambda d: ComplexScaleInvariantSignalNoiseRatio(device=d)}
+    coll = MetricCollection({k: m("cuda") for k, m in makers.items()}, compute_groups=False)
+    single = {k: m("cuda") for k, m in {**makers, **aligned_makers}.items()}
+    shards = [ScaleInvariantSignalDistortionRatio(device="cuda") for _ in range(TEXT_SHARDS)]
+    window = torch.hann_window(MIX_NFFT, device="cuda")
+
+    def spectra(x):
+        spec = torch.stft(x.reshape(-1, MIX_LEN), MIX_NFFT, hop_length=MIX_NFFT // 4, window=window,
+                          return_complex=True)
+        return spec.reshape(*x.shape[:2], *spec.shape[1:])
+
+    g = _generator(seed + 66)
+    ulog, res = _UpdateLog(), {"mixtures": MIX_N, "samples": MIX_LEN, "sample_rate": MIX_FS}
+    steps = -(-MIX_N // MIX_UPDATE)
+    for i in range(steps):
+        n = min(MIX_UPDATE, MIX_N - i * MIX_UPDATE)
+        est, src, aligned = _mixtures(g, n, MIX_SPK)
+        spec_est, spec_src = spectra(aligned), spectra(src)
+        inputs = {**{k: (est, src) for k in makers}, "SignalDistortionRatio": (aligned, src),
+                  "ComplexScaleInvariantSignalNoiseRatio": (spec_est, spec_src)}
+        ulog.run("MetricCollection[Libri2Mix]", lambda: coll.update(est, src))
+        for name, metric in single.items():
+            ulog.run(name, lambda: metric.update(*inputs[name]))
+        shards[i % TEXT_SHARDS].update(est, src)
+        if i == 0:
+            res["max_abs_diff_vs_cpu_first_update"] = {}
+            for name, make in {**makers, **aligned_makers}.items():
+                cpu = make("cpu")
+                cpu.update(*(x.cpu() for x in inputs[name]))
+                atol = SDR_ATOL if name == "SignalDistortionRatio" else AUDIO_DB_ATOL
+                res["max_abs_diff_vs_cpu_first_update"][name] = _audio_states_agree(
+                    f"Libri2Mix {name} first update", single[name], cpu, atol)
+            best_g, perm_g = permutation_invariant_training(est, src, scale_invariant_signal_distortion_ratio)
+            best_c, perm_c = permutation_invariant_training(est.cpu(), src.cpu(), scale_invariant_signal_distortion_ratio)
+            if not torch.equal(perm_g.cpu(), perm_c):
+                fail("Libri2Mix PIT: the card's permutations differ from the CPU's")
+            res["pit_permutations_equal_cpu_first_update"] = True
+    for name in AUDIO_NO_SYNC:
+        if name in ulog.syncs and any(ulog.syncs[name][1:]):
+            fail(f"Libri2Mix {name}: a later update synchronized with the host {max(ulog.syncs[name][1:])} times")
+    values, ms = _timed(coll.compute)
+    res["MetricCollection[Libri2Mix]"] = ulog.summary("MetricCollection[Libri2Mix]", ms)
+    res["MetricCollection[Libri2Mix]"]["values"] = {k: float(v) for k, v in values.items()}
+    for name, metric in single.items():
+        value, ms = _timed(metric.compute)
+        res[name] = ulog.summary(name, ms)
+        res[name]["value"] = float(value)
+        if name in values and not abs(float(value) - float(values[name])) <= 1e-6 * abs(float(value)):
+            fail(f"Libri2Mix {name}: {float(value)} alone, {float(values[name])} in the collection")
+        if not math.isfinite(float(value)):
+            fail(f"Libri2Mix {name} is {float(value)}")
+    if not res["PermutationInvariantTraining"]["value"] >= res["ScaleInvariantSignalDistortionRatio"]["value"] - 1e-4:
+        fail("Libri2Mix: PIT's best permutation scores below the given order")
+    merged = _merged(shards)
+    res["SI-SDR_merged_4_shards"] = _audio_states_agree("SI-SDR merged", merged, single[
+        "ScaleInvariantSignalDistortionRatio"], 0.0, MERGE_RTOL)
+    log(f"Libri2Mix: {json.dumps(res)}")
+    return res
+
+
+def libri3mix(seed: int) -> dict:
+    """PIT over SI-SDR with three sources (the assignment solved on the host): 160 mixtures in updates of 16;
+    one host synchronization an update (the metric matrix read once); the first update against the CPU run."""
+    from metrics_tpu_torch.audio import PermutationInvariantTraining
+    from metrics_tpu_torch.functional.audio import scale_invariant_signal_distortion_ratio
+
+    g = _generator(seed + 67)
+    metric, ulog = PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device="cuda"), _UpdateLog()
+    res = {"mixtures": MIX3_N, "sources": 3}
+    for i in range(MIX3_N // MIX_UPDATE):
+        est, src, _ = _mixtures(g, MIX_UPDATE, 3)
+        ulog.run("PermutationInvariantTraining", lambda: metric.update(est, src))
+        if i == 0:
+            cpu = PermutationInvariantTraining(scale_invariant_signal_distortion_ratio, device="cpu")
+            cpu.update(est.cpu(), src.cpu())
+            res["max_abs_diff_vs_cpu_first_update"] = _audio_states_agree("Libri3Mix PIT first update", metric, cpu,
+                                                                          AUDIO_DB_ATOL)
+    value, ms = _timed(metric.compute)
+    res["PermutationInvariantTraining"] = ulog.summary("PermutationInvariantTraining", ms)
+    res["PermutationInvariantTraining"]["value"] = float(value)
+    if any(s != 1 for s in ulog.syncs["PermutationInvariantTraining"][1:]):
+        fail(f"Libri3Mix PIT: host syncs per later update {ulog.syncs['PermutationInvariantTraining'][1:]}, not 1")
+    log(f"Libri3Mix PIT: {json.dumps(res)}")
+    return res
+
+
+def _speech_like(rng: np.random.Generator, n: int, fs: int, seconds: float) -> np.ndarray:
+    """(n, seconds * fs) noise in syllable-rate bursts (3-5 Hz) with a silent stretch of 0.4 s at a random
+    place, float32."""
+    length = int(seconds * fs)
+    t = np.arange(length) / fs
+    rate = rng.uniform(3.0, 5.0, (n, 1))
+    x = np.clip(np.sin(2 * np.pi * rate * t + rng.uniform(0, 2 * np.pi, (n, 1))), 0, None) * rng.standard_normal((n, length))
+    starts = rng.integers(0, length - int(0.4 * fs), n)
+    for row, s in zip(x, starts):
+        row[s:s + int(0.4 * fs)] = 0.0
+    return x.astype(np.float32)
+
+
+def stoi_speech(seed: int) -> dict:
+    """STOI and ESTOI over 200 utterances of 3 s at 16 kHz with noise at 5 dB SNR, in updates of 20 (resampled
+    to 10 kHz and silent frames removed on the host); the first update against the CPU run; STOI of the clean
+    utterances against themselves is 1."""
+    from metrics_tpu_torch.audio import ShortTimeObjectiveIntelligibility
+    from metrics_tpu_torch.functional.audio import short_time_objective_intelligibility
+
+    rng = np.random.default_rng(seed + 68)
+    clean = _speech_like(rng, STOI_N, STOI_FS, STOI_SECONDS)
+    power = (clean.astype(np.float64) ** 2).mean(1, keepdims=True)
+    noisy = (clean + np.sqrt(power / 10 ** (STOI_SNR_DB / 10)) * rng.standard_normal(clean.shape)).astype(np.float32)
+    clean_t, noisy_t = torch.from_numpy(clean).cuda(), torch.from_numpy(noisy).cuda()
+    ulog, res = _UpdateLog(), {"utterances": STOI_N, "seconds": STOI_SECONDS, "snr_db": STOI_SNR_DB}
+    for name, extended in (("STOI", False), ("ESTOI", True)):
+        metric = ShortTimeObjectiveIntelligibility(STOI_FS, extended=extended, device="cuda")
+        for i in range(0, STOI_N, STOI_UPDATE):
+            p, t = noisy_t[i:i + STOI_UPDATE], clean_t[i:i + STOI_UPDATE]
+            ulog.run(name, lambda: metric.update(p, t))
+            if i == 0:
+                got = short_time_objective_intelligibility(p, t, STOI_FS, extended)
+                want = short_time_objective_intelligibility(p.cpu(), t.cpu(), STOI_FS, extended)
+                res[f"{name}_max_abs_diff_vs_cpu_first_update"] = _agree(f"{name} first update", got.cpu(), want,
+                                                                         False, 0.0, STOI_ATOL)
+                same = short_time_objective_intelligibility(t, t, STOI_FS, extended)
+                res[f"{name}_clean_against_itself_max_abs_from_1"] = float((same - 1).abs().max())
+                if res[f"{name}_clean_against_itself_max_abs_from_1"] > 1e-6:
+                    fail(f"{name} of clean speech against itself is not 1: {same.tolist()}")
+        value, ms = _timed(metric.compute)
+        res[name] = ulog.summary(name, ms)
+        res[name].update({"value": float(value), "update_ms_per_utterance": float(sum(ulog.ms[name])) / STOI_N})
+        if not 0.0 < float(value) < 1.0:
+            fail(f"{name} at 5 dB SNR is {float(value)}")
+    log(f"STOI and ESTOI: {json.dumps(res)}")
+    return res
+
+
+def srmr_speech(seed: int) -> dict:
+    """SRMR with ``norm=False`` and ``norm=True`` over 100 utterances of 4 s at 16 kHz (23 cochlear filters),
+    in updates of 10; the first two utterances against the CPU run."""
+    from metrics_tpu_torch.audio import SpeechReverberationModulationEnergyRatio
+    from metrics_tpu_torch.functional.audio import speech_reverberation_modulation_energy_ratio
+
+    rng = np.random.default_rng(seed + 69)
+    x = torch.from_numpy(_speech_like(rng, SRMR_N, SRMR_FS, SRMR_SECONDS)).cuda()
+    ulog, res = _UpdateLog(), {"utterances": SRMR_N, "seconds": SRMR_SECONDS, "cochlear_filters": 23}
+    for norm in (False, True):
+        name = f"SRMR[norm={norm}]"
+        metric = SpeechReverberationModulationEnergyRatio(SRMR_FS, norm=norm, device="cuda")
+        for i in range(0, SRMR_N, SRMR_UPDATE):
+            batch = x[i:i + SRMR_UPDATE]
+            ulog.run(name, lambda: metric.update(batch))
+        got = speech_reverberation_modulation_energy_ratio(x[:2], SRMR_FS, norm=norm)
+        want = speech_reverberation_modulation_energy_ratio(x[:2].cpu(), SRMR_FS, norm=norm)
+        value, ms = _timed(metric.compute)
+        res[name] = ulog.summary(name, ms)
+        res[name].update({"value": float(value), "max_abs_diff_vs_cpu_first_2": _agree(
+            f"{name} first two", got.cpu(), want, False, SRMR_RTOL, 0.0)})
+        if not (math.isfinite(float(value)) and float(value) > 0):
+            fail(f"{name} is {float(value)}")
+    log(f"SRMR: {json.dumps(res)}")
+    return res
+
+
+def gated_audio() -> dict:
+    """PESQ, DNSMOS and NISQA, classes and functions, raise ``ModuleNotFoundError`` without ``pesq`` or
+    ``onnxruntime``."""
+    import importlib.util
+
+    import metrics_tpu_torch.audio as ta
+    import metrics_tpu_torch.functional.audio as tfa
+
+    wav = torch.zeros(16000, device="cuda")
+    cases = [("PerceptualEvaluationSpeechQuality", "pesq", lambda: ta.PerceptualEvaluationSpeechQuality(16000, "wb", device="cuda")),
+             ("perceptual_evaluation_speech_quality", "pesq",
+              lambda: tfa.perceptual_evaluation_speech_quality(wav, wav, 16000, "wb")),
+             ("DeepNoiseSuppressionMeanOpinionScore", "onnxruntime",
+              lambda: ta.DeepNoiseSuppressionMeanOpinionScore(16000, device="cuda")),
+             ("deep_noise_suppression_mean_opinion_score", "onnxruntime",
+              lambda: tfa.deep_noise_suppression_mean_opinion_score(wav, 16000)),
+             ("NonIntrusiveSpeechQualityAssessment", "onnxruntime",
+              lambda: ta.NonIntrusiveSpeechQualityAssessment(16000, device="cuda")),
+             ("non_intrusive_speech_quality_assessment", "onnxruntime",
+              lambda: tfa.non_intrusive_speech_quality_assessment(wav, 16000))]
+    res = {}
+    for name, package, call in cases:
+        if importlib.util.find_spec(package) is not None:
+            res[name] = f"{package} is installed"
+            continue
+        try:
+            call()
+        except ModuleNotFoundError as err:
+            res[name] = str(err)
+        else:
+            fail(f"{name} did not raise without {package}")
+    log(f"gated audio metrics: {json.dumps(res)}")
+    return res
 
 
 # ----------------------------------------------------------------------------- phase 5

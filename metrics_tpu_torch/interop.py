@@ -9,7 +9,9 @@ confusion matrices, an aggregator's value with its Neumaier ``_comp``
 companion, list states such as Spearman's kept samples or a retrieval
 metric's rows, the moments of Pearson, concordance, explained variance and
 NRMSE, the image metrics' kept inputs (D_s's and QNR's four lists among them),
-``DiceScore``'s per-sample sums, ``MeanAveragePrecision``'s per-image host arrays, and every wrapper's
+``DiceScore``'s per-sample sums, ``MeanAveragePrecision``'s per-image host arrays, the string stores of
+ROUGE, TER, EED and SQuAD (which the JAX package's ``state_dict()`` leaves out: add its ``_preds_store`` and
+``_target_store`` lists to the dict), and every wrapper's
 children (a ``BootStrapper``'s or ``MultioutputWrapper``'s copies, a
 ``MetricTracker``'s steps, a ``MultitaskWrapper``'s tasks).
 :func:`load_reference_collection_state` does the same for a whole
@@ -77,7 +79,10 @@ def _host_item(v: Any) -> Any:
 
 def _install(metric: Metric, converted: Dict[str, Any], count: int) -> None:
     for name, value in converted.items():
-        metric._state[name] = value
+        if name in metric._state:
+            metric._state[name] = value
+        else:
+            setattr(metric, name, value)
     metric._update_count = count
     metric._computed = None
 
@@ -88,7 +93,7 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
     Every key, shape and dtype kind is validated before anything is
     installed, so a mismatch leaves the metric as it was:
 
-    * the keys must be exactly the metric's states plus ``_update_count``;
+    * the keys must be exactly the metric's states plus ``_update_count`` (and its host stores, if any);
     * a fixed-shape state must have the port's shape and dtype kind (bool,
       signed int, float): int32 counters load into int64 states; a state
       with ``dist_reduce_fx=None`` (moments the metric folds itself) may
@@ -100,19 +105,26 @@ def _convert_reference_state(metric: Metric, state: Dict[str, Any]) -> Tuple[Dic
       arrays, ``None`` areas, empty mask lists) takes copies of them as they are.
     """
     names = set(metric._defaults)
+    stores = set(getattr(metric, "_host_stores", ()))
     keys = set(state)
-    if keys != names | {"_update_count"}:
-        missing = sorted((names | {"_update_count"}) - keys)
-        unknown = sorted(keys - names - {"_update_count"})
+    expected = names | stores | {"_update_count"}
+    if keys != expected:
+        missing = sorted(expected - keys)
+        unknown = sorted(keys - expected)
         raise ValueError(
             f"{type(metric).__name__}: reference state does not match (missing {missing}, unknown {unknown});"
             " the reference metric must be of the same class and configuration, with persistent(True)"
+            + (f", and its {sorted(stores)} added to the dict" if stores else "")
         )
     count = state["_update_count"]
     if isinstance(count, bool) or not isinstance(count, (int, np.integer)) or count < 0:
         raise ValueError(f"_update_count must be a non-negative int, got {count!r}")
 
     converted: Dict[str, Any] = {}
+    for name in sorted(stores):
+        if not isinstance(state[name], (list, tuple)):
+            raise ValueError(f"{name!r} must be a list of the reference metric's stored inputs")
+        converted[name] = list(state[name])
     for name in sorted(names):
         default = metric._defaults[name]
         value = state[name]
@@ -196,6 +208,7 @@ def _same_states(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
     for k in a:
         x, y = a[k], b[k]
         xs, ys = (x, y) if isinstance(x, list) else ([x], [y])
-        if len(xs) != len(ys) or not all(torch.equal(u, v) for u, v in zip(xs, ys)):
+        if len(xs) != len(ys) or not all(
+                torch.equal(u, v) if isinstance(u, torch.Tensor) else u == v for u, v in zip(xs, ys)):
             return False
     return True

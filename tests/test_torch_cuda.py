@@ -1124,3 +1124,104 @@ def test_window_classes_on_the_card_equal_the_cpu(cuda_device, name):
         else:
             torch.testing.assert_close(got, value, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-6, atol=0.0)
+
+
+# ----------------------------------------------------------------------------- text and audio
+@pytest.mark.cuda
+def test_sdr_batched_solves_on_the_card_match_the_cpu_without_a_host_sync(cuda_device):
+    """SDR's 512 x 512 Toeplitz systems, a batch of them solved by ``solve_ex`` without its error check: later
+    updates read nothing back, and the values agree with the CPU run within 0.01 dB."""
+    from metrics_tpu_torch.audio import SignalDistortionRatio
+
+    gpu, cpu = SignalDistortionRatio(device=cuda_device), SignalDistortionRatio(device="cpu")
+    rng = np.random.default_rng(70)
+    syncs = []
+    for i in range(3):
+        target = torch.from_numpy(rng.standard_normal((4, 2, 8000)).astype(np.float32))
+        preds = target + 0.3 * torch.from_numpy(rng.standard_normal((4, 2, 8000)).astype(np.float32))
+        p, t = preds.to(cuda_device), target.to(cuda_device)
+        torch.cuda.synchronize()
+        if i:
+            syncs.append(_syncs(lambda: gpu.update(p, t)))
+        else:
+            gpu.update(p, t)
+        cpu.update(preds, target)
+    assert syncs == [0, 0], syncs
+    assert int(gpu.total) == int(cpu.total) == 24
+    torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=0.0, atol=0.01)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ignore_index", [None, -100])
+def test_perplexity_at_gpt2_vocabulary_on_the_card_matches_the_cpu(cuda_device, ignore_index):
+    """Logits of GPT-2's 50,257 tokens: the count equal, the sum of log-probabilities within rtol 1e-5."""
+    from metrics_tpu_torch.text import Perplexity
+
+    gpu, cpu = Perplexity(ignore_index, device=cuda_device), Perplexity(ignore_index, device="cpu")
+    g = torch.Generator().manual_seed(71)
+    for _ in range(2):
+        logits = 4 * torch.randn(2, 64, 50257, generator=g)
+        target = torch.randint(0, 50257, (2, 64), generator=g)
+        if ignore_index is not None:
+            target[torch.rand(2, 64, generator=g) < 0.1] = ignore_index
+        gpu.update(logits.to(cuda_device), target.to(cuda_device))
+        cpu.update(logits, target)
+    assert gpu.count.dtype == torch.int64 and int(gpu.count) == int(cpu.count)
+    torch.testing.assert_close(gpu.total_log_probs.cpu(), cpu.total_log_probs, rtol=1e-5, atol=0.0)
+    torch.testing.assert_close(gpu.compute().cpu(), cpu.compute(), rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spk", [2, 3])
+def test_pit_on_the_card_matches_the_cpu(cuda_device, spk):
+    """Permutations equal and values within 1e-4 dB; two speakers read nothing back, three read the metric
+    matrix once for the assignment."""
+    from metrics_tpu_torch.functional.audio import permutation_invariant_training, scale_invariant_signal_distortion_ratio
+
+    rng = np.random.default_rng(72 + spk)
+    target = torch.from_numpy(rng.standard_normal((16, spk, 4000)).astype(np.float32))
+    preds = target[:, torch.randperm(spk)] + 0.5 * torch.from_numpy(rng.standard_normal((16, spk, 4000)).astype(np.float32))
+    p, t = preds.to(cuda_device), target.to(cuda_device)
+    permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)
+    torch.cuda.synchronize()
+    out = {}
+    syncs = _syncs(lambda: out.update(gpu=permutation_invariant_training(p, t, scale_invariant_signal_distortion_ratio)))
+    best_cpu, perm_cpu = permutation_invariant_training(preds, target, scale_invariant_signal_distortion_ratio)
+    best_gpu, perm_gpu = out["gpu"]
+    assert syncs == (0 if spk == 2 else 1), syncs
+    assert torch.equal(perm_gpu.cpu(), perm_cpu)
+    torch.testing.assert_close(best_gpu.cpu(), best_cpu, rtol=0.0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("norm", [False, True])
+def test_srmr_on_the_card_matches_the_cpu(cuda_device, norm):
+    from metrics_tpu_torch.functional.audio import speech_reverberation_modulation_energy_ratio
+
+    rng = np.random.default_rng(74)
+    t = np.arange(32000) / 16000
+    x = torch.from_numpy(np.stack([(1 + np.sin(2 * np.pi * f * t)) * rng.standard_normal(32000)
+                                   for f in (3.0, 7.0, 12.0)]).astype(np.float32))
+    got = speech_reverberation_modulation_energy_ratio(x.to(cuda_device), 16000, norm=norm)
+    want = speech_reverberation_modulation_energy_ratio(x, 16000, norm=norm)
+    assert got.device.type == "cuda"
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extended", [False, True])
+def test_stoi_on_the_card_matches_the_cpu(cuda_device, extended):
+    from metrics_tpu_torch.functional.audio import short_time_objective_intelligibility
+
+    rng = np.random.default_rng(75)
+    n, fs = 48000, 16000
+    env = np.clip(np.sin(2 * np.pi * 2.3 * np.arange(n) / fs), 0, None)
+    clean = env * rng.standard_normal((4, n))
+    noisy = clean + np.array([0.1, 0.5, 1.0, 3.0])[:, None] * rng.standard_normal((4, n))
+    p, t = torch.from_numpy(noisy.astype(np.float32)), torch.from_numpy(clean.astype(np.float32))
+    got = short_time_objective_intelligibility(p.to(cuda_device), t.to(cuda_device), fs, extended)
+    want = short_time_objective_intelligibility(p, t, fs, extended)
+    assert got.device.type == "cuda" and got.dtype == torch.float32
+    torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
+    same = short_time_objective_intelligibility(t.to(cuda_device), t.to(cuda_device), fs, extended)
+    torch.testing.assert_close(same.cpu(), torch.ones(4), rtol=0.0, atol=1e-6)

@@ -43,6 +43,10 @@ PAIRS = [
     ("metrics_tpu.functional.sketches", "metrics_tpu_torch.functional.sketches"),
     ("metrics_tpu.windows", "metrics_tpu_torch.windows"),
     ("metrics_tpu.drift", "metrics_tpu_torch.drift"),
+    ("metrics_tpu.text", "metrics_tpu_torch.text"),
+    ("metrics_tpu.functional.text", "metrics_tpu_torch.functional.text"),
+    ("metrics_tpu.audio", "metrics_tpu_torch.audio"),
+    ("metrics_tpu.functional.audio", "metrics_tpu_torch.functional.audio"),
 ]
 
 
