@@ -111,7 +111,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    ImageNet-1k epochs; each against the port's CPU run of a stated subset, its
    four shards merged on the card against the single stream, and exact
    answers where they exist; a later sketch or drift update that synchronizes
-   with the host fails the run;
+   with the host fails the run; then text and audio without models
+   (``text_and_audio``); last, ``observe_and_durability``, whose launches are
+   counted apart from the main path's: the ImageNet-1k and COCO-80 collections
+   under ``observe.scope()`` (update counts, the timeline, host syncs equal with
+   telemetry off and on, the profiler range around the binned-counts launch,
+   p50/p99, a flagship update's host ms off and on), input guards (states
+   bit-equal after a NaN batch, no added host sync, ``raise_on_host``),
+   checkpoints saved from the card and restored on the card and on the CPU with
+   equal fingerprints (the two collections and a 200 MB cat state; MB and MB/s),
+   a flipped byte, another config, the periodic checkpointer, the exact AUROC and
+   MAP over 5,000 COCO images refused on restore as in the JAX package, and a
+   watchdog rule on the update p99 that fires and resolves;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -576,6 +587,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
     pairwise_clustering_nominal_shape(seed, wrappers, out)
     sketches_windows_drift(seed, wrappers, out, imagenet, imagenet_gpu)
     text_and_audio(seed, wrappers, out)
+    APART["observe_and_durability"] = section("observe_and_durability", observe_and_durability, seed, wrappers,
+                                              imagenet)
     return out
 
 
@@ -816,6 +829,24 @@ def imagenet_members(d):
             tc.MulticlassConfusionMatrix(num_classes=IN_CLASSES, device=d)]
 
 
+def coco80_batch(rng: np.random.Generator):
+    """One update of the COCO-80 multilabel inputs: ``ML_N`` images x 80 labels, about 3.6 % present, scores
+    leaning towards the present labels."""
+    target = (rng.random((ML_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)
+    preds = ((rng.random((ML_N, ML_LABELS), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+def coco80_collection(d):
+    """Multilabel AP and AUROC over the COCO-80 inputs in one collection, their compute group given."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch import classification as tc
+
+    return MetricCollection([tc.MultilabelAveragePrecision(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device=d),
+                             tc.MultilabelAUROC(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device=d)],
+                            compute_groups=[["MultilabelAveragePrecision", "MultilabelAUROC"]])
+
+
 def collections_and_sync(seed: int, wrappers: dict, out: dict):
     """The collection, aggregation and sync layer on the main path; each run with every wrapper's launch count
     set to 0 just before it and read just after, and its expected launches."""
@@ -914,12 +945,7 @@ def collections_and_sync(seed: int, wrappers: dict, out: dict):
         f" against {row['members_alone_sum_ms']:.3f} ms for its members alone ({alone})")
 
     # 2. multilabel AP and AUROC over the COCO-80 inputs, one compute group
-    def coco_batch():
-        target = (rng.random((ML_N, ML_LABELS)) < ML_POSITIVE).astype(np.int64)
-        preds = ((rng.random((ML_N, ML_LABELS), dtype=np.float32) + 0.5 * target) / 1.5).astype(np.float32)
-        return torch.from_numpy(preds), torch.from_numpy(target)
-
-    coco = [coco_batch() for _ in range(PRC_STEPS)]
+    coco = [coco80_batch(rng) for _ in range(PRC_STEPS)]
     coco_gpu = [(p.cuda(), t.cuda()) for p, t in coco]
     pair = ["MultilabelAveragePrecision", "MultilabelAUROC"]
     for label, groups_arg, launches in [("given", [pair], PRC_STEPS), ("detected", True, PRC_STEPS + 1)]:
@@ -4398,6 +4424,447 @@ def gated_audio() -> dict:
 
 
 # ----------------------------------------------------------------------------- phase 5
+# ----------------------------------------------------------------------------- phase 4, observe and durability
+WATCHED_UPDATES = 3  # later updates watched in CUDA's sync debug mode, each way (telemetry off and on, guarded)
+HOST_MS_UPDATES = 20  # host-timed updates of each variant, in the turns off, on, on, off
+APART: dict = {}  # sections whose launches are counted apart from the main path's
+
+
+def _syncs(fn) -> int:
+    """Host synchronizations of ``fn()`` under CUDA's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def _host_ms(fn) -> float:
+    """Host ms of ``fn()``: the time to enqueue it, the card idle before and waited for after, outside the
+    timing."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    ms = 1000 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return ms
+
+
+def _in_turns(variants: dict, n: int, setup: dict = None) -> dict:
+    """Median host ms of each variant's call, ``n`` calls a turn, in the turns a, b, b, a (for two);
+    ``setup[name]()``, untimed, starts each of its turns."""
+    names = list(variants)
+    order = names + names[::-1]
+    times = {k: [] for k in names}
+    for name in order:
+        if setup:
+            setup[name]()
+        times[name] += [_host_ms(variants[name]) for _ in range(n)]
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def _bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        return torch.equal(a.view(bits), b.view(bits))
+    return torch.equal(a, b)
+
+
+def _counting_updates(collection, calls: dict) -> None:
+    """Wrap each member's ``update`` to count, in ``calls`` by class, the calls the collection makes."""
+    for name, metric in collection.items():
+        inner = metric.update
+        calls[type(metric).__name__] = 0
+
+        def counted(*args, _inner=inner, _key=type(metric).__name__, **kwargs):
+            calls[_key] += 1
+            return _inner(*args, **kwargs)
+
+        object.__setattr__(metric, "update", counted)
+
+
+def _nccl_world_of_one():
+    """An NCCL process group of one in a fresh store; the caller destroys it."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/store", world_size=1, rank=0)
+    return dist
+
+
+def observe_and_durability(seed: int, wrappers: dict, imagenet) -> dict:
+    """The observe runtime and durability over the main path's inputs: the ImageNet-1k collection and the
+    COCO-80 AP + AUROC collection under ``observe.scope()`` (snapshot counts, the Chrome trace, the host syncs
+    that telemetry adds, the ``record_function`` range around the binned-counts launch, the latency quantiles,
+    a flagship update's host ms off and on); input guards (states bit-equal after a NaN batch, host syncs and
+    host ms guarded and not, ``raise_on_host``); checkpoints from the card (the ImageNet and COCO
+    collections, a 200 MB cat state, restored on the card and on the CPU with equal fingerprints; an exact
+    AUROC and MAP at COCO val2017 scale saved and, as in the JAX package, refused; a corrupt file, another
+    config, the periodic checkpointer); the watchdog over the run's recorder. Launches here are counted apart
+    from the main path's."""
+    dev = torch.device("cuda")
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    rng = np.random.default_rng(seed + 90)
+    imagenet_dev = [(p.to(dev), t.to(dev)) for p, t in imagenet]
+    coco = [coco80_batch(rng) for _ in range(PRC_STEPS)]
+    coco_dev = [(p.to(dev), t.to(dev)) for p, t in coco]
+    acc_batch = (torch.from_numpy(rng.random((ACC_BATCH, ACC_CLASSES), dtype=np.float32)).to(dev),
+                 torch.from_numpy(rng.integers(0, ACC_CLASSES, ACC_BATCH)).to(dev))
+    res = {}
+    t0 = time.perf_counter()
+    res["telemetry"] = _telemetry_checks(imagenet_dev, coco_dev, acc_batch, dev)
+    res["guards"] = _guard_checks(coco_dev, acc_batch, dev)
+    res["checkpoints"] = _checkpoint_checks(seed, imagenet_dev, coco_dev, dev)
+    res["watchdog"] = _watchdog_checks(acc_batch, dev)
+    res["seconds"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    res["launches_counted_apart"] = {k: w.launches for k, w in wrappers.items()}
+    if res["launches_counted_apart"]["binned_counts"] < 1:
+        fail("observe_and_durability: the COCO-80 collection launched no binned counts")
+    return res
+
+
+def _telemetry_checks(imagenet_dev, coco_dev, acc_batch, dev) -> dict:
+    import tempfile
+
+    from metrics_tpu_torch import MetricCollection, observe
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.ops.profile import kernels_inside
+
+    out = {}
+    with observe.scope():
+        img, coco = MetricCollection(imagenet_members(dev)), coco80_collection(dev)
+        calls: dict = {}
+        _counting_updates(img, calls)
+        _counting_updates(coco, calls)
+        for p, t in imagenet_dev:
+            img.update(p, t)
+        for p, t in coco_dev:
+            coco.update(p, t)
+        img.compute()
+        coco.compute()
+        dist = _nccl_world_of_one()
+        try:
+            acc = img["MulticlassAccuracy"]
+            acc.sync(distributed_available=True)
+            acc.unsync()
+        finally:
+            dist.destroy_process_group()
+        snap = observe.snapshot()
+        made = {k: v for k, v in calls.items() if v}
+        if snap["counters"].get("update_eager") != made:
+            fail(f"telemetry: update counts {snap['counters'].get('update_eager')}, updates made {made}")
+        trace = json.loads(json.dumps(observe.timeline()))
+        phases = {e["cat"] for e in trace["traceEvents"]}
+        if not {"update", "compute", "sync", "gather_all"} <= phases:
+            fail(f"telemetry: the timeline's phases are {sorted(phases)}")
+        out.update({"update_counts": made, "spans_total": trace["otherData"]["spans_total"],
+                    "timeline_phases": sorted(phases), "sync_bytes": snap["counters"].get("sync_bytes", {}),
+                    "explicit_transfers": snap["counters"].get("explicit_transfer", {})})
+        # what telemetry adds to a later update's host syncs: each collection's updates watched off and on
+        syncs = {}
+        for name, col, batches in (("ImageNet collection", img, imagenet_dev), ("COCO-80 collection", coco, coco_dev)):
+            for mode in ("off", "on"):
+                (observe.disable if mode == "off" else observe.enable)()
+                syncs[f"{name}[{mode}]"] = max(_syncs(lambda: col.update(*batches[i % len(batches)]))
+                                               for i in range(WATCHED_UPDATES))
+            observe.enable()
+            if syncs[f"{name}[on]"] != syncs[f"{name}[off]"]:
+                fail(f"telemetry adds host syncs to a later {name} update: {syncs}")
+        out["host_syncs_per_later_update"] = syncs
+        # the span's profiler range around the binned-counts launch
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            coco.update(*coco_dev[0])
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            prof.export_chrome_trace(os.path.join(tmp, "trace.json"))
+            with open(os.path.join(tmp, "trace.json")) as fh:
+                ktrace = json.load(fh)
+        names = {e.get("name") for e in ktrace.get("traceEvents", [])}
+        if "update:MultilabelAveragePrecision" not in names:
+            fail("telemetry: no update:MultilabelAveragePrecision range in the profiler's trace")
+        inside = kernels_inside(ktrace, "update:MultilabelAveragePrecision")
+        binned = sum("binned_counts" in k for k in inside)
+        out["kernels_inside_update_range"] = {"binned_counts": binned, "others": len(inside) - binned}
+        if binned != 1:
+            fail(f"telemetry: {binned} binned-counts launches inside the update range, expected 1")
+        latency = observe.snapshot()["latency"]
+        out["latency_ms"] = {f"{phase}:{label}": {"count": agg["count"], "p50": 1000 * agg["p50_s"],
+                                                   "p99": 1000 * agg["p99_s"]}
+                             for phase, by in latency.items() for label, agg in by.items()}
+        # a later flagship update (MulticlassAccuracy, 10 classes, micro) on the host, telemetry off and on
+        flag = tc.MulticlassAccuracy(num_classes=ACC_CLASSES, average="micro", device=dev)
+        for _ in range(3):
+            flag.update(*acc_batch)
+
+        def update():
+            flag.update(*acc_batch)
+
+        out["flagship_update_host_ms"] = _in_turns({"off": update, "on": update}, HOST_MS_UPDATES,
+                                                   {"off": observe.disable, "on": observe.enable})
+    log(f"observe telemetry: {json.dumps(out)}")
+    return out
+
+
+def _guard_checks(coco_dev, acc_batch, dev) -> dict:
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.resilience import GUARD_STATE, PoisonedInputError, install_guard, poisoned_count
+
+    def acc():
+        return tc.MulticlassAccuracy(num_classes=ACC_CLASSES, average="micro", device=dev)
+
+    def ap():
+        return tc.MultilabelAveragePrecision(num_labels=ML_LABELS, thresholds=PRC_THRESHOLDS, device=dev)
+
+    def poison(batch):
+        preds = batch[0].clone()
+        preds[0, 0] = float("nan")
+        return preds, batch[1]
+
+    out = {"bit_equal_after_nan_batch": {}, "host_syncs_per_later_update": {}, "host_ms": {}}
+    for name, make, batch in (("MulticlassAccuracy", acc, acc_batch), ("MultilabelAveragePrecision", ap, coco_dev[0])):
+        m = install_guard(make(), "skip_batch")
+        m.update(*batch)
+        m.update(*batch)
+        before = {k: v.clone() for k, v in m.metric_state.items()}
+        m.update(*poison(batch))
+        same = all(_bit_equal(v, m.metric_state[k]) for k, v in before.items() if k != GUARD_STATE)
+        if not same or poisoned_count(m) != 1:
+            fail(f"guard skip_batch: {name} states changed by the NaN batch or counter {poisoned_count(m)}")
+        out["bit_equal_after_nan_batch"][name] = True
+        for policy in (None, "skip_batch", "propagate"):
+            g = make() if policy is None else install_guard(make(), policy)
+            g.update(*batch)
+            out["host_syncs_per_later_update"][f"{name}[{policy or 'unguarded'}]"] = max(
+                _syncs(lambda: g.update(*batch)) for _ in range(WATCHED_UPDATES))
+        base = out["host_syncs_per_later_update"][f"{name}[unguarded]"]
+        for policy in ("skip_batch", "propagate"):
+            if out["host_syncs_per_later_update"][f"{name}[{policy}]"] != base:
+                fail(f"guard {policy} adds host syncs to a later {name} update: {out['host_syncs_per_later_update']}")
+        plain, guarded = make(), install_guard(make(), "skip_batch")
+        plain.update(*batch)
+        guarded.update(*batch)
+        out["host_ms"][name] = _in_turns({"unguarded": lambda: plain.update(*batch),
+                                          "skip_batch": lambda: guarded.update(*batch)}, HOST_MS_UPDATES)
+    loud = install_guard(acc(), "raise_on_host")
+    loud.update(*acc_batch)
+    before = {k: v.clone() for k, v in loud.metric_state.items()}
+    try:
+        loud.update(*poison(acc_batch))
+        fail("guard raise_on_host: a NaN batch did not raise PoisonedInputError")
+    except PoisonedInputError:
+        pass
+    if not all(_bit_equal(v, loud.metric_state[k]) for k, v in before.items() if k != GUARD_STATE):
+        fail("guard raise_on_host: the states changed")
+    out["raise_on_host"] = {"raised": "PoisonedInputError", "states_intact": True, "counter": poisoned_count(loud),
+                            "host_syncs_per_later_update": max(_syncs(lambda: loud.update(*acc_batch))
+                                                               for _ in range(WATCHED_UPDATES))}
+    log(f"guards: {json.dumps(out)}")
+    return out
+
+
+def _fingerprints(obj) -> dict:
+    from metrics_tpu_torch import MetricCollection
+
+    if isinstance(obj, MetricCollection):
+        return {name: m.state_fingerprint() for name, m in obj.items()}
+    return {type(obj).__name__: obj.state_fingerprint()}
+
+
+def _round_trip(name, obj, make, path, rtol) -> dict:
+    """Save ``obj`` from the card; restore into ``make("cuda")`` and ``make("cpu")``; fingerprints and
+    ``compute()`` held to the original's."""
+    from metrics_tpu_torch.resilience import restore_checkpoint, save_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(obj, path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    row = {"mb": mb, "save_s": save_s, "save_mb_per_s": mb / save_s}
+    want_fp, want = _fingerprints(obj), obj.compute()
+    want = {k: v.cpu() for k, v in want.items()} if isinstance(want, dict) else want.cpu()
+    for where in ("cuda", "cpu"):
+        target = make(where)
+        t0 = time.perf_counter()
+        restore_checkpoint(target, path)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if _fingerprints(target) != want_fp:
+            fail(f"checkpoint {name}: the state fingerprints restored on {where} differ")
+        got = target.compute()
+        exact = where == "cuda"
+        diff = (_agree_dict(f"{name} restored on {where}", got, want, exact, rtol) if isinstance(want, dict)
+                else _agree(f"{name} restored on {where}", got, want, exact, rtol))
+        row[f"restore_s[{where}]"] = restore_s
+        row[f"restore_mb_per_s[{where}]"] = mb / restore_s
+        row[f"max_abs_diff[{where}]"] = diff
+    log(f"checkpoint {name}: {json.dumps(row)}")
+    return row
+
+
+def _refused_restore(name, obj, make, path, match) -> dict:
+    """Save ``obj``; its restore into ``make("cuda")`` and ``make("cpu")`` must raise the JAX package's
+    ``IncompatibleCheckpointError`` whose message holds ``match``."""
+    from metrics_tpu_torch.resilience import IncompatibleCheckpointError, restore_checkpoint, save_checkpoint
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(obj, path)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 1e6
+    for where in ("cuda", "cpu"):
+        target = make(where)
+        try:
+            restore_checkpoint(target, path)
+            fail(f"checkpoint {name}: restored on {where}, where the JAX package refuses it")
+        except IncompatibleCheckpointError as exc:
+            if match not in str(exc):
+                fail(f"checkpoint {name}: refused for another reason: {exc}")
+        if target.update_count != 0:
+            fail(f"checkpoint {name}: the refused restore changed the target")
+    row = {"mb": mb, "save_s": save_s, "save_mb_per_s": mb / save_s, "restore": "IncompatibleCheckpointError",
+           "reason": match}
+    log(f"checkpoint {name}: {json.dumps(row)}")
+    return row
+
+
+def _checkpoint_checks(seed, imagenet_dev, coco_dev, dev) -> dict:
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch import CatMetric, MetricCollection
+    from metrics_tpu_torch import classification as tc
+    from metrics_tpu_torch.detection import MeanAveragePrecision
+    from metrics_tpu_torch.resilience import (
+        CorruptCheckpointError,
+        IncompatibleCheckpointError,
+        PeriodicCheckpointer,
+        SnapshotPolicy,
+        restore_checkpoint,
+    )
+
+    out = {}
+    tmp = tempfile.mkdtemp()
+    try:
+        img = MetricCollection(imagenet_members(dev))
+        for p, t in imagenet_dev:
+            img.update(p, t)
+        path = os.path.join(tmp, "imagenet.ckpt")
+        out["ImageNet-1k collection"] = _round_trip("ImageNet-1k collection", img,
+                                                    lambda d: MetricCollection(imagenet_members(d)), path,
+                                                    STAT_RTOL)
+        blob = bytearray(open(path, "rb").read())
+        blob[-1] ^= 0xFF
+        with open(os.path.join(tmp, "flipped.ckpt"), "wb") as fh:
+            fh.write(bytes(blob))
+        try:
+            restore_checkpoint(MetricCollection(imagenet_members(dev)), os.path.join(tmp, "flipped.ckpt"))
+            fail("checkpoint: a flipped payload byte was restored")
+        except CorruptCheckpointError as exc:
+            out["flipped_payload_byte"] = str(exc).rsplit(": ", 1)[-1]
+        other = imagenet_members(dev)
+        other[0] = tc.MulticlassAccuracy(num_classes=IN_CLASSES, average="macro", device=dev)
+        try:
+            restore_checkpoint(MetricCollection(other), path)
+            fail("checkpoint: restored into another configuration")
+        except IncompatibleCheckpointError as exc:
+            out["another_config"] = "config fingerprint mismatch" if "fingerprint" in str(exc) else str(exc)
+        cat = CatMetric(device=dev)
+        for p, _ in imagenet_dev:
+            cat.update(p)
+        out["CatMetric[50,000 x 1000 scores]"] = _round_trip(
+            "CatMetric[50,000 x 1000 scores]", cat, lambda d: CatMetric(device=d), os.path.join(tmp, "cat.ckpt"),
+            0.0)
+        del cat
+        exact = tc.MulticlassAUROC(num_classes=IN_CLASSES, thresholds=None, device=dev)
+        for p, t in imagenet_dev:
+            exact.update(p, t)
+        out["MulticlassAUROC[exact, 50,000 x 1000]"] = _refused_restore(
+            "MulticlassAUROC[exact, 50,000 x 1000]", exact,
+            lambda d: tc.MulticlassAUROC(num_classes=IN_CLASSES, thresholds=None, device=d),
+            os.path.join(tmp, "auroc.ckpt"), "state 'target' expects dtype float32")
+        del exact
+        coco = coco80_collection(dev)
+        for p, t in coco_dev:
+            coco.update(p, t)
+        out["COCO-80 collection"] = _round_trip("COCO-80 collection", coco, coco80_collection,
+                                                os.path.join(tmp, "coco.ckpt"), CURVE_RTOL)
+        periodic = MetricCollection(imagenet_members(dev))
+        ck = PeriodicCheckpointer(periodic, os.path.join(tmp, "periodic.ckpt"), SnapshotPolicy(every_n_updates=2))
+        fired = []
+        for p, t in imagenet_dev:
+            periodic.update(p, t)
+            fired.append(ck.step())
+        restored = restore_checkpoint(MetricCollection(imagenet_members("cpu")), os.path.join(tmp, "periodic.ckpt"))
+        count = restored["MulticlassAccuracy"].update_count
+        if ck.saves != 2 or fired != [False, True, False, True, False] or count != 4:
+            fail(f"PeriodicCheckpointer: {ck.saves} saves, fired {fired}, restored update count {count}")
+        out["periodic_every_2_over_5"] = {"saves": ck.saves, "fired": fired, "restored_update_count": count}
+        images = coco_images(np.random.default_rng(seed + 7))
+        per = COCO_IMAGES // COCO_STEPS
+        detection = MeanAveragePrecision(device=dev)
+        for i in range(COCO_STEPS):
+            part = [({k: v.to(dev) for k, v in p.items()}, {k: v.to(dev) for k, v in t.items()})
+                    for p, t in images[i * per:(i + 1) * per]]
+            detection.update([p for p, _ in part], [t for _, t in part])
+        out["MeanAveragePrecision[COCO val2017, 5,000 images]"] = _refused_restore(
+            "MeanAveragePrecision[COCO val2017, 5,000 images]", detection,
+            lambda d: MeanAveragePrecision(device=d), os.path.join(tmp, "map.ckpt"),
+            "state 'detection_label' expects dtype float32")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _watchdog_checks(acc_batch, dev) -> dict:
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch import classification as tc
+
+    out = {}
+    with observe.scope():
+        rule = observe.SloRule("update_p99", "update_p99_s", "<=", 1.0, for_ticks=1)
+        wd = observe.install_watchdog(observe.Watchdog(rules=list(observe.DEFAULT_SLOS) + [rule], min_interval_s=0.0))
+        try:
+            m = tc.MulticlassAccuracy(num_classes=ACC_CLASSES, average="micro", device=dev)
+            for _ in range(8):
+                m.update(*acc_batch)
+            p50 = observe.snapshot()["latency"]["update"]["MulticlassAccuracy"]["p50_s"]
+            rule.threshold = p50 / 2  # below the measured median: the next window's p99 breaches it
+            wd.sample()  # seeds the window
+            verdicts = []
+            for threshold in (rule.threshold, 60.0):
+                rule.threshold = threshold
+                for _ in range(8):
+                    m.update(*acc_batch)
+                signals = wd.sample()
+                health = wd.health()
+                verdicts.append({"threshold_ms": 1000 * threshold, "update_p99_ms": 1000 * signals["update_p99_s"],
+                                 "verdict": health["verdict"], "firing": health["firing"]})
+            events = [e["kind"] for e in observe.snapshot()["events"] if e["kind"].startswith("slo_")]
+            if [v["firing"] for v in verdicts] != [["update_p99"], []] or events != ["slo_fired", "slo_resolved"]:
+                fail(f"watchdog: the update p99 rule did not fire and resolve: {verdicts}, {events}")
+            defaults = {r.name: signals.get(r.signal) for r in observe.DEFAULT_SLOS}
+            out = {"update_p50_ms": 1000 * p50, "verdicts": verdicts, "events": events,
+                   "default_slos_signals": defaults, "samples": wd.health()["samples"]}
+        finally:
+            observe.uninstall_watchdog()
+    log(f"watchdog: {json.dumps(out)}")
+    return out
+
+
 def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     """Kernel, plain and library times at the main path's shapes; ``plain=False`` times the kernels only."""
     import torch.nn.functional as F
@@ -4609,6 +5076,7 @@ def main() -> int:
     t0 = time.perf_counter()
     path = main_path(seed, wrappers)
     log(f"main path in {time.perf_counter() - t0:.1f} s: {json.dumps(path)}")
+    log(f"counted apart from the main path: {json.dumps(APART)}")
     log(f"main path's parts, wall seconds: {json.dumps(SECTION_S)}")
     expect = {"BinaryPrecisionRecallCurve": {"binned_counts": PRC_STEPS},
               "MulticlassPrecisionRecallCurve": {"binned_counts_labels": PRC_STEPS},

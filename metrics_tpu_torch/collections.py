@@ -10,7 +10,9 @@ that a member's own later update cannot append to the leader's list.
 
 The JAX package's ``_fused_group_update``, which runs every leader's update
 as one compiled program, has no counterpart: the leaders update one after
-another.
+another. So its telemetry is each leader's own (an ``update`` span per leader,
+no ``fused_update`` span), and the one host read that settles the groups
+counts as an ``explicit_transfer``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.observe import recorder as _observe
 from metrics_tpu_torch.utils.data import _flatten_dict
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -287,6 +290,7 @@ class MetricCollection:
                 equal[(k1, k2)] = equal[(k2, k1)] = verdict
         if pending:
             flat = torch.stack([t.to(pending[0][1].device) for _, t in pending]).tolist()
+            _observe.note_explicit_transfer("collection_state_equal")
             for ((k1, k2), _), ok in zip(pending, flat):
                 equal[(k1, k2)] = equal[(k2, k1)] = bool(ok)
         return equal

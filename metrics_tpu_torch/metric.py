@@ -14,7 +14,15 @@ machinery have no counterpart. One rule follows from keeping the transactional
 update cheap: an update body *replaces* tensor states (``self.tp = self.tp +
 tp``) and never changes them in place, so that a reference to the old tensor is
 a snapshot of it. Compute-group members of a ``MetricCollection`` share their
-leader's tensors on the same rule.
+leader's tensors on the same rule, and so does an input guard's ``skip_batch``
+(:mod:`metrics_tpu_torch.resilience.guards`).
+
+Telemetry (:mod:`metrics_tpu_torch.observe`): with it off, the default, the
+update, compute, merge and sync paths read one module flag and do nothing
+more. With it on, each records its host wall time and a flight-recorder span,
+inside a ``torch.profiler.record_function`` range while a profiler records; no
+timed section synchronizes with the card, so an update's time is the time to
+enqueue it.
 """
 
 from __future__ import annotations
@@ -26,11 +34,13 @@ import operator
 import types
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, List, Optional, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from metrics_tpu_torch.observe import recorder as _observe
+from metrics_tpu_torch.observe import tracing as _tracing
 from metrics_tpu_torch.utils.data import _flatten, dim_zero_cat, dim_zero_max, dim_zero_mean, dim_zero_min, dim_zero_sum
 from metrics_tpu_torch.utils.exceptions import TPUMetricsUserError
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -47,6 +57,25 @@ _REDUCE_ALIASES: Dict[str, Callable] = {
 
 # the bound callables a copy or an unpickled metric binds anew
 _BOUND = ("update", "compute", "_update_impl", "_compute_impl", "_update_signature")
+
+# Instance fields that are not configuration: the JAX package's jit-key
+# exclusions (runtime bookkeeping and the sync-orchestration kwargs), plus the
+# port's own: ``device``, so that a checkpoint taken on the card restores into
+# a CPU instance, and ``_piece_events``, the CUDA events a MAP compute records.
+# ``_guard_policy`` is deliberately included: an input guard changes what an
+# update computes; ``_guard_seen`` is the host-side quarantine watermark.
+_CONFIG_KEY_EXCLUDE = frozenset({
+    "_defaults", "_state", "_persistent", "_reductions", "_merge_associative", "_precision", "_computed",
+    "_update_count",
+    "_to_sync", "_should_unsync", "_is_synced", "_cache", "_update_signature",
+    "_update_impl", "_compute_impl", "update", "compute", "_jitted_update",
+    "_jit_failed", "_jit_update_opt", "_donate_opt", "_state_escaped", "_group_shared",
+    "_guard_seen",
+    "compute_on_cpu", "dist_sync_on_step",
+    "process_group", "dist_sync_fn", "distributed_available_fn", "sync_on_compute",
+    "compute_with_cache",
+    "device", "_piece_events",
+})
 
 
 def resolve_device(device: Optional[Union[str, torch.device]]) -> torch.device:
@@ -300,12 +329,23 @@ class Metric(ABC):
     def _fresh_state(self) -> Dict[str, Any]:
         return {k: (list(v) if isinstance(v, list) else v) for k, v in self._defaults.items()}
 
+    def _run_update_body(self, *args: Any, **kwargs: Any) -> None:
+        """The subclass update, through the input guard when one is installed
+        (:func:`metrics_tpu_torch.resilience.install_guard`); shared by ``update`` and the pure
+        ``_functional_update``, so that both have the guard's semantics."""
+        if self.__dict__.get("_guard_policy") is None:
+            self._update_impl(*args, **kwargs)
+        else:
+            from metrics_tpu_torch.resilience.guards import run_guarded_update
+
+            run_guarded_update(self, args, kwargs)
+
     def _functional_update(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
         """Pure form of the subclass ``update``: its body runs against a swapped-in copy of ``state``."""
         old = self.__dict__["_state"]
         self.__dict__["_state"] = {k: (list(v) if isinstance(v, list) else v) for k, v in state.items()}
         try:
-            self._update_impl(*args, **kwargs)
+            self._run_update_body(*args, **kwargs)
             return self.__dict__["_state"]
         finally:
             self.__dict__["_state"] = old
@@ -336,23 +376,50 @@ class Metric(ABC):
     # ------------------------------------------------------------------ lifecycle
     def _wrapped_update(self, *args: Any, **kwargs: Any) -> None:
         """Run the subclass update; on any exception every state, the update
-        count and the compute cache are left as they were before the call."""
+        count and the compute cache are left as they were before the call.
+
+        With telemetry on, the call is timed on the host (``update`` timer,
+        span and ``update_eager`` count), inside a profiler range while a
+        profiler records; a rolled-back update is an ``update_rolled_back``
+        event. A ``raise_on_host`` guard reads its counter after the update
+        (one host read, its documented cost).
+        """
         if self._is_synced:
             raise TPUMetricsUserError("The Metric has already been synced and cannot be updated.")
+        if _observe.ENABLED:
+            name = type(self).__name__
+            t0 = _observe.clock()
+            with _tracing.profiler_range("update", name):
+                self._update_transactional(args, kwargs)
+            t1 = _observe.clock()
+            rec = _observe.RECORDER
+            rec.add_time("update", name, t1 - t0)
+            _tracing.record_complete("update", name, t0, t1)
+            rec.add_count("update_eager", name)
+        else:
+            self._update_transactional(args, kwargs)
+        if self.__dict__.get("_guard_policy") == "raise_on_host":
+            from metrics_tpu_torch.resilience.guards import raise_if_quarantined
+
+            raise_if_quarantined(self)
+        if self.compute_on_cpu:
+            self._move_list_states_to_cpu()
+
+    def _update_transactional(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+        """The update body with the states, update count and compute cache restored if it raises."""
         snapshot = self._copy_state()
         prev_computed = self._computed
         prev_count = self._update_count
         self._computed = None
         self._update_count += 1
         try:
-            self._update_impl(*args, **kwargs)
-        except BaseException:
+            self._run_update_body(*args, **kwargs)
+        except BaseException as exc:
             self.__dict__["_state"] = snapshot
             self._computed = prev_computed
             self._update_count = prev_count
+            _observe.note_update_rollback(type(self).__name__, exc)
             raise
-        if self.compute_on_cpu:
-            self._move_list_states_to_cpu()
 
     def _move_list_states_to_cpu(self) -> None:
         """Move every list state to the CPU (``compute_on_cpu``)."""
@@ -368,17 +435,31 @@ class Metric(ABC):
                 UserWarning,
             )
         if self.compute_with_cache and self._computed is not None:
+            if _observe.ENABLED:
+                _observe.RECORDER.add_count("compute_cached", type(self).__name__)
             return self._computed
+        if _observe.ENABLED:
+            name = type(self).__name__
+            t0 = _observe.clock()
+            with _tracing.profiler_range("compute", name):
+                value = self._synced_compute()
+            t1 = _observe.clock()
+            _observe.RECORDER.add_time("compute", name, t1 - t0)
+            _tracing.record_complete("compute", name, t0, t1)
+        else:
+            value = self._synced_compute()
+        if self.compute_with_cache:
+            self._computed = value
+        return value
+
+    def _synced_compute(self) -> Any:
         with self.sync_context(
             dist_sync_fn=self.dist_sync_fn,
             process_group=self.process_group,
             should_sync=self._to_sync,
             should_unsync=self._should_unsync,
         ):
-            value = _squeeze_if_scalar(self._compute_impl())
-        if self.compute_with_cache:
-            self._computed = value
-        return value
+            return _squeeze_if_scalar(self._compute_impl())
 
     @abstractmethod
     def update(self, *_: Any, **__: Any) -> None:
@@ -469,7 +550,18 @@ class Metric(ABC):
         else:
             incoming_count = 1
         own_count = self._update_count
-        self.__dict__["_state"] = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
+        if _observe.ENABLED:
+            name = type(self).__name__
+            t0 = _observe.clock()
+            with _tracing.profiler_range("merge", name):
+                merged = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
+            t1 = _observe.clock()
+            _observe.RECORDER.add_time("merge", name, t1 - t0)
+            _tracing.record_complete("merge", name, t0, t1)
+            _observe.RECORDER.add_count("merge", name)
+        else:
+            merged = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
+        self.__dict__["_state"] = merged
         self._update_count = own_count + incoming_count
         self._computed = None
 
@@ -549,13 +641,17 @@ class Metric(ABC):
         from metrics_tpu_torch.parallel import sync as _sync_mod
 
         self._cache = self._copy_state()
+        name = type(self).__name__
+        timed = _observe.ENABLED
+        t0 = _observe.clock() if timed else 0.0
         policy = _sync_mod.get_sync_policy()
         try:
-            _sync_mod.run_with_retries(
-                lambda: self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group or self.process_group),
-                label=type(self).__name__,
-                policy=policy,
-            )
+            with _tracing.profiler_range("sync", name):
+                _sync_mod.run_with_retries(
+                    lambda: self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group or self.process_group),
+                    label=name,
+                    policy=policy,
+                )
         except Exception as exc:
             if not policy.partial_merge or isinstance(exc, TPUMetricsUserError):
                 self._cache = None
@@ -570,6 +666,18 @@ class Metric(ABC):
                 merged = self._merge_state_dicts(merged, peer_state, merged_count, peer_count)
                 merged_count += peer_count
             self.__dict__["_state"].update(merged)
+            self._is_synced = True
+            _observe.note_sync_degraded(name, exc, len(survivors))
+            if timed:
+                t1 = _observe.clock()
+                _observe.RECORDER.add_time("sync", name, t1 - t0)
+                _tracing.record_complete("sync", name, t0, t1)
+            return
+        if timed:
+            t1 = _observe.clock()
+            _observe.RECORDER.add_time("sync", name, t1 - t0)
+            _tracing.record_complete("sync", name, t0, t1)
+            _observe.RECORDER.add_count("sync", name)
         self._is_synced = True
 
     def unsync(self, should_unsync: bool = True) -> None:
@@ -768,6 +876,50 @@ class Metric(ABC):
         return self.set_dtype(torch.bfloat16)
 
     # ------------------------------------------------------------------ misc API
+    def _config_key(self) -> Optional[tuple]:
+        """``(class, sorted config items)`` over the instance attributes that are configuration; None when one
+        of them cannot be hashed (a child metric, an unhashable value). The counterpart of the JAX package's
+        ``_jit_cache_key``, with :data:`_CONFIG_KEY_EXCLUDE` in place of its exclusions."""
+        try:
+            items = tuple(
+                (k, _hashable_config_value(v))
+                for k, v in sorted(self.__dict__.items())
+                if k not in _CONFIG_KEY_EXCLUDE
+            )
+        except TypeError:
+            return None
+        return (type(self), items)
+
+    def state_avals(self) -> Tuple[Tuple[str, Any, str], ...]:
+        """Static ``(name, shape, dtype)`` signature of the registered default states.
+
+        Dtypes are numpy's names (``"float32"``), so that the signature compares with the JAX package's; it
+        differs where the port's counters are int64. List states record the sentinel shape ``"list"`` so that
+        they never match a tensor state.
+        """
+        out: List[Tuple[str, Any, str]] = []
+        for name, default in self._defaults.items():
+            if isinstance(default, list):
+                out.append((name, "list", ""))
+            else:
+                out.append((name, tuple(int(s) for s in default.shape), _numpy_dtype_name(default.dtype)))
+        return tuple(out)
+
+    def config_fingerprint(self) -> Optional[str]:
+        """Stable hex digest of the static config, or None when it is not fingerprintable.
+
+        Hashes :meth:`_config_key` with the class spelled as its importable path, the identity that checkpoint
+        restore validates (:mod:`metrics_tpu_torch.resilience.checkpoint`). The path is this package's, so a
+        checkpoint of the JAX package's metric never passes for the port's. The device is not part of the
+        config: a checkpoint taken on the card restores into a CPU instance. Tensors in the config hash by
+        their bytes (a CUDA tensor is read back once).
+        """
+        key = self._config_key()
+        if key is None:
+            return None
+        cls, items = key
+        return hashlib.sha256(repr((cls.__module__, cls.__qualname__, items)).encode()).hexdigest()
+
     def state_fingerprint(self) -> str:
         """Content digest of the live state: the class name, the update count, and each state in sorted name
         order with its length (a tensor counts as a list of one), and each tensor's numpy ``dtype.str``, shape
@@ -875,6 +1027,26 @@ def _host_bytes(value: Any) -> tuple:
         value = value.numpy()
     arr = np.ascontiguousarray(np.asarray(value))
     return arr, arr.dtype.str
+
+
+def _numpy_dtype_name(dtype: torch.dtype) -> str:
+    """numpy's name of a torch dtype (``torch.float32`` -> ``"float32"``; bfloat16 keeps its name)."""
+    return str(dtype).rsplit(".", 1)[-1]
+
+
+def _hashable_config_value(v: Any) -> Any:
+    """A config attribute as a hashable key component; TypeError when it cannot be one."""
+    if isinstance(v, (torch.Tensor, np.ndarray)):
+        arr, code = _host_bytes(v)
+        return ("__arr__", code, arr.shape, arr.tobytes())
+    if isinstance(v, (list, tuple)):
+        return ("__seq__", tuple(_hashable_config_value(x) for x in v))
+    if isinstance(v, dict):
+        return ("__map__", tuple(sorted((k, _hashable_config_value(x)) for k, x in v.items())))
+    if isinstance(v, Metric):
+        raise TypeError("child metrics are not config")
+    hash(v)  # raises TypeError for unhashable values
+    return v
 
 
 def _neg(x: torch.Tensor) -> torch.Tensor:

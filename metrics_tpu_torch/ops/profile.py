@@ -10,7 +10,9 @@ binned counts' labels mode at the multiclass curve's shape.
     python -m metrics_tpu_torch.ops.profile
 
 Needs a CUDA device. The module also holds the cold-L2 CUDA-event timer that
-``chip_smoke.py`` and :mod:`metrics_tpu_torch.ops.variants` measure with.
+``chip_smoke.py`` and :mod:`metrics_tpu_torch.ops.variants` measure with, and
+:func:`kernels_inside`, which reads a ``torch.profiler`` Chrome trace for the
+kernels launched inside a telemetry span's ``record_function`` range.
 """
 
 from __future__ import annotations
@@ -66,6 +68,31 @@ def _profile(fn) -> list:
         if device_us > 0 and ev.device_type == torch.autograd.DeviceType.CUDA:
             rows.append({"kernel": ev.key[:90], "calls": ev.count // REPS, "us_per_call": device_us / REPS})
     return sorted(rows, key=lambda r: -r["us_per_call"])
+
+
+_LAUNCH_CATEGORIES = ("cuda_runtime", "cuda_driver")
+
+
+def kernels_inside(trace: dict, range_name: str) -> list:
+    """Names of the GPU kernels launched inside a CPU range named ``range_name`` (a ``record_function`` range,
+    ``user_annotation`` in the trace) of a ``torch.profiler`` Chrome trace (the JSON that
+    ``export_chrome_trace`` writes, loaded): a kernel counts when the runtime or driver call that launched it,
+    the event with its ``correlation`` id, starts within the range on the range's thread."""
+    events = [e for e in trace.get("traceEvents", []) if e.get("ph") == "X"]
+    ranges = [e for e in events if e.get("cat") == "user_annotation" and e.get("name") == range_name]
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in _LAUNCH_CATEGORIES and "correlation" in e.get("args", {})}
+    out = []
+    for kernel in events:
+        if kernel.get("cat") != "kernel":
+            continue
+        launch = launches.get(kernel.get("args", {}).get("correlation"))
+        if launch is not None and any(
+            r["pid"] == launch["pid"] and r["tid"] == launch["tid"] and r["ts"] <= launch["ts"] <= r["ts"] + r["dur"]
+            for r in ranges
+        ):
+            out.append(kernel["name"])
+    return out
 
 
 def main() -> int:

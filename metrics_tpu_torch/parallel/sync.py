@@ -32,6 +32,8 @@ import torch
 import torch.distributed as dist
 
 from metrics_tpu_torch.metric import _REDUCE_ALIASES
+from metrics_tpu_torch.observe import recorder as _observe
+from metrics_tpu_torch.observe import tracing as _tracing
 from metrics_tpu_torch.utils.data import (
     _mean_dtype,
     dim_zero_cat,
@@ -170,6 +172,7 @@ def run_with_retries(attempt: Callable[[], _T], label: str = "", policy: Optiona
     Exceptions whose class sets ``no_retry = True`` (:class:`SyncPeerLostError`)
     and user errors propagate at once; anything else is retried with
     exponential, jittered backoff until the attempts or the time budget run out.
+    Each retry records a ``sync_retry`` observe event.
     """
     policy = policy if policy is not None else _SYNC_POLICY
     deadline = (time.monotonic() + policy.timeout_s) if policy.timeout_s is not None else None
@@ -189,6 +192,7 @@ def run_with_retries(attempt: Callable[[], _T], label: str = "", policy: Optiona
                 or out_of_budget
             ):
                 raise
+            _observe.note_sync_retry(label, attempt_no + 1, exc)
             time.sleep(sleep_s)
             delay *= 2.0
     raise AssertionError("unreachable")  # pragma: no cover
@@ -255,7 +259,7 @@ def _meta(t: torch.Tensor) -> List[int]:
     return [lead, t.ndim, _DTYPES.index(t.dtype)] + trailing + [0] * (_MAX_DIMS - 1 - len(trailing))
 
 
-def _gather_many(tensors: List[torch.Tensor], group: Any = None) -> List[List[torch.Tensor]]:
+def _gather_many(tensors: List[torch.Tensor], group: Any = None, rec: Any = None) -> List[List[torch.Tensor]]:
     """All-gather each tensor from every rank of ``group``; their leading sizes may differ.
 
     One collective carries every tensor's size, dtype and trailing shape (and
@@ -263,7 +267,9 @@ def _gather_many(tensors: List[torch.Tensor], group: Any = None) -> List[List[to
     leading size, gathered, and trimmed back per rank. A rank whose tensor is
     empty along the first dimension takes a non-empty peer's dtype and
     trailing shape, so that a rank that saw no data needs to know nothing of
-    what the others hold. Bool tensors travel as uint8.
+    what the others hold. Bool tensors travel as uint8. With a recorder
+    ``rec``, each tensor's gathered bytes (its padded copy from every rank)
+    count as ``sync_bytes`` under ``state<i>``.
     """
     if not tensors:
         return []
@@ -295,6 +301,8 @@ def _gather_many(tensors: List[torch.Tensor], group: Any = None) -> List[List[to
         if all(row[1] == 0 for row in rows):
             parts = [torch.empty(1, dtype=carried.dtype, device=carried.device) for _ in range(world)]
             dist.all_gather(parts, carried.reshape(1).contiguous(), group=group)
+            if rec is not None:
+                rec.add_count("sync_bytes", f"state{i}", carried.element_size() * world)
             out.append([p.reshape(()).to(dtype) for p in parts])
             continue
         sizes = [row[0] for row in rows]
@@ -302,6 +310,8 @@ def _gather_many(tensors: List[torch.Tensor], group: Any = None) -> List[List[to
         padded, _ = pad_to_capacity(carried, cap)
         parts = [torch.empty_like(padded) for _ in range(world)]
         dist.all_gather(parts, padded.contiguous(), group=group)
+        if rec is not None:
+            rec.add_count("sync_bytes", f"state{i}", padded.numel() * padded.element_size() * world)
         out.append([p[:n].to(dtype) for p, n in zip(parts, sizes)])
     return out
 
@@ -326,8 +336,17 @@ def gather_all_states(states: List[Any], group: Any = None) -> List[List[Any]]:
     """
     if not (dist.is_available() and dist.is_initialized()):
         return [[s] for s in states]
+    rec = _observe.RECORDER if _observe.ENABLED else None
+    t0 = _observe.clock() if rec is not None else 0.0
     device = _collective_device(group, next((s for s in states if isinstance(s, torch.Tensor)), None))
-    return _gather_many([_concat_list_state(s, device) for s in states], group)
+    out = _gather_many([_concat_list_state(s, device) for s in states], group, rec)
+    if rec is not None:
+        world = str(dist.get_world_size(group))
+        t1 = _observe.clock()
+        rec.add_time("gather_all", world, t1 - t0)
+        _tracing.record_complete("gather_all", world, t0, t1)
+        rec.add_count("gather_all", world)
+    return out
 
 
 _ALL_REDUCE_OPS = {dim_zero_sum: "SUM", dim_zero_max: "MAX", dim_zero_min: "MIN", dim_zero_mean: "SUM"}
@@ -401,8 +420,13 @@ def allreduce_over_mesh(per_rank_states: Sequence[Dict[str, Any]], reductions: D
     every rank is empty); ragged ``cat`` states concatenate each rank's valid
     rows and ragged ``None`` states come back as the list of per-rank values;
     any other reduction over unequal per-rank sizes raises
-    ``NotImplementedError``.
+    ``NotImplementedError``. With telemetry on, the fold is timed and counted
+    under the JAX package's default mesh axis name, ``"data"``, and each
+    state's stacked bytes (every rank at the largest leading size) count as
+    ``sync_bytes``.
     """
+    rec = _observe.RECORDER if _observe.ENABLED else None
+    t0 = _observe.clock() if rec is not None else 0.0
     prepped: List[Dict[str, Any]] = []
     empty_slots: List[Tuple[int, str]] = []
     for i, st in enumerate(per_rank_states):
@@ -436,6 +460,14 @@ def allreduce_over_mesh(per_rank_states: Sequence[Dict[str, Any]], reductions: D
                 "allreduce_over_mesh."
             )
         out[k] = reduce_gathered(values, fx)
+    if rec is not None:
+        for k in prepped[0]:
+            values = [p[k] for p in prepped]
+            rec.add_count("sync_bytes", k, len(values) * max(v.numel() for v in values) * values[0].element_size())
+        t1 = _observe.clock()
+        rec.add_time("allreduce", "data", t1 - t0)
+        _tracing.record_complete("allreduce", "data", t0, t1)
+        rec.add_count("allreduce", "data")
     return out
 
 

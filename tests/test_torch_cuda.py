@@ -1225,3 +1225,96 @@ def test_stoi_on_the_card_matches_the_cpu(cuda_device, extended):
     torch.testing.assert_close(got.cpu(), want, rtol=0.0, atol=1e-5)
     same = short_time_objective_intelligibility(t.to(cuda_device), t.to(cuda_device), fs, extended)
     torch.testing.assert_close(same.cpu(), torch.ones(4), rtol=0.0, atol=1e-6)
+
+
+# ----------------------------------------------------------------------------- observe and durability on the card
+def _coco80(rng, n=4096):
+    target = (rng.rand(n, 80) < 0.036).astype(np.int64)
+    preds = ((rng.rand(n, 80).astype(np.float32) + 0.5 * target) / 1.5).astype(np.float32)
+    return torch.from_numpy(preds), torch.from_numpy(target)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["telemetry", "skip_batch", "propagate"])
+def test_telemetry_and_guards_add_no_host_sync_to_a_later_update(cuda_device, variant):
+    """The binned multilabel AP (without input validation, whose read of the targets is a host sync) and the
+    DDSketch read nothing back from the card in a later update; under telemetry, or guarded by ``skip_batch``
+    or ``propagate``, they still read nothing."""
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.resilience import install_guard
+    from metrics_tpu_torch.sketches import DDSketch
+
+    rng = np.random.RandomState(5)
+    preds, target = (x.to(cuda_device) for x in _coco80(rng))
+    values = torch.from_numpy(rng.lognormal(size=1 << 16).astype(np.float32)).to(cuda_device)
+
+    def metrics():
+        return ((tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, validate_args=False,
+                                               device=cuda_device), (preds, target)),
+                (DDSketch(device=cuda_device), (values,)))
+
+    def later_syncs(metric, args):
+        metric.update(*args)
+        torch.cuda.synchronize()
+        return [_syncs(lambda: metric.update(*args)) for _ in range(3)]
+
+    for metric, args in metrics():
+        assert later_syncs(metric, args) == [0, 0, 0], type(metric).__name__
+    with observe.scope():
+        if variant != "telemetry":
+            observe.disable()
+        for metric, args in metrics():
+            if variant != "telemetry":
+                install_guard(metric, variant)
+            assert later_syncs(metric, args) == [0, 0, 0], (variant, type(metric).__name__)
+        if variant == "telemetry":
+            assert observe.snapshot()["counters"]["update_eager"] == {"MultilabelAveragePrecision": 4, "DDSketch": 4}
+
+
+@pytest.mark.cuda
+def test_a_checkpoint_saved_from_the_card_restores_on_the_cpu(cuda_device, tmp_path):
+    from metrics_tpu_torch.resilience import restore_checkpoint, save_checkpoint
+
+    def make(d):
+        return MetricCollection([tc.MulticlassAccuracy(num_classes=10, device=d),
+                                 tc.MulticlassConfusionMatrix(num_classes=10, device=d),
+                                 tc.MulticlassAUROC(num_classes=10, thresholds=50, device=d)])
+
+    rng = np.random.RandomState(6)
+    col = make(cuda_device)
+    for _ in range(3):
+        col.update(torch.from_numpy(rng.rand(2048, 10).astype(np.float32)).to(cuda_device),
+                   torch.from_numpy(rng.randint(0, 10, 2048)).to(cuda_device))
+    path = str(tmp_path / "card.ckpt")
+    save_checkpoint(col, path)
+    cpu = restore_checkpoint(make("cpu"), path)
+    card = restore_checkpoint(make(cuda_device), path)
+    for name, metric in col.items():
+        assert cpu[name].state_fingerprint() == metric.state_fingerprint() == card[name].state_fingerprint(), name
+        assert all(v.device.type == "cpu" for v in cpu[name].metric_state.values())
+    for key, value in col.compute().items():
+        torch.testing.assert_close(cpu.compute()[key], value.cpu(), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_the_span_range_encloses_its_kernel_launch_in_a_profiler_trace(cuda_device, tmp_path):
+    import json
+
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.ops.profile import kernels_inside
+
+    rng = np.random.RandomState(7)
+    preds, target = (x.to(cuda_device) for x in _coco80(rng))
+    ap = tc.MultilabelAveragePrecision(num_labels=80, thresholds=200, device=cuda_device)
+    ap.update(preds, target)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with observe.scope():
+        with torch.profiler.profile(activities=activities) as prof:
+            ap.update(preds, target)
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    inside = kernels_inside(trace, "update:MultilabelAveragePrecision")
+    assert any("binned_counts" in name for name in inside), inside
+    assert not kernels_inside(trace, "compute:MultilabelAveragePrecision")

@@ -47,6 +47,8 @@ PAIRS = [
     ("metrics_tpu.functional.text", "metrics_tpu_torch.functional.text"),
     ("metrics_tpu.audio", "metrics_tpu_torch.audio"),
     ("metrics_tpu.functional.audio", "metrics_tpu_torch.functional.audio"),
+    ("metrics_tpu.observe", "metrics_tpu_torch.observe"),
+    ("metrics_tpu.resilience", "metrics_tpu_torch.resilience"),
 ]
 
 
@@ -56,7 +58,10 @@ def _port_name(module_name: str) -> str:
 
 def _domain(ref_module: str, obj) -> str:
     """The JAX package's domain module of an exported object: its package below ``functional`` or the root."""
-    parts = obj.__name__.split(".") if isinstance(obj, types.ModuleType) else obj.__module__.split(".")
+    module = obj.__name__ if isinstance(obj, types.ModuleType) else getattr(obj, "__module__", None)
+    if module is None:  # a module-level constant (a str, int or tuple) lives where it is exported
+        return ref_module
+    parts = module.split(".")
     depth = 3 if parts[1] == "functional" and len(parts) > 3 else 2
     return ".".join(parts[:depth]) if len(parts) > depth else ref_module
 
@@ -270,3 +275,26 @@ def test_the_streaming_slice_and_utils_are_whole():
     assert set(new_top) < set(metrics_tpu_torch.__all__)
     assert "sketches" in jf.__all__ and "sketches" in metrics_tpu_torch.functional.__all__
     from metrics_tpu_torch.utils import bincount, class_reduce, reduce  # noqa: F401
+
+
+def test_observe_and_resilience_are_whole():
+    """``observe`` and ``resilience`` export the JAX package's 30 and 12 names, in its order, and join the top
+    level, which then lacks only the engines, ``aot``, ``models`` and ``multimodal``."""
+    for domain, count in (("observe", 30), ("resilience", 12)):
+        ref = importlib.import_module(f"metrics_tpu.{domain}")
+        port = importlib.import_module(f"metrics_tpu_torch.{domain}")
+        assert port.__all__ == ref.__all__ and len(port.__all__) == count, domain
+        assert getattr(metrics_tpu_torch, domain) is port and domain in metrics_tpu_torch.__all__
+    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == [
+        "ShardedStreamEngine", "StreamEngine", "aot", "engine", "models", "multimodal"]
+    from metrics_tpu_torch.observe import explain, latency, metering, recorder, tracing, watchdog  # noqa: F401
+    from metrics_tpu_torch.resilience import checkpoint, guards  # noqa: F401
+    from metrics_tpu_torch.utils import io  # noqa: F401
+
+    for name in ("FleetMeter", "SessionLedger", "SpaceSaving", "MeterPolicy", "install_meter"):
+        assert hasattr(metering, name)
+    assert [n for n in importlib.import_module("metrics_tpu.observe.metering").__all__
+            if not hasattr(metering, n)] == ["program_cost"]
+    assert checkpoint.__all__ == importlib.import_module("metrics_tpu.resilience.checkpoint").__all__
+    assert io.__all__ == importlib.import_module("metrics_tpu.utils.io").__all__
+    assert guards.__all__ == importlib.import_module("metrics_tpu.resilience.guards").__all__
