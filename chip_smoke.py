@@ -122,11 +122,26 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    equal fingerprints (the two collections and a 200 MB cat state; MB and MB/s),
    a flipped byte, another config, the periodic checkpointer, the exact AUROC and
    MAP over 5,000 COCO images refused on restore as in the JAX package, and a
-   watchdog rule on the update p99 that fires and resolves;
+   watchdog rule on the update p99 that fires and resolves; then
+   ``fleet_engine``, its launches also counted apart, at the JAX package's
+   benchmark fleet sizes (``bench.py:62-80``): 10,000 and 1,000 streams of
+   MulticlassAccuracy and BinaryAUROC through the StreamEngine (one dispatch
+   and one binned-counts launch a tick, launches and host syncs a tick equal
+   at both sizes, no new program through the churn, no compute dispatch a
+   poll, sampled sessions bit-equal to per-instance oracles on the card, the
+   1,000-stream fleet's states equal to a CPU engine's), 512 SSIM monitors
+   (one window launch of 7,680 planes a tick), 1,000 multiclass AUROC
+   sessions, the 1,000-stream fleet's recovery (checkpoint, a journaled wave
+   lost with the process, restore on the card bit-exact and on the CPU
+   equal), 100,000 two-scalar sessions over 8 shards (one dispatch a shard
+   tick, a shard healed from its own files, an 8 -> 12 resize) and
+   BootStrapper's 20 copies over the ImageNet-1k evaluation through the
+   replica engine against its loop;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
-   window at SCC's WorldView-3 planes), beside the least time the card could
+   window at SCC's WorldView-3 planes; the binned counts at the fleet's fold, 16 x 8,192 columns x 16
+   thresholds, and the window at the SSIM bucket's 7,680 planes), beside the least time the card could
    take (``bound_ms``); then one MS-SSIM update of a DIV2K pair, whole and
    scale by scale, and the window at each VIF scale's two launches. With ``--baseline DIR`` (an unpacked older tree of
    this repository) the older kernels are timed in turns with these, old, new,
@@ -589,6 +604,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     text_and_audio(seed, wrappers, out)
     APART["observe_and_durability"] = section("observe_and_durability", observe_and_durability, seed, wrappers,
                                               imagenet)
+    APART["fleet_engine"] = section("fleet_engine", fleet_engine, seed, wrappers, imagenet_gpu)
     return out
 
 
@@ -4865,6 +4881,533 @@ def _watchdog_checks(acc_batch, dev) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------------- phase 4, the fleet engine
+# the fleet configurations of the JAX package's benchmark (bench.py:62-80): 10,000 streams of two classes, batch
+# 16, 3 ticks, 256 churned; the 1,000-stream recovery fleet; 100,000 two-scalar sessions over 8 shards
+FLEET_STREAMS, FLEET_SMALL, FLEET_TICKS, FLEET_CHURN, FLEET_BATCH = 10_000, 1_000, 3, 256, 16
+FLEET_CAPACITY = 8192  # the 5,000-session buckets padded to a power of two
+FLEET_ORACLE_EVERY = 50  # one session in 50 also runs as a per-instance oracle on the card
+FLEET_CPU_SUBSET = 256  # sessions of each class rerun through a CPU engine
+SSIM_SESSIONS, SSIM_FLEET_SHAPE, SSIM_FLEET_TICKS = 512, (1, 3, 256, 256), 2
+MCAUROC_SESSIONS, MCAUROC_CLASSES, MCAUROC_THRESHOLDS, MCAUROC_BATCH, MCAUROC_TICKS = 1000, 10, 200, 256, 2
+SHARDED_SESSIONS, SHARDED_SHARDS, SHARDED_TICKS, SHARDED_ACTIVE, SHARDED_CHURN = 100_000, 8, 4, 2048, 512
+SHARDED_CAPACITY = 1 << 14
+SHARDED_ORACLE_EVERY = 500
+
+
+def _stream_mean_class():
+    """The JAX package's benchmark metric (bench.py:677-702) in the port: a two-scalar stream mean."""
+    from metrics_tpu_torch import Metric
+
+    class StreamMean(Metric):
+        full_state_update = False
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.add_state("total", default=torch.zeros(()), dist_reduce_fx="sum")
+            self.add_state("count", default=torch.zeros(()), dist_reduce_fx="sum")
+
+        def update(self, x):
+            self.total = self.total + torch.sum(x)
+            self.count = self.count + x.shape[0]
+
+        def compute(self):
+            return self.total / torch.clamp(self.count, min=1.0)
+
+    # pickled by reference (journals, checkpoints): a global of the script's own module
+    StreamMean.__module__, StreamMean.__qualname__ = __name__, "StreamMean"
+    globals()["StreamMean"] = StreamMean
+    return StreamMean
+
+
+def _host_generator(seed: int) -> torch.Generator:
+    """A CPU generator: the fleet's batches are drawn on the host (the same numbers for the card's runs and the
+    CPU's) and moved to the device a column at a time."""
+    return torch.Generator().manual_seed(seed)
+
+
+def _dev_sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _wall(fn, dev):
+    """``fn()`` between two synchronizations of ``dev``; returns (result, ms)."""
+    _dev_sync(dev)
+    t0 = time.perf_counter()
+    result = fn()
+    _dev_sync(dev)
+    return result, 1000 * (time.perf_counter() - t0)
+
+
+def _watched(fn, dev, wrappers):
+    """``fn()`` with the kernels' launches counted from 0 and, on the card, its host synchronizations (CUDA's
+    sync debug mode); returns (result, ms, launches, syncs)."""
+    for w in wrappers.values():
+        w.launches = 0
+    box = {}
+    if torch.device(dev).type == "cuda":
+        t0 = time.perf_counter()
+        syncs = _syncs(lambda: box.setdefault("r", fn()))
+        ms = 1000 * (time.perf_counter() - t0)
+    else:
+        box["r"], ms = _wall(fn, dev)
+        syncs = None
+    return box["r"], ms, {k: w.launches for k, w in wrappers.items()}, syncs
+
+
+def _rows_of(engine, sid):
+    sess = engine._sessions[sid]
+    if sess.bucket is None:
+        return dict(sess.metric._state)
+    return {k: v[sess.slot] for k, v in sess.bucket.stacked.items()}
+
+
+def _equal_rows(name, got, want, exact=True):
+    """Bit-equal states (exact) or the largest relative difference; fails on a mismatch of an exact state."""
+    worst = 0.0
+    for k, ref in want.items():
+        a, b = got[k].detach().cpu(), ref.detach().cpu()
+        if _bit_equal(a, b):
+            continue
+        if exact or not a.is_floating_point():
+            fail(f"{name}: state {k!r} differs from its oracle")
+        worst = max(worst, float(((a.double() - b.double()).abs() / b.double().abs().clamp(min=1e-30)).max()))
+    return worst
+
+
+def _counter(snap, name, exclude_compute=False):
+    return int(sum(v for k, v in snap["counters"].get(name, {}).items()
+                   if not (exclude_compute and k.endswith(":compute"))))
+
+
+def fleet_streams(n_streams: int, seed: int, wrappers: dict, dev="cuda", oracle_every=FLEET_ORACLE_EVERY) -> dict:
+    """(a) ``n_streams`` sessions, half MulticlassAccuracy(8 classes), half BinaryAUROC(16 thresholds), batch 16,
+    3 ticks with 256 churned after the second, then polls: each tick's dispatches, kernel launches, host syncs
+    and ms; polls' compute dispatches and ms; program builds through churn; sampled sessions against
+    per-instance oracles on the card."""
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+
+    on_card = torch.device(dev).type == "cuda"
+    g = _host_generator(seed)
+    half = n_streams // 2
+    cap = 1 << (half - 1).bit_length()
+    ctors = {"acc": lambda: MulticlassAccuracy(num_classes=8, validate_args=False, device=dev),
+             "auroc": lambda: BinaryAUROC(thresholds=16, device=dev)}
+
+    def batch(kind, n):
+        if kind == "acc":
+            return (torch.randint(0, 8, (n, FLEET_BATCH), generator=g).to(dev),
+                    torch.randint(0, 8, (n, FLEET_BATCH), generator=g).to(dev))
+        return (torch.rand((n, FLEET_BATCH), generator=g).to(dev),
+                torch.randint(0, 2, (n, FLEET_BATCH), generator=g).to(dev))
+
+    _FLEET_JIT_CACHE.clear()
+    res = {"streams": n_streams, "capacity": cap, "ticks": []}
+    with observe.scope(reset=True):
+        engine = StreamEngine(initial_capacity=cap)
+        kinds, oracles = {}, {}
+        t0 = time.perf_counter()
+        for kind in ("acc", "auroc"):
+            for i in range(half):
+                sid = engine.add_session(ctors[kind]())
+                kinds[sid] = kind
+                if i % oracle_every == 0:
+                    oracles[sid] = ctors[kind]()
+        res["add_s"] = time.perf_counter() - t0
+        next_new = 0
+        for t in range(FLEET_TICKS):
+            live = {k: [s for s in kinds if kinds[s] == k] for k in ("acc", "auroc")}
+            cols = {k: batch(k, len(v)) for k, v in live.items()}
+
+            def submit_and_tick():
+                for k, sids in live.items():
+                    p, y = cols[k]
+                    for i, sid in enumerate(sids):
+                        engine.submit(sid, p[i], y[i])
+                return engine.tick()
+
+            dispatches, ms, launches, syncs = _watched(submit_and_tick, dev, wrappers)
+            for k, sids in live.items():
+                p, y = cols[k]
+                for i, sid in enumerate(sids):
+                    if sid in oracles:
+                        oracles[sid].update(p[i], y[i])
+            snap = observe.snapshot()
+            polls = []
+            for _ in range(2):
+                _, poll_ms, _, poll_syncs = _watched(engine.compute_all, dev, wrappers)
+                polls.append((poll_ms, poll_syncs))
+            snap = observe.snapshot()
+            res["ticks"].append({"dispatches": dispatches, "tick_ms": ms, "launches": launches, "syncs": syncs,
+                                 "poll_ms": [p[0] for p in polls], "poll_syncs": [p[1] for p in polls],
+                                 "update_programs": _counter(snap, "fleet_compile", True),
+                                 "compute_dispatches": _counter(snap, "fleet_compute_dispatch")})
+            if dispatches != 1:
+                fail(f"fleet {n_streams}: tick {t} made {dispatches} dispatches, not 1")
+            if on_card and (launches["binned_counts"] != 1 or launches["binned_counts_labels"]
+                            or launches["ssim_window"]):
+                fail(f"fleet {n_streams}: tick {t} launched {launches}; the AUROC bucket's one wave is one launch")
+            if t == 1:  # churn: 128 sessions of each class retire (checked against their oracles when sampled),
+                # 256 arrive into the recycled rows
+                retire = live["acc"][: FLEET_CHURN // 2] + live["auroc"][: FLEET_CHURN // 2]
+                for sid in retire:
+                    m = engine.expire(sid)
+                    if sid in oracles:
+                        _equal_rows(f"fleet {n_streams} retired {sid}", m._state, oracles.pop(sid)._state)
+                    del kinds[sid]
+                for i in range(FLEET_CHURN):
+                    kind = ("acc", "auroc")[i % 2]
+                    sid = engine.add_session(ctors[kind](), session_id=f"new{next_new}")
+                    next_new += 1
+                    kinds[sid] = kind
+                    if i % 8 == 0:
+                        oracles[sid] = ctors[kind]()
+        snap = observe.snapshot()
+        res["update_programs"] = _counter(snap, "fleet_compile", True)
+        res["fleet_dispatch"] = _counter(snap, "fleet_dispatch")
+        res["compute_dispatches"] = _counter(snap, "fleet_compute_dispatch")
+        res["loose_updates"] = _counter(snap, "fleet_loose_update")
+        if res["update_programs"] != 1 or res["compute_dispatches"] or res["loose_updates"]:
+            fail(f"fleet {n_streams}: {res['update_programs']} update programs, {res['compute_dispatches']} "
+                 f"compute dispatches, {res['loose_updates']} loose updates (want 1, 0, 0)")
+        values = engine.compute_all()
+        for sid, oracle in oracles.items():
+            _equal_rows(f"fleet {n_streams} session {sid}", _rows_of(engine, sid), oracle._state)
+            if not torch.allclose(values[sid].double(), oracle.compute().cpu().double(), rtol=1e-6, atol=0):
+                fail(f"fleet {n_streams} session {sid}: value {values[sid]} vs its oracle {oracle.compute()}")
+        res["oracles_bit_equal"] = len(oracles)
+    _FLEET_JIT_CACHE.clear()
+    return res, engine, kinds
+
+
+
+
+def fleet_ssim(seed: int, wrappers: dict, dev="cuda") -> dict:
+    """(b) 512 SSIM monitors, each submitting one (1, 3, 256, 256) pair a tick: one window launch of the
+    bucket's 512 x 15 = 7,680 planes a tick; sampled sessions against oracles on the card."""
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+    from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+
+    g = _host_generator(seed + 1)
+    _FLEET_JIT_CACHE.clear()
+    res = {"sessions": SSIM_SESSIONS, "ticks": []}
+    worst = 0.0
+    with observe.scope(reset=True):
+        engine = StreamEngine(initial_capacity=SSIM_SESSIONS)
+        make = lambda: StructuralSimilarityIndexMeasure(data_range=1.0, device=dev)  # noqa: E731
+        sids = [engine.add_session(make()) for _ in range(SSIM_SESSIONS)]
+        oracles = {sid: make() for sid in sids[::64]}
+        for _ in range(SSIM_FLEET_TICKS):
+            a = torch.rand((SSIM_SESSIONS,) + SSIM_FLEET_SHAPE, generator=g).to(dev)
+            b = (0.75 * a + 0.25 * torch.rand((SSIM_SESSIONS,) + SSIM_FLEET_SHAPE, generator=g).to(dev))
+
+            def submit_and_tick():
+                for i, sid in enumerate(sids):
+                    engine.submit(sid, a[i], b[i])
+                return engine.tick()
+
+            dispatches, ms, launches, syncs = _watched(submit_and_tick, dev, wrappers)
+            for i, sid in enumerate(sids):
+                if sid in oracles:
+                    oracles[sid].update(a[i], b[i])
+            res["ticks"].append({"dispatches": dispatches, "tick_ms": ms, "launches": launches, "syncs": syncs})
+            if dispatches != 1 or (torch.device(dev).type == "cuda" and launches["ssim_window"] != 1):
+                fail(f"SSIM fleet: a tick made {dispatches} dispatches and {launches} launches (want 1 and 1 window)")
+            del a, b
+        _, poll_ms, _, poll_syncs = _watched(engine.compute_all, dev, wrappers)
+        res.update(poll_ms=poll_ms, poll_syncs=poll_syncs)
+        values = engine.compute_all()
+        for sid, oracle in oracles.items():
+            worst = max(worst, _equal_rows(f"SSIM fleet session {sid}", _rows_of(engine, sid), oracle._state,
+                                           exact=False))
+            if abs(float(values[sid]) - float(oracle.compute())) > 1e-6:
+                fail(f"SSIM fleet session {sid}: {float(values[sid])} vs its oracle {float(oracle.compute())}")
+        snap = observe.snapshot()
+        res["update_programs"] = _counter(snap, "fleet_compile", True)
+        res["loose_updates"] = _counter(snap, "fleet_loose_update")
+    res["oracles"] = len(oracles)
+    res["max_rel_diff_vs_oracles"] = worst
+    _FLEET_JIT_CACHE.clear()
+    return res
+
+
+def fleet_multiclass_auroc(seed: int, wrappers: dict, dev="cuda") -> dict:
+    """(c) 1,000 MulticlassAUROC(10 classes, 200 thresholds) sessions, batch 256: under vmap the labels mode
+    becomes the plain mode's one-hot over (256, 1,024 x 10) columns, one binned-counts launch a tick."""
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.classification import MulticlassAUROC
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+
+    g = _host_generator(seed + 2)
+    _FLEET_JIT_CACHE.clear()
+    res = {"sessions": MCAUROC_SESSIONS, "ticks": []}
+    with observe.scope(reset=True):
+        engine = StreamEngine(initial_capacity=1024)
+        make = lambda: MulticlassAUROC(num_classes=MCAUROC_CLASSES, thresholds=MCAUROC_THRESHOLDS,  # noqa: E731
+                                       device=dev)
+        sids = [engine.add_session(make()) for _ in range(MCAUROC_SESSIONS)]
+        oracles = {sid: make() for sid in sids[::100]}
+        for _ in range(MCAUROC_TICKS):
+            p = torch.softmax(torch.randn((MCAUROC_SESSIONS, MCAUROC_BATCH, MCAUROC_CLASSES), generator=g), -1).to(dev)
+            y = torch.randint(0, MCAUROC_CLASSES, (MCAUROC_SESSIONS, MCAUROC_BATCH), generator=g).to(dev)
+
+            def submit_and_tick():
+                for i, sid in enumerate(sids):
+                    engine.submit(sid, p[i], y[i])
+                return engine.tick()
+
+            dispatches, ms, launches, syncs = _watched(submit_and_tick, dev, wrappers)
+            for i, sid in enumerate(sids):
+                if sid in oracles:
+                    oracles[sid].update(p[i], y[i])
+            res["ticks"].append({"dispatches": dispatches, "tick_ms": ms, "launches": launches, "syncs": syncs})
+            if dispatches != 1 or (torch.device(dev).type == "cuda" and (launches["binned_counts"] != 1
+                                                                         or launches["binned_counts_labels"])):
+                fail(f"multiclass AUROC fleet: a tick made {dispatches} dispatches and launched {launches}")
+        values = engine.compute_all()
+        for sid, oracle in oracles.items():
+            _equal_rows(f"multiclass AUROC fleet session {sid}", _rows_of(engine, sid), oracle._state)
+            if abs(float(values[sid]) - float(oracle.compute())) > 1e-6:
+                fail(f"multiclass AUROC session {sid}: {float(values[sid])} vs {float(oracle.compute())}")
+        snap = observe.snapshot()
+        res["update_programs"] = _counter(snap, "fleet_compile", True)
+        res["loose_updates"] = _counter(snap, "fleet_loose_update")
+    res["oracles_bit_equal"] = len(oracles)
+    _FLEET_JIT_CACHE.clear()
+    return res
+
+
+def fleet_recovery(seed: int, dev="cuda") -> dict:
+    """(d) the 1,000-stream fleet with a journal: 3 ticks, a checkpoint, a fourth wave submitted and journaled
+    but never ticked (the crash), then a restore on the card and one on the CPU: both bit-exact against the
+    fleet that did not crash."""
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+    from metrics_tpu_torch.engine import StreamEngine
+
+    g = _host_generator(seed + 3)
+    tmp = tempfile.mkdtemp(prefix="fleet_recovery_")
+    try:
+        wal, ckpt = os.path.join(tmp, "fleet.wal"), os.path.join(tmp, "fleet.mtckpt")
+        engine = StreamEngine(initial_capacity=512, wal_path=wal)
+        half = FLEET_SMALL // 2
+        sids = ([engine.add_session(MulticlassAccuracy(num_classes=8, validate_args=False, device=dev))
+                 for _ in range(half)] + [engine.add_session(BinaryAUROC(thresholds=16, device=dev))
+                                          for _ in range(half)])
+
+        def wave():
+            acc = (torch.randint(0, 8, (half, FLEET_BATCH), generator=g).to(dev),
+                   torch.randint(0, 8, (half, FLEET_BATCH), generator=g).to(dev))
+            auroc = (torch.rand((half, FLEET_BATCH), generator=g).to(dev),
+                     torch.randint(0, 2, (half, FLEET_BATCH), generator=g).to(dev))
+            for i, sid in enumerate(sids):
+                p, y = acc if i < half else auroc
+                engine.submit(sid, p[i % half], y[i % half])
+
+        for _ in range(3):
+            wave()
+            engine.tick()
+        _, ckpt_ms = _wall(lambda: engine.checkpoint(ckpt), dev)
+        wave()  # journaled and fsynced at the next flush boundary; the crash comes first
+        engine._wal.sync()
+        recovered, restore_ms = _wall(lambda: StreamEngine.restore(ckpt, wal_path=os.path.join(tmp, "fleet.wal")),
+                                      dev)
+        _, replay_tick_ms = _wall(recovered.tick, dev)
+        engine.tick()  # the fleet that did not crash applies the same wave
+        for sid in sids:
+            _equal_rows(f"recovered session {sid}", _rows_of(recovered, sid), _rows_of(engine, sid))
+        shutil.copy(wal, os.path.join(tmp, "cpu.wal"))
+        on_cpu, cpu_restore_ms = _wall(lambda: StreamEngine.restore(ckpt, wal_path=os.path.join(tmp, "cpu.wal"),
+                                                                   device="cpu"), dev)
+        on_cpu.tick()
+        for sid in sids:
+            _equal_rows(f"session {sid} restored on the CPU", _rows_of(on_cpu, sid), _rows_of(engine, sid))
+        return {"sessions": len(sids), "checkpoint_ms": ckpt_ms, "checkpoint_bytes": os.path.getsize(ckpt),
+                "restore_ms": restore_ms, "replayed_tick_ms": replay_tick_ms, "cpu_restore_ms": cpu_restore_ms,
+                "bit_exact_on_card": True, "equal_on_cpu": True}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def fleet_sharded(seed: int, dev="cuda", sessions=SHARDED_SESSIONS) -> dict:
+    """(e) 100,000 two-scalar stream means over 8 shards on one card (capacity 2^14 a shard), 2,048 sessions
+    active a tick and 512 churned, 4 ticks: one dispatch per shard tick; then shard 0's dispatch dies and the
+    shard heals from its own files, and the fleet restores into 12 shards; sampled sessions against oracles."""
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.engine import DispatchConsumedError, ShardedStreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+
+    StreamMean = _stream_mean_class()
+    g = _host_generator(seed + 4)
+    rng = np.random.default_rng(seed + 4)
+    tmp = tempfile.mkdtemp(prefix="fleet_sharded_")
+    _FLEET_JIT_CACHE.clear()
+    res = {"sessions": sessions, "shards": SHARDED_SHARDS, "ticks": []}
+    try:
+        with observe.scope(reset=True):
+            fleet = ShardedStreamEngine(n_shards=SHARDED_SHARDS, initial_capacity=SHARDED_CAPACITY,
+                                        wal_dir=os.path.join(tmp, "w"), devices=[dev])
+            t0 = time.perf_counter()
+            sids = [f"u{i}" for i in range(sessions)]
+            oracles = {}
+            for i, sid in enumerate(sids):
+                fleet.add_session(StreamMean(device=dev), sid)
+                if i % SHARDED_ORACLE_EVERY == 0:
+                    oracles[sid] = StreamMean(device=dev)
+            res["add_s"] = time.perf_counter() - t0
+            live, next_id = list(sids), sessions
+            for t in range(SHARDED_TICKS):
+                active = [live[i] for i in rng.choice(len(live), SHARDED_ACTIVE, replace=False)]
+                x = torch.rand((SHARDED_ACTIVE, FLEET_BATCH), generator=g).to(dev)
+
+                def submit_and_tick():
+                    for i, sid in enumerate(active):
+                        fleet.submit(sid, x[i])
+                    return fleet.tick()
+
+                before = _counter(observe.snapshot(), "fleet_dispatch")
+                dispatches, ms = _wall(submit_and_tick, dev)
+                for i, sid in enumerate(active):
+                    if sid in oracles:
+                        oracles[sid].update(x[i])
+                touched = len({fleet.shard_of(s) for s in active})
+                res["ticks"].append({"dispatches": dispatches, "shards_touched": touched, "tick_ms": ms})
+                if dispatches != touched or _counter(observe.snapshot(), "fleet_dispatch") - before != touched:
+                    fail(f"sharded fleet: tick {t} made {dispatches} dispatches over {touched} shards")
+                if t == 1:
+                    doomed = set(live[i] for i in rng.choice(len(live), SHARDED_CHURN, replace=False))
+                    for sid in doomed:
+                        fleet.expire(sid)
+                        oracles.pop(sid, None)
+                    live = [s for s in live if s not in doomed]
+                    for _ in range(SHARDED_CHURN):
+                        sid = f"u{next_id}"
+                        next_id += 1
+                        fleet.add_session(StreamMean(device=dev), sid)
+                        live.append(sid)
+            snap = observe.snapshot()
+            res["update_programs"] = _counter(snap, "fleet_compile", True)
+            res["loose_updates"] = _counter(snap, "fleet_loose_update")
+            _, res["checkpoint_ms"] = _wall(lambda: fleet.checkpoint(os.path.join(tmp, "c")), dev)
+            want = {sid: oracle.compute() for sid, oracle in oracles.items()}
+
+            def check(name, fl):
+                for sid, value in want.items():
+                    got = fl.compute(sid)
+                    _equal_rows(f"{name} session {sid}", {"v": got.reshape(())}, {"v": value.cpu().reshape(())})
+
+            check("sharded fleet", fleet)
+            # shard 0's next dispatch dies: the shard heals from its own checkpoint file and journal
+            shard0 = [s for s in live if fleet.shard_of(s) == 0][:64]
+            x = torch.rand((len(shard0), FLEET_BATCH), generator=g).to(dev)
+            for i, sid in enumerate(shard0):
+                fleet.submit(sid, x[i])
+                if sid in oracles:
+                    oracles[sid].update(x[i])
+            want = {sid: oracle.compute() for sid, oracle in oracles.items()}
+
+            def dead(staged):
+                raise DispatchConsumedError("injected: shard 0's dispatch died")
+
+            fleet._shards[0]._dispatch_flush = dead
+            _, res["one_shard_heal_tick_ms"] = _wall(fleet.tick, dev)
+            if not fleet._heal_suspect == {0}:
+                fail("sharded fleet: shard 0 did not heal")
+            check("healed fleet", fleet)
+            fleet.checkpoint(os.path.join(tmp, "c"))
+            for shard in fleet._shards:
+                if shard._wal is not None:
+                    shard._wal.close()
+            grown, res["resize_8_to_12_ms"] = _wall(lambda: ShardedStreamEngine.restore(
+                os.path.join(tmp, "c"), wal_dir=os.path.join(tmp, "w"), n_shards=12, devices=[dev]), dev)
+            if grown.n_shards != 12 or len(grown) != len(live):
+                fail(f"sharded fleet: the resize gave {grown.n_shards} shards and {len(grown)} sessions")
+            check("resized fleet", grown)
+            res["oracles_bit_equal"] = len(want)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _FLEET_JIT_CACHE.clear()
+    return res
+
+
+def fleet_bootstrap(imagenet_gpu, seed: int, wrappers: dict) -> dict:
+    """(f) BootStrapper(MulticlassAccuracy, 20 copies) over the ImageNet-1k inputs through the replica engine
+    (one gather-mode dispatch an update) and through its loop, from one seed: equal states, and each path's
+    update ms."""
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.wrappers import BootStrapper
+    from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper
+
+    def run(engine: bool):
+        np.random.seed(seed)
+        boot = BootStrapper(MulticlassAccuracy(num_classes=IN_CLASSES, average="micro", device="cuda"),
+                            num_bootstraps=BOOT_COPIES, raw=True)
+        if not engine:
+            boot._engine_ok = lambda args, kwargs: False
+        with observe.scope(reset=True):
+            ms = [_timed(lambda: boot.update(p, t))[1] for p, t in imagenet_gpu]
+            out, compute_ms = _timed(boot.compute)
+            dispatches = _counter(observe.snapshot(), "replica_dispatch")
+        return boot, out, ms, compute_ms, dispatches
+
+    eng, out_e, ms_e, cms_e, disp_e = run(True)
+    loop, out_l, ms_l, cms_l, disp_l = run(False)
+    if disp_e != len(imagenet_gpu) + 1 or disp_l:
+        fail(f"BootStrapper: {disp_e} replica dispatches on the engine, {disp_l} in the loop")
+    for a, b in zip(eng.metrics, loop.metrics):
+        _equal_rows("BootStrapper copy", a._state, b._state)
+    if not torch.equal(out_e["raw"], out_l["raw"]):
+        fail("BootStrapper: the engine's copies computed other scores than the loop's")
+    return {"copies": BOOT_COPIES, "updates": len(imagenet_gpu), "engine_update_ms_median": _median_ms(ms_e),
+            "loop_update_ms_median": _median_ms(ms_l), "engine_compute_ms": cms_e, "loop_compute_ms": cms_l,
+            "replica_dispatches": disp_e}
+
+
+def fleet_engine(seed: int, wrappers: dict, imagenet_gpu) -> dict:
+    """The fleet engine on the card, its launches counted apart from the main path's: (a) 10,000 and 1,000
+    streams (launches and host syncs per tick equal at both sizes; the 1,000-stream fleet's states equal the
+    port's CPU run), (b) 512 SSIM monitors, (c) 1,000 multiclass AUROC sessions, (d) recovery, (e) the
+    100,000-session sharded fleet, (f) BootStrapper through the replica engine."""
+    res = {}
+    t0 = time.perf_counter()
+    res["streams_10000"], _, _ = fleet_streams(FLEET_STREAMS, seed, wrappers)
+    res["streams_1000"], small, kinds = fleet_streams(FLEET_SMALL, seed + 7, wrappers)
+    big, little = res["streams_10000"]["ticks"], res["streams_1000"]["ticks"]
+    for t, (a, b) in enumerate(zip(big, little)):
+        if a["launches"] != b["launches"] or a["syncs"] != b["syncs"]:
+            fail(f"fleet tick {t}: 10,000 streams launched {a['launches']} with {a['syncs']} host syncs, 1,000 "
+                 f"streams {b['launches']} with {b['syncs']}")
+    _, cpu, _ = fleet_streams(FLEET_SMALL, seed + 7, wrappers, dev="cpu", oracle_every=FLEET_SMALL)
+    subset = [s for s in kinds if kinds[s] == "acc"][:FLEET_CPU_SUBSET] + \
+        [s for s in kinds if kinds[s] == "auroc"][:FLEET_CPU_SUBSET]
+    for sid in subset:
+        _equal_rows(f"fleet session {sid} on the CPU", _rows_of(cpu, sid), _rows_of(small, sid))
+    res["cpu_subset_equal"] = len(subset)
+    res["ssim_512"] = fleet_ssim(seed, wrappers)
+    res["multiclass_auroc_1000"] = fleet_multiclass_auroc(seed, wrappers)
+    res["recovery_1000"] = fleet_recovery(seed)
+    res["sharded_100000"] = fleet_sharded(seed)
+    res["bootstrap_imagenet"] = fleet_bootstrap(imagenet_gpu, seed, wrappers)
+    ticks = [t for key in ("streams_10000", "streams_1000", "ssim_512", "multiclass_auroc_1000") for t in res[key]["ticks"]]
+    res["launches"] = {k: sum(t["launches"][k] for t in ticks) for k in wrappers}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"fleet_engine: {json.dumps(res)}")
+    return res
+
+
 def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     """Kernel, plain and library times at the main path's shapes; ``plain=False`` times the kernels only."""
     import torch.nn.functional as F
@@ -4884,6 +5427,17 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         return {"bound_ms": 1000 * max(moved / HBM_BYTES_PER_S, ops / F32_OPS_PER_S),
                 "bound_by": "bytes" if moved / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S else "operations"}
 
+    def held(key, row, got, want, exact):
+        """The row's ``max_abs_err``: the kernel against its plain version on the row's own inputs. Counts must
+        be equal and window sums within SSIM_RTOL/SSIM_ATOL, or the run fails."""
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = 0.0
+        for g, w in zip(got, want):
+            err = max(err, float((g.double() - w.double()).abs().max()))
+            if not (torch.equal(g, w) if exact else torch.allclose(g, w, rtol=SSIM_RTOL, atol=SSIM_ATOL)):
+                fail(f"{key}: the kernel differs from its plain version on the timed inputs")
+        row["max_abs_err"] = int(err) if exact else err
+
     flush = flush_buffer()
     res = {}
     t = PRC_THRESHOLDS
@@ -4897,24 +5451,45 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         ]
         moved = n * c * (4 + 4 + 1) + 4 * t + 4 * (2 * c * t + 2 * c)
         ops = n * c * math.ceil(math.log2(t + 1))
-        res[f"binned_counts[{label}]"] = {
+        res[f"binned_counts[{label}]"] = row = {
             "shape": [n, c, t],
             "ms": time_ms(lambda: binned_counts(*args), flush=flush),
             "plain_ms": time_ms(lambda: binned_counts_plain(*args), reps=5, flush=flush) if plain else None,
             **bound(moved, ops),
             "library_ms": None,
         }
+        if plain:
+            held(f"binned_counts[{label}]", row, binned_counts(*args), binned_counts_plain(*args), True)
+    # B1 at the fleet's binary fold: the 5,000-session AUROC bucket padded to 8,192 rows, 16 scores a row, as
+    # the vmap rule lays it out: (16, 8,192) columns at 16 thresholds, one launch a tick
+    n, c, t16 = FLEET_BATCH, FLEET_CAPACITY, 16
+    thr16 = _adjust_threshold_arg(t16, torch.device("cuda"))
+    fargs = [torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).cuda(),
+             torch.ones((n, c), dtype=torch.bool, device="cuda"), thr16]
+    res["binned_counts[fleet_binary]"] = row = {
+        "shape": [n, c, t16],
+        "ms": time_ms(lambda: binned_counts(*fargs), flush=flush),
+        "plain_ms": time_ms(lambda: binned_counts_plain(*fargs), reps=5, flush=flush) if plain else None,
+        **bound(n * c * (4 + 4 + 1) + 4 * t16 + 4 * (2 * c * t16 + 2 * c), n * c * math.ceil(math.log2(t16 + 1))),
+        "library_ms": None,
+    }
+    if plain:
+        held("binned_counts[fleet_binary]", row, binned_counts(*fargs), binned_counts_plain(*fargs), True)
     n, c = MC_N, 10
     largs = [torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
              torch.from_numpy(rng.integers(0, c, n, dtype=np.int32)).cuda(), thresholds]
     moved = n * c * 4 + n * 4 + 4 * t + 4 * (2 * c * t + 2 * c)
-    res["binned_counts_labels[multiclass]"] = {
+    res["binned_counts_labels[multiclass]"] = row = {
         "shape": [n, c, t],
         "ms": time_ms(lambda: binned_counts_labels(*largs), flush=flush),
         "plain_ms": time_ms(lambda: binned_counts_labels_plain(*largs), reps=5, flush=flush) if plain else None,
         **bound(moved, n * c * math.ceil(math.log2(t + 1))),
         "library_ms": None,
     }
+    if plain:
+        held("binned_counts_labels[multiclass]", row, binned_counts_labels(*largs),
+             binned_counts_labels_plain(*largs), True)
 
     # the float64 instantiation: binary scores of 8 bytes with float64 thresholds
     n = BIN_N
@@ -4922,13 +5497,15 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     args64 = [torch.from_numpy(preds64).cuda(), torch.from_numpy(rng.integers(0, 2, (n, 1), dtype=np.int32)).cuda(),
               torch.ones((n, 1), dtype=torch.bool, device="cuda"), torch.from_numpy(grid64).cuda()]
     moved = n * (8 + 4 + 1) + 8 * t + 4 * (2 * t + 2)
-    res["binned_counts_f64[binary]"] = {
+    res["binned_counts_f64[binary]"] = row = {
         "shape": [n, 1, t],
         "ms": time_ms(lambda: binned_counts(*args64), flush=flush),
         "plain_ms": time_ms(lambda: binned_counts_plain(*args64), reps=5, flush=flush) if plain else None,
         **bound(moved, n * math.ceil(math.log2(t + 1))),
         "library_ms": None,
     }
+    if plain:
+        held("binned_counts_f64[binary]", row, binned_counts(*args64), binned_counts_plain(*args64), True)
 
     b, ch, h, w = SSIM_SHAPE
     k = _gaussian_taps_np(11, 1.5)
@@ -4944,6 +5521,7 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush)
+        held("ssim_window", row, ssim_window(x, k, k), ssim_window_plain(x, k, k), False)
         row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
         row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
                                                     .abs().max())
@@ -4961,10 +5539,28 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
         x4 = x.unsqueeze(1)
         torch.backends.cudnn.allow_tf32 = False
         row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush)
+        held("ssim_window[div2k]", row, ssim_window(x, k, k), ssim_window_plain(x, k, k), False)
         row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
         row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, k, k))
                                                     .abs().max())
     res["ssim_window[div2k]"] = row
+
+    # B2 at the fleet's SSIM bucket: 512 sessions x 15 moment planes, 266 x 266 -> 256 x 256, one launch a tick
+    planes, (h, w) = SSIM_SESSIONS * 15, SSIM_FLEET_SHAPE[2:]
+    x = torch.from_numpy(rng.random((planes, h + 10, w + 10), dtype=np.float32)).cuda()
+    moved = 4 * planes * ((h + 10) * (w + 10) + h * w)
+    ops = 2 * planes * (11 * h * (w + 10) + 11 * h * w)
+    row = {"shape": [planes, h + 10, w + 10, 11, 11], "ms": time_ms(lambda: ssim_window(x, k, k), flush=flush),
+           "plain_ms": None, **bound(moved, ops), "library_ms": None}
+    if plain:
+        weight = torch.from_numpy(np.outer(k, k).astype(np.float32)).reshape(1, 1, 11, 11).cuda()
+        x4 = x.unsqueeze(1)
+        torch.backends.cudnn.allow_tf32 = False
+        row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, k, k), reps=5, flush=flush)
+        held("ssim_window[fleet_ssim]", row, ssim_window(x, k, k), ssim_window_plain(x, k, k), False)
+        row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
+    res["ssim_window[fleet_ssim]"] = row
+    del x
 
     # B2 at the new windows: VIF's 17-tap gaussian (sigma 3.4) over the LIVE path's scale-0 statistics (1,000
     # planes of 512 x 768, VALID), and the 8-tap uniform window over SCC's statistics at WorldView-3 reduced
@@ -4984,6 +5580,7 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
             x4 = x.unsqueeze(1)
             torch.backends.cudnn.allow_tf32 = False
             row["plain_ms"] = time_ms(lambda: ssim_window_plain(x, taps, taps), reps=5, flush=flush)
+            held(key, row, ssim_window(x, taps, taps), ssim_window_plain(x, taps, taps), False)
             row["library_ms"] = time_ms(lambda: F.conv2d(x4, weight), reps=10, flush=flush)
             row["library_max_abs_err_vs_plain"] = float((F.conv2d(x4, weight)[:, 0] - ssim_window_plain(x, taps, taps))
                                                         .abs().max())
@@ -5069,7 +5666,7 @@ def main() -> int:
                 log(f"ptxas[{name}]: {line.strip()}")
 
     rng = np.random.default_rng(seed)
-    errs = check_kernels(rng)
+    log(f"phase 3, largest |kernel - plain| over the edge cases and shapes: {json.dumps(check_kernels(rng))}")
 
     wrappers = {"binned_counts": binned_counts, "binned_counts_labels": binned_counts_labels,
                 "ssim_window": ssim_window}
@@ -5135,13 +5732,21 @@ def main() -> int:
                "ssim_window[gauss17]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
                                         "metrics_tpu/ops/ssim_window.py:60"),
                "ssim_window[uniform8]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
-                                         "metrics_tpu/ops/ssim_window.py:60")}
+                                         "metrics_tpu/ops/ssim_window.py:60"),
+               "binned_counts[fleet_binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                               "metrics_tpu/ops/binned_hist.py:151"),
+               "ssim_window[fleet_ssim]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
+                                           "metrics_tpu/ops/ssim_window.py:60")}
+    fleet_launches = APART["fleet_engine"]["launches"]
     kernels = []
     for key, (name, source, replaces) in sources.items():
         row = timing[key]
-        err = errs["binned_counts_f64" if key.startswith("binned_counts_f64") else name]
+        # the kernel against its plain version on this row's own inputs (phase 3 covers the edge cases)
+        err = row["max_abs_err"]
+        # the fleet rows' launches are the fleet_engine section's, counted apart from the main path's
+        count = fleet_launches[name] if key.endswith(("[fleet_binary]", "[fleet_ssim]")) else launches[name]
         kernels.append({
-            "name": key, "route": "cuda", "source": source, "replaces": replaces, "launches": launches[name],
+            "name": key, "route": "cuda", "source": source, "replaces": replaces, "launches": count,
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
         })

@@ -14,7 +14,8 @@ from typing import Any, Callable, List, Optional, Union
 
 import torch
 
-from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.metric import Metric, _batchable_args
+from metrics_tpu_torch.utils.checks import _is_traced
 from metrics_tpu_torch.utils.compute import _safe_divide, neumaier_add, neumaier_value
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -56,6 +57,7 @@ class BaseAggregator(Metric):
         **kwargs: Any,
     ) -> None:
         merge_associative = kwargs.pop("merge_associative", None)
+        jit_update_user = kwargs.get("jit_update")
         if merge_associative is None and isinstance(fn, str):
             merge_associative = fn in ("sum", "mean", "min", "max")
         super().__init__(**kwargs)
@@ -67,8 +69,18 @@ class BaseAggregator(Metric):
         self.nan_strategy = nan_strategy
         if nan_strategy in ("error", "warn"):
             self._jit_update_opt = False  # the JAX package's mark: the update reads the values on the host
+        self._jit_update_user = jit_update_user
         self.state_name = state_name
         self.add_state(state_name, default=default_value, dist_reduce_fx=fn, merge_associative=merge_associative)
+
+    def _jit_eligible(self, args: Any, kwargs: Any) -> bool:
+        """The JAX package marks "error" and "warn" aggregators ``jit_update=False``, since their NaN check reads
+        the host. Under ``torch.func.vmap`` the port's "warn" drops the NaNs branch-free (traced mode), so that
+        mark does not keep a "warn" aggregator out of a bucket; "error" cannot run batched and stays out, and
+        a ``jit_update=`` the caller passed decides as for any metric."""
+        if self._jit_update_user is None and self.nan_strategy != "error":
+            return not self._has_list_state() and _batchable_args(args, kwargs)
+        return super()._jit_eligible(args, kwargs)
 
     @property
     def value(self) -> Any:
@@ -94,6 +106,20 @@ class BaseAggregator(Metric):
         weight = torch.broadcast_to(weight, x.shape)
         nan_mask = torch.isnan(x) | torch.isnan(weight)
         if self.nan_strategy in ("error", "warn"):
+            if _is_traced(x, weight):
+                # under vmap the values cannot be read: "error" fails at trace time, "warn" warns there
+                # and drops the NaNs branch-free, as the JAX package does under jit
+                if self.nan_strategy == "error":
+                    raise RuntimeError(
+                        "nan_strategy='error' requires a host-side value check and cannot run "
+                        "inside torch.func.vmap. Use 'warn', 'ignore', 'disable' or a float replacement."
+                    )
+                rank_zero_warn(
+                    "nan_strategy='warn' inside torch.func.vmap cannot inspect values; NaNs are dropped "
+                    "branch-free without a runtime warning.",
+                    UserWarning,
+                )
+                return x, weight, ~nan_mask
             if bool(nan_mask.any()):
                 if self.nan_strategy == "error":
                     raise RuntimeError("Encountered `nan` values in tensor")

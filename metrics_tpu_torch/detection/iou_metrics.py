@@ -31,6 +31,7 @@ def _host(x: Any) -> np.ndarray:
 
 
 class IntersectionOverUnion(Metric):
+    __jit_ineligible__ = True  # list-of-dict host inputs, as in the JAX package
     """Mean IoU of the (prediction, ground truth) box pairs of each image that share a label (unless
     ``respect_labels=False``) and clear ``iou_threshold``; per class too with ``class_metrics``.
 

@@ -75,6 +75,7 @@ def _host(x: Any, dtype: Any = None) -> np.ndarray:
 
 
 class MeanAveragePrecision(Metric):
+    __jit_ineligible__ = True  # list-of-dict host inputs, as in the JAX package
     """Mean average precision (and recall) of object detection under COCO's protocol.
 
     ``update`` takes one dict per image: predictions with ``boxes``, ``scores``

@@ -91,6 +91,7 @@ def _images(image: np.ndarray, *columns: np.ndarray) -> Iterator[Tuple[np.ndarra
 
 
 class PanopticQuality(Metric):
+    __jit_ineligible__ = True  # host-side segment matching, as in the JAX package
     """Panoptic quality over every batch of ``(..., H, W, 2)`` (category id, instance id) maps seen so far.
 
     ``compute`` returns PQ averaged over the categories seen; with ``return_sq_and_rq`` also SQ and RQ; with

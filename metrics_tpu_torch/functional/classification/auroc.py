@@ -32,6 +32,8 @@ from metrics_tpu_torch.functional.classification.roc import (
     _multiclass_roc_compute,
     _multilabel_roc_compute,
 )
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _auc_compute_without_check, _safe_divide, _searchsorted_right
 from metrics_tpu_torch.utils.data import bincount
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -53,7 +55,7 @@ def _reduce_scores(res: Tensor, average: Optional[str], weights: Optional[Tensor
     if average is None or average == "none":
         return res
     nan = torch.isnan(res)
-    if bool(nan.any()):
+    if not _is_traced(res) and bool(nan.any()):
         rank_zero_warn(
             f"Average precision score for one or more classes was `nan`. Ignoring these classes in {average}-average",
             UserWarning,
@@ -114,6 +116,11 @@ def _binary_auroc_compute(
     fpr, tpr, _ = _binary_roc_compute(state, thresholds, pos_label)
     if max_fpr is None or max_fpr == 1:
         return _auc_compute_without_check(fpr, tpr, 1.0)
+    if _is_traced(fpr, tpr):
+        raise TraceIneligibleError(
+            "binary_auroc with max_fpr < 1 slices the ROC curve at a data-dependent index"
+            " and cannot run under torch.func.vmap; call it eagerly or use max_fpr=None."
+        )
     if bool((fpr.sum() == 0) | (tpr.sum() == 0)):
         return _auc_compute_without_check(fpr, tpr, 1.0)
 

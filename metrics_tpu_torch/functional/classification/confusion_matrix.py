@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _unique_values
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
 from metrics_tpu_torch.utils.compute import _safe_divide, normalize_logits_if_needed
 from metrics_tpu_torch.utils.data import bincount
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -50,8 +50,10 @@ def _binary_confusion_matrix_arg_validation(
 def _binary_confusion_matrix_tensor_validation(
     preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
 ) -> None:
-    """Validate tensor inputs (reads their distinct values on the host)."""
+    """Validate tensor inputs (reads their distinct values on the host; skipped under vmap)."""
     _check_same_shape(preds, target)
+    if _is_traced(preds, target):
+        return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
     uniq = set(_unique_values(target))
     if not uniq.issubset(allowed):
@@ -154,6 +156,8 @@ def _multiclass_confusion_matrix_tensor_validation(
     else:
         raise ValueError("Either `preds` and `target` both should have the (same) shape (N, ...), or `target`"
                          " should be (N, ...) and `preds` should be (N, C, ...).")
+    if _is_traced(preds, target):
+        return
     check_value = num_classes if ignore_index is None else num_classes + 1
     to_check = [(target, "target")]
     if not preds.is_floating_point():
@@ -242,6 +246,8 @@ def _multilabel_confusion_matrix_tensor_validation(
             f"Expected both `target.shape[1]` and `preds.shape[1]` to be equal to the number of labels"
             f" but got {preds.shape[1]} and {num_labels}"
         )
+    if _is_traced(preds, target):
+        return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
     uniq = set(_unique_values(target))
     if not uniq.issubset(allowed):

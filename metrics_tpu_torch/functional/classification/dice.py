@@ -20,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _safe_divide
 
 __all__ = ["dice"]
@@ -58,6 +60,11 @@ def _dice_format(
             return preds_hard.reshape(n, c, -1), target_b.reshape(n, c, -1), c
         return preds_hard.reshape(-1, 1, 1), target_b.reshape(-1, 1, 1), 1
     # hard labels: the class count from the data unless given
+    if not num_classes and _is_traced(preds, target):
+        raise TraceIneligibleError(
+            "dice with hard labels infers the class count from the data, which cannot run under"
+            " torch.func.vmap; pass num_classes explicitly."
+        )
     c = num_classes or int(max(int(preds.max()), int(target.max())) + 1)
     n = preds.shape[0] if preds.ndim else 1
     classes = torch.arange(c, device=preds.device)

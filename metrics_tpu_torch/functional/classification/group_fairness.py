@@ -17,6 +17,8 @@ from metrics_tpu_torch.functional.classification.stat_scores import (
     _binary_stat_scores_format,
     _binary_stat_scores_tensor_validation,
 )
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _safe_divide
 from metrics_tpu_torch.utils.data import bincount
 
@@ -25,10 +27,18 @@ Tensor = torch.Tensor
 __all__ = ["binary_fairness", "binary_groups_stat_rates", "demographic_parity", "equal_opportunity"]
 
 
+_FAIRNESS_VMAP_MSG = (
+    "the fairness reductions pick groups by data-dependent argmin/argmax (and infer the group count from the"
+    " data) and cannot run under torch.func.vmap; call them eagerly."
+)
+
+
 def _groups_validation(groups: Tensor, num_groups: int) -> None:
     """Group ids must be integers below ``num_groups`` (one host read of their largest)."""
     if groups.is_floating_point() or groups.is_complex() or groups.dtype == torch.bool:
         raise ValueError(f"Expected dtype of argument groups to be int, but got {groups.dtype}.")
+    if _is_traced(groups):
+        return
     largest = int(groups.max())
     if largest > num_groups - 1:
         raise ValueError(
@@ -105,6 +115,8 @@ def binary_groups_stat_rates(
 
 def _compute_binary_demographic_parity(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Dict[str, Tensor]:
     """The lowest group positive rate over the highest, keyed by the two groups."""
+    if _is_traced(tp, fp, tn, fn):
+        raise TraceIneligibleError(_FAIRNESS_VMAP_MSG)
     pos_rates = _rates(tp + fp, tp + fp + tn + fn)
     min_id = int(torch.argmin(pos_rates))
     max_id = int(torch.argmax(pos_rates))
@@ -113,6 +125,8 @@ def _compute_binary_demographic_parity(tp: Tensor, fp: Tensor, tn: Tensor, fn: T
 
 def _compute_binary_equal_opportunity(tp: Tensor, fp: Tensor, tn: Tensor, fn: Tensor) -> Dict[str, Tensor]:
     """The lowest group true positive rate over the highest, keyed by the two groups."""
+    if _is_traced(tp, fp, tn, fn):
+        raise TraceIneligibleError(_FAIRNESS_VMAP_MSG)
     tpr = _rates(tp, tp + fn)
     min_id = int(torch.argmin(tpr))
     max_id = int(torch.argmax(tpr))
@@ -133,6 +147,8 @@ def demographic_parity(
     >>> demographic_parity(preds, groups)
     {'DP_0_1': tensor(0.)}
     """
+    if _is_traced(groups):
+        raise TraceIneligibleError(_FAIRNESS_VMAP_MSG)
     num_groups = int(groups.max()) + 1
     target = torch.zeros(preds.shape, dtype=torch.int64, device=preds.device)
     tp, fp, tn, fn = _binary_groups_stat_scores_tensor(
@@ -150,6 +166,8 @@ def equal_opportunity(
     validate_args: bool = True,
 ) -> Dict[str, Tensor]:
     """Equal opportunity between all groups (``max(groups) + 1`` of them)."""
+    if _is_traced(groups):
+        raise TraceIneligibleError(_FAIRNESS_VMAP_MSG)
     num_groups = int(groups.max()) + 1
     tp, fp, tn, fn = _binary_groups_stat_scores_tensor(
         preds, target, groups, num_groups, threshold, ignore_index, validate_args
@@ -172,6 +190,8 @@ def binary_fairness(
             f"Expected argument `task` to either be ``demographic_parity``,"
             f"``equal_opportunity`` or ``all`` but got {task}."
         )
+    if _is_traced(groups):
+        raise TraceIneligibleError(_FAIRNESS_VMAP_MSG)
     num_groups = int(groups.max()) + 1
     if task == "demographic_parity":
         target = torch.zeros(preds.shape, dtype=torch.int64, device=preds.device)

@@ -33,6 +33,8 @@ from metrics_tpu_torch.functional.classification.roc import (
     _multiclass_roc_compute,
     _multilabel_roc_compute,
 )
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _auc_compute_without_check, interp
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -59,6 +61,11 @@ def _binary_logauc_compute(
             "At least two values on for the fpr and tpr are required to compute the log AUC. Returns 0 score."
         )
         return torch.tensor(0.0, device=fpr.device)
+    if _is_traced(fpr, tpr):
+        raise TraceIneligibleError(
+            "binary_logauc trims the ROC curve at data-dependent indices and cannot run under torch.func.vmap;"
+            " call it eagerly."
+        )
     fpr_rng = torch.tensor(fpr_range, dtype=fpr.dtype, device=fpr.device)
     tpr = torch.cat([tpr, interp(fpr_rng, fpr, tpr)]).sort().values
     fpr = torch.cat([fpr, fpr_rng]).sort().values
@@ -85,7 +92,7 @@ def _reduce_logauc(
     if average is None or average == "none":
         return scores
     nan = torch.isnan(scores)
-    if bool(nan.any()):
+    if not _is_traced(scores) and bool(nan.any()):
         rank_zero_warn(f"Some classes had `nan` log AUC. Ignoring these classes in {average}-average", UserWarning)
     if average == "macro":
         return torch.where(nan, 0.0, scores).sum() / (~nan).sum().clamp(min=1)

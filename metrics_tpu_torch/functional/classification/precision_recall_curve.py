@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
-from metrics_tpu_torch.utils.checks import _check_same_shape, _unique_values
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
 from metrics_tpu_torch.utils.compute import _safe_divide, interp, normalize_logits_if_needed
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -114,7 +114,10 @@ def _binary_precision_recall_curve_arg_validation(
 
 
 def _check_binary_target_values(target: Tensor, ignore_index: Optional[int]) -> None:
-    """Raise unless every target is 0, 1 or ``ignore_index`` (one host read of the distinct values)."""
+    """Raise unless every target is 0, 1 or ``ignore_index`` (one host read of the distinct values; skipped
+    under vmap)."""
+    if _is_traced(target):
+        return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
     found = _unique_values(target)
     if not set(found).issubset(allowed):
@@ -154,7 +157,7 @@ def _binary_precision_recall_curve_format(
     preds = preds.reshape(-1)
     target = target.reshape(-1).int()
     if ignore_index is not None:
-        if thresholds is None:
+        if thresholds is None and not _is_traced(preds, target):
             keep = target != ignore_index
             preds, target = preds[keep], target[keep]
         else:
@@ -260,7 +263,7 @@ def _binary_precision_recall_curve_compute(
     fps, tps, thres = _binary_clf_curve(state[0], state[1], pos_label=pos_label)
     precision = _safe_divide(tps, tps + fps)
     recall = _safe_divide(tps, tps[-1])
-    if not bool((state[1] == pos_label).any()):
+    if not _is_traced(state[1]) and not bool((state[1] == pos_label).any()):
         rank_zero_warn(
             "No positive samples found in target, recall is undefined. Setting recall to one for all thresholds.",
             UserWarning,
@@ -327,6 +330,8 @@ def _multiclass_precision_recall_curve_tensor_validation(
         raise ValueError(
             "Expected the shape of `preds` should be (N, C, ...) and the shape of `target` should be (N, ...)."
         )
+    if _is_traced(preds, target):
+        return
     found = np.asarray(_unique_values(target))
     counted = found >= 0 if ignore_index is None else (found >= 0) & (found != ignore_index)
     num_unique = int(counted.sum())
@@ -349,7 +354,7 @@ def _multiclass_precision_recall_curve_format(
     preds = preds.movedim(1, -1).reshape(-1, num_classes)
     target = target.reshape(-1).int()
     if ignore_index is not None:
-        if thresholds is None:
+        if thresholds is None and not _is_traced(preds, target):
             keep = target != ignore_index
             preds, target = preds[keep], target[keep]
         else:

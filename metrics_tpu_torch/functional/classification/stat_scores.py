@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _unique_values
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
 from metrics_tpu_torch.utils.compute import normalize_logits_if_needed
 from metrics_tpu_torch.utils.data import _topk_indices, bincount
 
@@ -45,6 +45,8 @@ def _check_average(average: Optional[str]) -> None:
 
 
 def _check_binary_values(x: Tensor, name: str, ignore_index: Optional[int]) -> None:
+    if _is_traced(x):
+        return  # under vmap the values cannot be read: skipped, as the JAX package skips them under tracing
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
     found = _unique_values(x)
     if not set(found).issubset(allowed):
@@ -208,7 +210,7 @@ def _multiclass_stat_scores_tensor_validation(
             "Either `preds` and `target` both should have the (same) shape (N, ...), or `target` should be (N, ...)"
             " and `preds` should be (N, C, ...)."
         )
-    if num_classes is None:
+    if _is_traced(preds, target) or num_classes is None:
         return
     check_value = num_classes if ignore_index is None else num_classes + 1
     to_check = [(target, "target")]

@@ -16,8 +16,9 @@ from typing import Tuple
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced
 from metrics_tpu_torch.utils.compute import acc_dtype, log_factorial_table
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.data import compact_labels
 
 # the terms of one EMI block: their n_ij and eight more float64 or int64 temporaries of the same size
@@ -35,6 +36,11 @@ def calculate_contingency_matrix(preds: torch.Tensor, target: torch.Tensor) -> t
             [0., 1., 0.]])
     """
     _check_same_shape(preds, target)
+    if _is_traced(preds, target):
+        raise TraceIneligibleError(
+            "extrinsic clustering metrics compact data-dependent label vocabularies"
+            " on the host and cannot run under torch.func.vmap; call them eagerly."
+        )
     pc, n_preds = compact_labels(preds)
     tc, n_target = compact_labels(target)
     counts = torch.bincount(tc * n_preds + pc, minlength=n_target * n_preds)
@@ -190,6 +196,11 @@ def _expected_mutual_info(c: torch.Tensor) -> torch.Tensor:
     blocks, each block as a ``(cells, longest range)`` tensor masked past each cell's own range, sized from the
     free memory (:func:`_emi_block_terms`).
     """
+    if _is_traced(c):
+        raise TraceIneligibleError(
+            "adjusted_mutual_info_score sizes the expected MI's blocks from the contingency table on the host"
+            " and cannot run under torch.func.vmap."
+        )
     counts = c.to(torch.float64)
     n = int(round(float(counts.sum())))
     a = counts.sum(dim=1).round().long()
@@ -241,6 +252,6 @@ def adjusted_mutual_info_score(
     norm = _generalized_average(h_t, h_p, average_method)
     denom = norm - emi
     eps = torch.finfo(torch.float32).eps
-    if abs(float(denom)) < eps:
+    if not _is_traced(denom) and abs(float(denom)) < eps:
         denom = torch.tensor(eps, device=denom.device)
     return (mi - emi) / denom

@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import acc_dtype
 from metrics_tpu_torch.utils.data import compact_labels
 
@@ -18,6 +20,11 @@ from metrics_tpu_torch.utils.data import compact_labels
 def _cluster_stats(data: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, int, torch.Tensor, torch.Tensor]:
     """(label codes, cluster count, per-cluster sample counts, centroids); the counts are in ``acc_dtype()``, as
     the JAX package's segment sum of ones is in its default float type."""
+    if _is_traced(labels):
+        raise TraceIneligibleError(
+            "intrinsic clustering metrics derive the cluster count from the data"
+            " on the host and cannot run under torch.func.vmap; call them eagerly."
+        )
     g, k = compact_labels(labels)
     counts = torch.bincount(g, minlength=k).to(acc_dtype())
     sums = torch.zeros((k, data.shape[1]), dtype=data.dtype, device=data.device).index_add_(0, g, data)

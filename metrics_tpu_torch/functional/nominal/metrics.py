@@ -13,6 +13,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from metrics_tpu_torch.functional.clustering.extrinsic import calculate_contingency_matrix
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import acc_dtype
 from metrics_tpu_torch.utils.data import compact_labels
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -23,6 +25,11 @@ def _handle_nan(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both variables flattened in float64, with the rows where either is NaN dropped (``"drop"``) or every NaN
     replaced by ``nan_replace_value``."""
+    if _is_traced(preds, target):
+        raise TraceIneligibleError(
+            "nominal metrics preprocess NaNs on the host (nan_strategy='drop' changes"
+            " the data shape) and cannot run under torch.func.vmap; call them eagerly."
+        )
     p = preds.reshape(-1).to(torch.float64)
     t = target.reshape(-1).to(torch.float64)
     if nan_strategy == "drop":
@@ -54,7 +61,7 @@ def _cramers_v_from_confmat(confmat: torch.Tensor, bias_correction: bool) -> tor
         r = r - (r - 1) ** 2 / n_minus_1
         k = k - (k - 1) ** 2 / n_minus_1
         denom = torch.minimum(_default_float(r - 1, confmat), _default_float(k - 1, confmat))
-        if float(denom) == 0:
+        if not _is_traced(denom) and float(denom) == 0:
             rank_zero_warn(
                 "Unable to compute Cramer's V using bias correction. Please consider to set `bias_correction=False`."
             )

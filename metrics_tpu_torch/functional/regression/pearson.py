@@ -14,7 +14,7 @@ from typing import Tuple
 import torch
 
 from metrics_tpu_torch.functional.regression.utils import _check_data_shape_to_num_outputs
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -66,7 +66,7 @@ def _pearson_corrcoef_compute(var_x: Tensor, var_y: Tensor, corr_xy: Tensor, nb:
     var_y = var_y / nb_1
     corr_xy = corr_xy / nb_1
     bound = math.sqrt(torch.finfo(torch.float32).eps)
-    if bool((var_x < bound).any()) or bool((var_y < bound).any()):
+    if not _is_traced(var_x, var_y) and (bool((var_x < bound).any()) or bool((var_y < bound).any())):
         rank_zero_warn(
             "The variance of predictions or target is close to zero. This can cause instability in Pearson correlation"
             " coefficient, leading to wrong results.",

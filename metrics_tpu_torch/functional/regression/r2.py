@@ -6,7 +6,7 @@ from typing import Tuple, Union
 
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 Tensor = torch.Tensor
@@ -54,6 +54,12 @@ def _r2_score_compute(
         )
     if adjusted < 0 or not isinstance(adjusted, int):
         raise ValueError("`adjusted` parameter should be an integer larger or equal to 0.")
+    if adjusted != 0 and _is_traced(num_obs):
+        # under vmap the count cannot be read: the adjusted score only where its denominator is positive
+        # (the fallback the warnings announce eagerly), branch-free, as the JAX package does under tracing
+        denom = num_obs - adjusted - 1
+        adj = 1 - (1 - r2) * (num_obs - 1) / torch.clamp(denom, min=1)
+        return torch.where(denom > 0, adj, r2)
     if adjusted != 0:
         n = int(num_obs)
         if n - 1 < adjusted:

@@ -19,6 +19,8 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _safe_divide
 
 Tensor = torch.Tensor
@@ -66,7 +68,8 @@ def _index_class_sums(preds: Tensor, target: Tensor, num_classes: int) -> Tuple[
     images = torch.arange(n, device=preds.device)[:, None]
     bins = ((images * c1 + labels(preds)) * c1 + labels(target)).reshape(-1)
     counts = torch.zeros(n * c1 * c1, dtype=torch.int64, device=preds.device)
-    counts = counts.scatter_add_(0, bins, torch.ones_like(bins)).reshape(n, c1, c1)
+    # out of place, so that under vmap the batched bins need not land in the unbatched zeros
+    counts = counts.scatter_add(0, bins, torch.ones_like(bins)).reshape(n, c1, c1)
     c = num_classes
     return counts.diagonal(dim1=1, dim2=2)[:, :c], counts.sum(2)[:, :c], counts.sum(1)[:, :c]
 
@@ -289,6 +292,11 @@ def hausdorff_distance(
     >>> hausdorff_distance(preds, target, num_classes=2, input_format="index")
     tensor([[2.8284]])
     """
+    if _is_traced(preds, target):
+        raise TraceIneligibleError(
+            "hausdorff_distance gathers data-dependent edge point sets on the host"
+            " and cannot run under torch.func.vmap; call it eagerly."
+        )
     if distance_metric not in ("euclidean", "chessboard", "taxicab"):
         raise ValueError(
             f"Arg `distance_metric` must be one of 'euclidean', 'chessboard', 'taxicab', but got {distance_metric}"

@@ -120,7 +120,8 @@ def calibration_delta(
     count = correct + counts[num_bins : 2 * num_bins]
     weights = torch.where(ok, conf, 0.0).to(torch.float64)
     conf_sum = torch.zeros(num_bins + 1, dtype=torch.float64, device=p.device)
-    conf_sum = conf_sum.index_add_(0, torch.where(ok, idx, num_bins), weights)[:num_bins].to(torch.float32)
+    # out of place, so that under vmap the batched sums need not land in the unbatched zeros
+    conf_sum = conf_sum.index_add(0, torch.where(ok, idx, num_bins), weights)[:num_bins].to(torch.float32)
     return conf_sum, count, correct
 
 

@@ -49,7 +49,8 @@ def hll_delta(values: torch.Tensor, valid: torch.Tensor, *, p: int, seed: int = 
     suffix = (h << p) & 0xFFFFFFFF  # suffix bits left-aligned; low p bits zero
     rank = torch.clamp(_clz32(suffix) + 1, max=32 - p + 1)
     rank = torch.where(ok, rank, 0).to(torch.int32)
-    return torch.zeros(m, dtype=torch.int32, device=v.device).scatter_reduce_(0, idx, rank, "amax")
+    # out of place, so that under vmap the batched ranks need not land in the unbatched zeros
+    return torch.zeros(m, dtype=torch.int32, device=v.device).scatter_reduce(0, idx, rank, "amax")
 
 
 def hll_estimate(registers: torch.Tensor) -> torch.Tensor:

@@ -34,7 +34,7 @@ import operator
 import types
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -70,7 +70,7 @@ _CONFIG_KEY_EXCLUDE = frozenset({
     "_to_sync", "_should_unsync", "_is_synced", "_cache", "_update_signature",
     "_update_impl", "_compute_impl", "update", "compute", "_jitted_update",
     "_jit_failed", "_jit_update_opt", "_donate_opt", "_state_escaped", "_group_shared",
-    "_guard_seen",
+    "_guard_seen", "_jit_update_user",
     "compute_on_cpu", "dist_sync_on_step",
     "process_group", "dist_sync_fn", "distributed_available_fn", "sync_on_compute",
     "compute_with_cache",
@@ -139,8 +139,9 @@ class Metric(ABC):
         compute_with_cache: keep the ``compute`` result until the next ``update``/``reset``.
         compute_on_cpu: move the list states to the CPU after each ``update`` and ``forward``; they stay
             there through sync, unsync and unpickling (the sync gathers them on ``device``).
-        jit_update: accepted for the JAX package's sake and kept as ``_jit_update_opt``; no effect, since
-            PyTorch runs the update eagerly.
+        jit_update: kept as ``_jit_update_opt``. PyTorch runs the update eagerly, so it changes nothing on its
+            own; ``False`` keeps the metric out of the batched (``torch.func.vmap``) updates of the fleet engine
+            and the replica wrappers, as the JAX package's keeps it out of its compiled ones.
         donate_states: accepted and kept as ``_donate_opt``; no effect, since an update replaces its
             tensor states and never reuses their memory.
     """
@@ -151,8 +152,13 @@ class Metric(ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
-    # the JAX package's mark of a class whose update runs on the host; the time-window wrappers refuse such a base
+    # the JAX package's mark of a class whose update runs on the host; the time-window wrappers refuse such a
+    # base, and the fleet engine runs its sessions loose
     __jit_ineligible__ = False
+    # why a class can never join a fleet engine (None: it can); add_session raises with it
+    __fleet_refusal__: Optional[str] = None
+    # a subclass's attributes that stay out of the configuration key (a held metric stands in through a spec)
+    __jit_key_exclude__: frozenset = frozenset()
 
     def __init__(self, device: Optional[Union[str, torch.device]] = None, **kwargs: Any) -> None:
         object.__setattr__(self, "_defaults", {})
@@ -880,15 +886,27 @@ class Metric(ABC):
         """``(class, sorted config items)`` over the instance attributes that are configuration; None when one
         of them cannot be hashed (a child metric, an unhashable value). The counterpart of the JAX package's
         ``_jit_cache_key``, with :data:`_CONFIG_KEY_EXCLUDE` in place of its exclusions."""
+        excluded = type(self).__jit_key_exclude__
         try:
             items = tuple(
                 (k, _hashable_config_value(v))
                 for k, v in sorted(self.__dict__.items())
-                if k not in _CONFIG_KEY_EXCLUDE
+                if k not in _CONFIG_KEY_EXCLUDE and k not in excluded
             )
         except TypeError:
             return None
         return (type(self), items)
+
+    def _jit_eligible(self, args: Sequence[Any], kwargs: Dict[str, Any]) -> bool:
+        """Whether an update with these arguments may run batched under ``torch.func.vmap`` (a bucket of the
+        fleet engine or a replica wrapper), by the JAX package's rule for its compiled update: not for a class
+        marked ``__jit_ineligible__`` or holding a list state; ``jit_update=`` decides when given; otherwise
+        every argument must be a tensor, a numpy array, a Python number or None."""
+        if type(self).__jit_ineligible__ or self._has_list_state():
+            return False
+        if self._jit_update_opt is not None:
+            return bool(self._jit_update_opt)
+        return _batchable_args(args, kwargs)
 
     def state_avals(self) -> Tuple[Tuple[str, Any, str], ...]:
         """Static ``(name, shape, dtype)`` signature of the registered default states.
@@ -1141,6 +1159,15 @@ class CompositionalMetric(Metric):
     def __repr__(self) -> str:
         name = self.op.__name__ if hasattr(self.op, "__name__") else "op"
         return f"{self.__class__.__name__}(\n  {name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+
+def _batchable_args(args: Sequence[Any], kwargs: Dict[str, Any]) -> bool:
+    """Whether every update argument can enter a batched (``torch.func.vmap``) update: a tensor, a numpy
+    array, a Python number or None."""
+    return all(
+        a is None or isinstance(a, (torch.Tensor, np.ndarray, int, float, bool))
+        for a in list(args) + list(kwargs.values())
+    )
 
 
 def _dtype_kind(dtype: torch.dtype) -> str:

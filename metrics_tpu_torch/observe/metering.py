@@ -38,9 +38,11 @@ fires a ``quota_exceeded`` event + the watchdog-visible
 the session for demotion by its owning engine. Nothing is ever failed or
 dropped.
 
-The JAX package's ``program_cost`` (a static cost from XLA's cost analysis of
-the lowered update) has no counterpart yet: it comes with the stream engine's
-port, the only caller. Everything here is stdlib only.
+:func:`program_cost` stands in for the JAX package's static cost from XLA's
+cost analysis of the lowered update: FLOPs from
+``torch.utils.flop_counter.FlopCounterMode`` over one row's update, and the
+bytes of the row's states and operands, times the capacity. Its only caller is
+the stream engine's meter hook. Everything else here is stdlib only.
 """
 
 from __future__ import annotations
@@ -58,6 +60,7 @@ __all__ = [
     "SpaceSaving",
     "install_meter",
     "installed_meter",
+    "program_cost",
     "uninstall_meter",
 ]
 
@@ -248,6 +251,47 @@ class MeterPolicy:
         if self.max_wal_bytes is not None and led.wal_bytes > self.max_wal_bytes:
             out.append(("wal_bytes", float(led.wal_bytes), float(self.max_wal_bytes)))
         return out
+
+
+def _nbytes(v: Any) -> int:
+    return int(v.numel() * v.element_size()) if hasattr(v, "element_size") else int(getattr(v, "nbytes", 0))
+
+
+def program_cost(template: Any, capacity: int, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one bucket's program: one row's update, times ``capacity``.
+
+    The stand-in for the JAX package's lowering of the per-row update (the
+    vmapped program computes every row, padding included): the row is the
+    stacked operands' first row and the template's default state, the FLOPs
+    are what ``torch.utils.flop_counter.FlopCounterMode`` counts over the row's
+    update (matrix products and convolutions; elementwise work counts zero),
+    and the bytes are each operand read once plus each state read and written
+    once. Any failure gives (0, 0): cost attribution is best-effort, and
+    wall-time attribution never depends on it.
+    """
+    try:
+        import torch
+        from torch.utils.flop_counter import FlopCounterMode
+
+        def row(v: Any) -> Any:
+            if isinstance(v, torch.Tensor) and v.ndim >= 1:
+                return v[0]
+            if hasattr(v, "shape") and getattr(v, "ndim", 0) >= 1:
+                return torch.as_tensor(v[0], device=template.device)
+            return v
+
+        state = template._fresh_state()
+        row_args = tuple(row(a) for a in args)
+        row_kwargs = {k: row(v) for k, v in kwargs.items()}
+        rep = template.clone()
+        with FlopCounterMode(display=False) as counter:
+            rep._functional_update(state, *row_args, **row_kwargs)
+        flops = float(counter.get_total_flops())
+        nbytes = 2 * sum(_nbytes(v) for v in state.values() if not isinstance(v, list))
+        nbytes += sum(_nbytes(v) for v in list(row_args) + list(row_kwargs.values()))
+        return max(0.0, flops) * capacity, float(nbytes) * capacity
+    except Exception:  # noqa: BLE001 — cost attribution is strictly best-effort
+        return 0.0, 0.0
 
 
 class FleetMeter:

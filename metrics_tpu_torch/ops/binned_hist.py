@@ -15,6 +15,17 @@ On a CUDA tensor each launches the kernel of ``csrc/binned_hist.cu``; on a CPU
 tensor it runs its plain version, which is also the kernel's oracle: the
 labels mode's plain version builds the one-hot and calls
 :func:`binned_counts_plain`, so both modes share one oracle.
+
+Each wrapper calls its ``torch.library`` custom op
+(``metrics_tpu_torch::binned_counts`` and ``::binned_counts_labels``), whose
+``vmap`` rule serves inputs batched by ``torch.func.vmap`` (the fleet engine's
+and the replica wrappers' buckets). The rule folds the batch into the classes:
+(R, N, C) scores become the (N, R·C) columns of one call, so a bucket of R
+rows launches the kernel once. Every column is counted on its own, so the
+counts are those of R calls. The thresholds are configuration, shared by the
+rows; batched thresholds raise. Under ``vmap`` the labels mode becomes the
+plain mode's (N, R·C) one-hot and mask, since one label column cannot serve
+R rows of classes; its launch counts under :func:`binned_counts`.
 """
 
 from __future__ import annotations
@@ -149,19 +160,12 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
     return tp, fp, pos_tot, neg_tot
 
 
-def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> Counts:
-    """``(tp, fp, pos_tot, neg_tot)``: the kernel on a CUDA tensor, the plain version on a CPU tensor.
-
-    ``preds`` (N, C) float32 or float64, ``target01`` (N, C) int32, ``valid``
-    (N, C) bool and ``thresholds`` (T,) ascending in the type of ``preds``, all
-    contiguous on one device. A float64 call counts under this wrapper's
-    ``launches`` too.
-    """
+def _binned_counts_eager(
+    preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
+) -> Counts:
     _check_score_types(preds, thresholds, "binned_counts")
     if preds.device.type == "cpu":
         return binned_counts_plain(preds, target01, valid, thresholds)
-    if preds.device.type != "cuda":
-        raise ValueError(f"binned_counts runs on CUDA or CPU tensors, got {preds.device}")
     if preds.ndim != 2 or target01.shape != preds.shape or valid.shape != preds.shape or thresholds.ndim != 1:
         raise ValueError(
             "binned_counts expects preds, target01 and valid of one (N, C) shape and (T,) thresholds, got"
@@ -174,22 +178,10 @@ def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tens
     return out
 
 
-binned_counts.launches = 0
-
-
-def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
-    """The labels mode: :func:`binned_counts` of ``(label == c)`` targets and ``(label >= 0)`` validity.
-
-    ``preds`` (N, C) float32 or float64, ``labels`` (N,) int32 and
-    ``thresholds`` (T,) ascending in the type of ``preds``, all contiguous on
-    one device. The kernel reads the labels in place of an (N, C) one-hot and
-    mask; the counts are the same.
-    """
+def _binned_counts_labels_eager(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
     _check_score_types(preds, thresholds, "binned_counts_labels")
     if preds.device.type == "cpu":
         return binned_counts_labels_plain(preds, labels, thresholds)
-    if preds.device.type != "cuda":
-        raise ValueError(f"binned_counts_labels runs on CUDA or CPU tensors, got {preds.device}")
     if preds.ndim != 2 or labels.shape != preds.shape[:1] or thresholds.ndim != 1:
         raise ValueError(
             "binned_counts_labels expects (N, C) preds, (N,) labels and (T,) thresholds, got"
@@ -200,6 +192,102 @@ def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: 
     out = _launch(preds, labels, None, thresholds, True, "binned_counts_labels")
     binned_counts_labels.launches += 1
     return out
+
+
+@torch.library.custom_op("metrics_tpu_torch::binned_counts", mutates_args=())
+def _binned_counts_op(
+    preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _binned_counts_eager(preds, target01, valid, thresholds)
+
+
+@torch.library.custom_op("metrics_tpu_torch::binned_counts_labels", mutates_args=())
+def _binned_counts_labels_op(
+    preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _binned_counts_labels_eager(preds, labels, thresholds)
+
+
+def _rows(x: torch.Tensor, dim, batch: int) -> torch.Tensor:
+    """``x`` with its vmap dimension first, an unbatched input repeated over the ``batch`` rows."""
+    return x.movedim(dim, 0) if dim is not None else x.expand(batch, *x.shape)
+
+
+def _batched_columns(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor,
+                     batch: int):
+    """(R, N, C) operands as the (N, R·C) columns of one call; the counts come back as (R, C, T) and (R, C)."""
+    n, num_c = preds.shape[1], preds.shape[2]
+
+    def columns(x: torch.Tensor) -> torch.Tensor:
+        return x.permute(1, 0, 2).reshape(n, batch * num_c).contiguous()
+
+    tp, fp, pos_tot, neg_tot = _binned_counts_op(columns(preds), columns(target01), columns(valid), thresholds)
+    len_t = thresholds.shape[0]
+    out = (tp.reshape(batch, num_c, len_t), fp.reshape(batch, num_c, len_t),
+           pos_tot.reshape(batch, num_c), neg_tot.reshape(batch, num_c))
+    return out, (0, 0, 0, 0)
+
+
+def _refuse_batched_thresholds(dim) -> None:
+    if dim is not None:
+        raise ValueError(
+            "binned_counts under vmap shares one threshold vector among the rows: the thresholds are"
+            " configuration and must not be batched"
+        )
+
+
+@_binned_counts_op.register_vmap
+def _binned_counts_vmap(info, in_dims, preds, target01, valid, thresholds):
+    _refuse_batched_thresholds(in_dims[3])
+    rows = [_rows(x, d, info.batch_size) for x, d in zip((preds, target01, valid), in_dims[:3])]
+    return _batched_columns(*rows, thresholds, info.batch_size)
+
+
+@_binned_counts_labels_op.register_vmap
+def _binned_counts_labels_vmap(info, in_dims, preds, labels, thresholds):
+    _refuse_batched_thresholds(in_dims[2])
+    batch = info.batch_size
+    preds = _rows(preds, in_dims[0], batch)
+    labels = _rows(labels, in_dims[1], batch)
+    num_c = preds.shape[2]
+    target01 = (labels[..., None] == torch.arange(num_c, device=labels.device)).int()
+    valid = (labels >= 0)[..., None].expand(preds.shape)
+    return _batched_columns(preds, target01, valid, thresholds, batch)
+
+
+def _check_device(preds: torch.Tensor, what: str) -> None:
+    """Before the op's dispatch: a tensor on another device (``meta``) would reach no implementation of it."""
+    if preds.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CUDA or CPU tensors, got {preds.device}")
+
+
+def binned_counts(preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """``(tp, fp, pos_tot, neg_tot)``: the kernel on a CUDA tensor, the plain version on a CPU tensor.
+
+    ``preds`` (N, C) float32 or float64, ``target01`` (N, C) int32, ``valid``
+    (N, C) bool and ``thresholds`` (T,) ascending in the type of ``preds``, all
+    contiguous on one device. A float64 call counts under this wrapper's
+    ``launches`` too. Under ``torch.func.vmap`` the op's rule makes one call of
+    the batch's columns.
+    """
+    _check_device(preds, "binned_counts")
+    return _binned_counts_op(preds, target01, valid, thresholds)
+
+
+binned_counts.launches = 0
+
+
+def binned_counts_labels(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """The labels mode: :func:`binned_counts` of ``(label == c)`` targets and ``(label >= 0)`` validity.
+
+    ``preds`` (N, C) float32 or float64, ``labels`` (N,) int32 and
+    ``thresholds`` (T,) ascending in the type of ``preds``, all contiguous on
+    one device. The kernel reads the labels in place of an (N, C) one-hot and
+    mask; the counts are the same. Under ``torch.func.vmap`` the op's rule
+    makes one plain-mode call of the batch's columns.
+    """
+    _check_device(preds, "binned_counts_labels")
+    return _binned_counts_labels_op(preds, labels, thresholds)
 
 
 binned_counts_labels.launches = 0

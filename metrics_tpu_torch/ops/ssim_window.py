@@ -5,16 +5,25 @@ Counterpart of ``metrics_tpu/ops/ssim_window.py``. :func:`ssim_window` maps
 then ``Kw`` horizontal taps, VALID. On a CUDA tensor it launches the kernel of
 ``csrc/ssim_window.cu``; on a CPU tensor it runs :func:`ssim_window_plain`, the
 shifted-slice cascade, which is also the kernel's oracle.
+
+It is also the ``torch.library`` custom op ``metrics_tpu_torch::ssim_window``
+with a ``vmap`` rule, which the wrapper calls when its planes are batched by
+``torch.func.vmap`` (an SSIM bucket of the fleet engine): (R, P, H, W) planes
+become the (R·P, H, W) planes of one call, so a bucket launches the kernel
+once, and each plane is windowed on its own, as in R calls. An unbatched call
+skips the op and runs the same eager body directly, so that SSIM as a loss on
+the CPU keeps the plain version's gradient: the op has no autograd formula.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 
 from metrics_tpu_torch.ops import _native
+from metrics_tpu_torch.utils.checks import _is_traced
 
 __all__ = ["separable_depthwise_conv", "ssim_window", "ssim_window_plain", "windowed_sum_nchw"]
 
@@ -57,8 +66,7 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
-    """Windowed sum of (N, H_pad, W_pad) float32 planes: the kernel on CUDA, the plain version on the CPU."""
+def _ssim_window_eager(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
     if x.device.type == "cpu":
         return ssim_window_plain(x, kh, kw)
     if x.device.type != "cuda":
@@ -83,6 +91,29 @@ def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> to
     _native.check(lib, rc, "ssim_window kernel")
     ssim_window.launches += 1
     return out
+
+
+@torch.library.custom_op("metrics_tpu_torch::ssim_window", mutates_args=())
+def _ssim_window_op(x: torch.Tensor, kh: List[float], kw: List[float]) -> torch.Tensor:
+    return _ssim_window_eager(x, kh, kw)
+
+
+@_ssim_window_op.register_vmap
+def _ssim_window_vmap(info, in_dims, x, kh, kw):
+    x = x.movedim(in_dims[0], 0) if in_dims[0] is not None else x.expand(info.batch_size, *x.shape)
+    rows, planes = x.shape[0], x.shape[1]
+    out = _ssim_window_op(x.reshape(rows * planes, *x.shape[2:]).contiguous(), kh, kw)
+    return out.reshape(rows, planes, *out.shape[1:]), 0
+
+
+def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
+    """Windowed sum of (N, H_pad, W_pad) float32 planes: the kernel on CUDA, the plain version on the CPU.
+
+    Under ``torch.func.vmap`` it calls the custom op, whose rule makes one call of the batch's planes.
+    """
+    if _is_traced(x):
+        return _ssim_window_op(x, [float(v) for v in kh], [float(v) for v in kw])
+    return _ssim_window_eager(x, kh, kw)
 
 
 ssim_window.launches = 0

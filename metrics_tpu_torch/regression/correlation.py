@@ -37,6 +37,7 @@ from metrics_tpu_torch.functional.regression.r2 import (
 )
 from metrics_tpu_torch.functional.regression.spearman import _spearman_corrcoef_compute, _spearman_corrcoef_update
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.checks import _is_traced
 from metrics_tpu_torch.utils.compute import count_dtype
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
@@ -244,7 +245,7 @@ class R2Score(Metric):
 
     def compute(self) -> Tensor:
         """Compute metric."""
-        if int(self.total) < 2:
+        if not _is_traced(self.total) and int(self.total) < 2:
             raise ValueError("Needs at least two samples to calculate r2 score.")
         return _r2_score_compute(
             self.sum_squared_error, self.sum_error, self.residual, self.total, self.adjusted, self.multioutput

@@ -9,7 +9,11 @@ File format, the JAX package's (all integers big-endian)::
     payload          pickled host tree of the node structure below
 
 A node is ``{"kind": "metric", "class", "fingerprint", "update_count",
-"state", "avals"}`` or ``{"kind": "collection", "class", "members"}``. States
+"state", "avals"}``, ``{"kind": "collection", "class", "members"}``, or a
+``"replicated"`` metric node with a ``"replicas"`` list of metric nodes (a
+``ReplicatedWrapper``: ``BootStrapper``, ``MultioutputWrapper``); a
+``StreamEngine`` target is routed to ``engine/durability.py``, whose fleet
+payload has ``root_kind == "fleet"``. States
 are numpy arrays (one device-to-host copy per tensor state; a list state keeps
 one array per element), never pickled torch tensors, so either package's
 ``_parse`` reads the other's files into equal node trees. The identities are
@@ -33,8 +37,6 @@ the targets of an exact-mode curve) is refused as the JAX package refuses it.
 Installation goes through ``Metric.load_state_dict``, onto the target's
 device: a checkpoint taken on the card restores into a CPU instance.
 
-The JAX package's ``ReplicatedWrapper`` and ``StreamEngine`` nodes come with
-the engine's port; a wrapper of replicas is refused until then.
 """
 
 from __future__ import annotations
@@ -210,11 +212,6 @@ def _aval_of(v: Any) -> Any:
 
 
 def _metric_payload(m: Any) -> Dict[str, Any]:
-    if "_replicas" in m.__dict__:
-        raise CheckpointError(
-            f"{type(m).__name__} keeps its state in replicas of a base metric; checkpoints of such wrappers "
-            "come with the stream engine's port"
-        )
     state: Dict[str, Any] = {}
     for key in m._defaults:
         v = m.__dict__["_state"][key]
@@ -231,6 +228,7 @@ def _metric_payload(m: Any) -> Dict[str, Any]:
 
 def _extract(obj: Any) -> Dict[str, Any]:
     from metrics_tpu_torch.collections import MetricCollection
+    from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper
 
     if isinstance(obj, MetricCollection):
         return {
@@ -238,6 +236,12 @@ def _extract(obj: Any) -> Dict[str, Any]:
             "class": type(obj).__name__,
             "members": {name: _extract(m) for name, m in obj._modules.items()},
         }
+    if isinstance(obj, ReplicatedWrapper):
+        obj._materialize()
+        node = _metric_payload(obj)
+        node["kind"] = "replicated"
+        node["replicas"] = [_metric_payload(r) for r in obj._replicas]
+        return node
     return _metric_payload(obj)
 
 
@@ -247,12 +251,18 @@ def _label(obj: Any) -> str:
 
 
 def save_checkpoint(obj: Any, path: Union[str, os.PathLike]) -> str:
-    """Atomically snapshot ``obj`` (a ``Metric`` or a ``MetricCollection``).
+    """Atomically snapshot ``obj`` (Metric / MetricCollection / ReplicatedWrapper / StreamEngine; fleet
+    targets route to ``engine/durability.py``).
 
     Captures ALL registered states (persistence flags gate ``state_dict``, not
-    durability checkpoints) plus update counts, recursively for collections.
-    Returns the path written.
+    durability checkpoints) plus update counts, recursively for collections and
+    replica engines. Returns the path written.
     """
+    fleet = _as_fleet(obj)
+    if fleet is not None:
+        from metrics_tpu_torch.engine.durability import save_fleet_checkpoint
+
+        return save_fleet_checkpoint(fleet, path)
     path = os.fspath(path)
     with _trace.span("ckpt", "save"):
         node = _extract(obj)
@@ -260,6 +270,17 @@ def save_checkpoint(obj: Any, path: Union[str, os.PathLike]) -> str:
         nbytes = _write_container(path, node["kind"], node["class"], [payload])
     _observe.note_checkpoint_save(_label(obj), path, nbytes)
     return path
+
+
+def _as_fleet(obj: Any) -> Optional[Any]:
+    """``obj`` when it is a StreamEngine, else None, without importing the engine package for the common
+    metric-only case (a ``sys.modules`` probe)."""
+    import sys
+
+    stream_mod = sys.modules.get("metrics_tpu_torch.engine.stream")
+    if stream_mod is not None and isinstance(obj, stream_mod.StreamEngine):
+        return obj
+    return None
 
 
 # ------------------------------------------------------------------ parse + verify
@@ -329,7 +350,7 @@ def _validate_loaded_state(m: Any, key: str, value: Any) -> None:
 
 
 def _validate_metric(m: Any, node: Dict[str, Any], where: str) -> None:
-    if node.get("kind") != "metric":
+    if node.get("kind") not in ("metric", "replicated"):
         raise IncompatibleCheckpointError(f"{where}: expected a metric node, checkpoint holds {node.get('kind')!r}")
     if node["class"] != type(m).__name__:
         raise IncompatibleCheckpointError(
@@ -414,6 +435,23 @@ def _validate(obj: Any, node: Dict[str, Any], where: str) -> None:
         for name, sub in members.items():
             _validate(obj._modules[name], sub, f"{where}.{name}")
         return
+    from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper
+
+    if isinstance(obj, ReplicatedWrapper):
+        if node.get("kind") != "replicated":
+            raise IncompatibleCheckpointError(
+                f"{where}: restore target is a ReplicatedWrapper but the checkpoint holds {node.get('kind')!r}"
+            )
+        obj._materialize()  # layout only: the logical state is unchanged
+        replicas = node.get("replicas", [])
+        if len(replicas) != len(obj._replicas):
+            raise IncompatibleCheckpointError(
+                f"{where}: checkpoint holds {len(replicas)} replicas, target has {len(obj._replicas)}"
+            )
+        _validate_metric(obj, node, where)
+        for i, (r, sub) in enumerate(zip(obj._replicas, replicas)):
+            _validate_metric(r, sub, f"{where}.replica[{i}]")
+        return
     _validate_metric(obj, node, where)
 
 
@@ -445,6 +483,17 @@ def _install(obj: Any, node: Dict[str, Any]) -> None:
         for name, sub in node["members"].items():
             _install(obj._modules[name], sub)
         return
+    from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper
+
+    if isinstance(obj, ReplicatedWrapper):
+        _install_metric(obj, node)
+        for r, sub in zip(obj._replicas, node["replicas"]):
+            _install_metric(r, sub)
+        # a stale stacked layout (if any) was materialized during validation; the next engine dispatch
+        # re-stacks from the restored replica states
+        obj.__dict__["_stacked"] = None
+        obj._engine_updates = 0
+        return
     _install_metric(obj, node)
 
 
@@ -455,8 +504,14 @@ def restore_checkpoint(obj: Any, path: Union[str, os.PathLike]) -> Any:
     validates every class name, config fingerprint and state aval against the
     live target BEFORE installing anything — a failure raises
     :class:`CorruptCheckpointError` / :class:`IncompatibleCheckpointError` and
-    leaves ``obj`` as it was. Returns ``obj``.
+    leaves ``obj`` as it was. Returns ``obj``. A StreamEngine target is restored in place by
+    ``engine/durability.py``.
     """
+    fleet = _as_fleet(obj)
+    if fleet is not None:
+        from metrics_tpu_torch.engine.durability import restore_fleet_checkpoint
+
+        return restore_fleet_checkpoint(fleet, path)
     path = os.fspath(path)
     with _trace.span("ckpt", "restore"):
         try:

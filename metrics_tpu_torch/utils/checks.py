@@ -1,7 +1,10 @@
 """Input-validation helpers (counterpart of ``metrics_tpu/utils/checks.py``).
 
-PyTorch runs eagerly, so there is no traced mode in which value checks must be
-skipped: ``_is_traced`` has no counterpart here.
+:func:`_is_traced` is the port's traced mode: an update body runs under
+``torch.func.vmap`` when the fleet engine or a replica wrapper batches it, and
+its tensors are then functorch wrappers, which cannot be read on the host.
+Value checks that the JAX package skips under tracing are skipped there too,
+and the ones it refuses raise :class:`~metrics_tpu_torch.utils.exceptions.TraceIneligibleError`.
 """
 
 from __future__ import annotations
@@ -11,6 +14,11 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def _is_traced(*xs: Any) -> bool:
+    """True when any input is a tensor wrapped by ``torch.func`` (inside ``vmap`` or ``grad``): skip value checks."""
+    return any(isinstance(x, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs)
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
@@ -61,7 +69,7 @@ def _check_retrieval_inputs(
     if ignore_index is not None:
         keep = target != ignore_index
         indexes, preds, target = indexes[keep], preds[keep], target[keep]
-    if not allow_non_binary_target and target.numel() and target.dtype != torch.bool:
+    if not _is_traced(target) and not allow_non_binary_target and target.numel() and target.dtype != torch.bool:
         if bool((target.max() > 1) | (target.min() < 0)):
             raise ValueError("`target` must contain binary values")
     return indexes.to(torch.int32), preds.to(torch.float32), target

@@ -6,6 +6,8 @@ from typing import Dict, List, Sequence, Tuple, Union
 
 import torch
 
+from metrics_tpu_torch.utils.checks import _is_traced
+
 
 def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:
     """Concatenation along the zero dimension."""
@@ -98,7 +100,8 @@ def select_topk(prob_tensor: torch.Tensor, topk: int = 1, dim: int = 1) -> torch
     """
     moved = prob_tensor.movedim(dim, -1)
     idx = moved.argmax(dim=-1, keepdim=True) if topk == 1 else _topk_indices(moved, topk)
-    mask = torch.zeros(moved.shape, dtype=torch.int64, device=prob_tensor.device).scatter_(-1, idx, 1)
+    zeros = torch.zeros(moved.shape, dtype=torch.int64, device=prob_tensor.device)
+    mask = zeros.scatter(-1, idx, 1) if _is_traced(idx) else zeros.scatter_(-1, idx, 1)
     return mask.movedim(-1, dim)
 
 
@@ -108,6 +111,11 @@ def bincount(x: torch.Tensor, minlength: int) -> torch.Tensor:
     >>> bincount(torch.tensor([0, 2, 2, 5]), minlength=6)
     tensor([1, 0, 2, 0, 0, 1])
     """
+    if _is_traced(x):
+        # torch.bincount has no batching rule (vmap would loop over the rows): the fixed-length scatter
+        # gives the same counts, with the values outside [0, minlength) sent to a dropped bin
+        x = x.reshape(-1)
+        return bincount_fixed(torch.where((x >= 0) & (x < minlength), x, minlength), minlength + 1)[:minlength]
     return torch.bincount(x.reshape(-1), minlength=minlength)[:minlength]
 
 
@@ -123,7 +131,9 @@ def bincount_fixed(x: torch.Tensor, length: int) -> torch.Tensor:
     """
     x = x.reshape(-1)
     ones = torch.ones(x.shape, dtype=torch.int64, device=x.device)
-    return torch.zeros(length, dtype=torch.int64, device=x.device).index_add_(0, x, ones)
+    zeros = torch.zeros(length, dtype=torch.int64, device=x.device)
+    # under vmap the batched counts cannot be added into the unbatched zeros in place
+    return zeros.index_add(0, x, ones) if _is_traced(x) else zeros.index_add_(0, x, ones)
 
 
 def bincount_weighted(x: torch.Tensor, weights: torch.Tensor, minlength: int) -> torch.Tensor:
@@ -138,6 +148,8 @@ def bincount_weighted(x: torch.Tensor, weights: torch.Tensor, minlength: int) ->
     """
     weights = weights.reshape(-1)
     out = torch.zeros(minlength, dtype=weights.dtype, device=weights.device)
+    if _is_traced(x, weights):
+        return out.index_add(0, x.reshape(-1), weights)
     return out.index_add_(0, x.reshape(-1), weights)
 
 

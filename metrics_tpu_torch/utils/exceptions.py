@@ -13,3 +13,13 @@ class TPUMetricsUserError(Exception):
 
 class TPUMetricsUserWarning(UserWarning):
     """Warning for recoverable user-facing issues (the JAX package's name, kept for the same reason)."""
+
+
+class TraceIneligibleError(RuntimeError):
+    """A function refused to run under ``torch.func.vmap`` (data-dependent shapes or host math).
+
+    Raised by the ``_is_traced`` guards where the JAX package raises its
+    ``TraceIneligibleError``: class-count inference, data-dependent slicing,
+    host-side group partitioning. The fleet engine treats it like a vmap
+    refusal: the sessions of the wave run loose, as eager metrics.
+    """

@@ -1,8 +1,10 @@
 """Exponential time decay as a scalar-rescale fold over sum-algebra metrics.
 
-Counterpart of ``metrics_tpu/windows/decay.py``. The JAX package also keeps a
-``base_spec`` (the base's class, config fingerprint and state avals) as its
-jit-cache key; the port compiles nothing, so it has none.
+Counterpart of ``metrics_tpu/windows/decay.py``. The held base metric is left
+out of the wrapper's configuration key (``__jit_key_exclude__``), and
+``base_spec`` (the base's class path, config fingerprint and state avals)
+stands in for it, as in the JAX package: the fleet engine buckets the wrapper
+by that key.
 """
 
 from __future__ import annotations
@@ -19,6 +21,17 @@ from metrics_tpu_torch.utils.exceptions import TPUMetricsUserError
 from metrics_tpu_torch.wrappers.abstract import wrapped_device
 
 __all__ = ["TimeDecayed"]
+
+
+def _base_spec(metric: Metric) -> Any:
+    """Hashable stand-in for the held base metric in the configuration key: the base's class path, config
+    fingerprint and state avals. A base whose own config is not fingerprintable poisons the key the usual
+    way (the metric itself is returned and cannot be hashed), so the wrapper is not shareable."""
+    fp = metric.config_fingerprint()
+    if fp is None:
+        return metric
+    cls = type(metric)
+    return (f"{cls.__module__}.{cls.__qualname__}", fp, metric.state_avals())
 
 
 def _validate_decay_base(metric: Metric, wrapper: str) -> None:
@@ -102,6 +115,10 @@ class TimeDecayed(_TimedWrapper):
     higher_is_better = None
     full_state_update = False
 
+    # the held base metric never enters the configuration key (a Metric value is unhashable there);
+    # `base_spec` carries its hashable identity instead
+    __jit_key_exclude__ = frozenset({"_base"})
+
     def __init__(self, metric: Metric, half_life_s: float, compensated: bool = False, **kwargs: Any) -> None:
         super().__init__(metric, **kwargs)
         self.compensated = bool(compensated)
@@ -123,6 +140,7 @@ class TimeDecayed(_TimedWrapper):
             )
         self.half_life_s = float(half_life_s)
         self._base = _base_clone(metric, self.device)
+        self.base_spec = _base_spec(self._base)
         for name, default in self._base._defaults.items():
             # integer counts become fractional the moment they decay
             d = default if default.is_floating_point() else default.to(torch.float32)

@@ -10,7 +10,7 @@ from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.ops.decay import _as_f32, pane_id, pane_slot_onehot
 from metrics_tpu_torch.utils.data import dim_zero_sum
 from metrics_tpu_torch.utils.exceptions import TPUMetricsUserError
-from metrics_tpu_torch.windows.decay import _base_clone, _TimedWrapper, _validate_decay_base
+from metrics_tpu_torch.windows.decay import _base_clone, _base_spec, _TimedWrapper, _validate_decay_base
 
 __all__ = ["TumblingWindow"]
 
@@ -46,6 +46,9 @@ class TumblingWindow(_TimedWrapper):
     higher_is_better = None
     full_state_update = False
 
+    # the held base metric never enters the configuration key; `base_spec` does
+    __jit_key_exclude__ = frozenset({"_base"})
+
     def __init__(self, metric: Metric, pane_s: float, n_panes: int, **kwargs: Any) -> None:
         super().__init__(metric, **kwargs)
         _validate_decay_base(metric, type(self).__name__)
@@ -68,6 +71,7 @@ class TumblingWindow(_TimedWrapper):
         self.pane_s = float(pane_s)
         self.n_panes = int(n_panes)
         self._base = _base_clone(metric, self.device)
+        self.base_spec = _base_spec(self._base)
         for name, default in self._base._defaults.items():
             stacked = torch.zeros((self.n_panes,) + tuple(default.shape), dtype=default.dtype) + default.cpu()
             self.add_state(name, default=stacked, dist_reduce_fx="sum")

@@ -38,6 +38,8 @@ class WrapperMetric(Metric):
     dotted paths.
     """
 
+    __jit_ineligible__ = True  # wrappers delegate to child metrics with external state, as in the JAX package
+
     def _children(self) -> List[Tuple[str, Metric]]:
         """(dotted path, metric) for every child metric this wrapper holds."""
         from metrics_tpu_torch.collections import MetricCollection

@@ -2,14 +2,13 @@
 
 from __future__ import annotations
 
-from copy import deepcopy
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.wrappers.abstract import WrapperMetric
+from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper, replica_compute
 
 __all__ = ["BootStrapper"]
 
@@ -32,14 +31,17 @@ def _take(x: Any, idx: torch.Tensor) -> Any:
     return x[idx.cpu().numpy()] if hasattr(x, "shape") else x
 
 
-class BootStrapper(WrapperMetric):
+class BootStrapper(ReplicatedWrapper):
     """``num_bootstraps`` copies of a metric, each updated on a resample of every batch; ``compute`` gives the
     mean, standard deviation (ddof 1), quantiles and raw values of the copies' scores.
 
     The default resampling is ``"multinomial"`` (``size`` rows drawn with replacement), as in the JAX
     package; ``"poisson"`` repeats each row a Poisson(1) number of times. The indices are drawn on the host
-    and moved to the card in one copy; each copy then takes its rows with ``index_select``. The wrapper
-    lives on its metric's device unless ``device`` says otherwise.
+    and moved to the card in one copy. With multinomial resampling and a base metric that can run batched
+    (``Metric._jit_eligible``), the copies are updated on the replica engine: one vmapped update of every
+    copy, each taking its own index row (``wrappers/replicated.py``); otherwise each copy takes its rows
+    with ``index_select`` in a loop. The wrapper lives on its metric's device unless ``device`` says
+    otherwise.
 
     >>> from metrics_tpu_torch.classification import MulticlassAccuracy
     >>> _ = np.random.seed(123)
@@ -69,7 +71,7 @@ class BootStrapper(WrapperMetric):
             )
         kwargs.setdefault("device", base_metric.device)
         super().__init__(**kwargs)
-        self._replicas = [deepcopy(base_metric) for _ in range(num_bootstraps)]
+        self._init_replicas(base_metric, num_bootstraps)
         self.num_bootstraps = num_bootstraps
         self.mean = mean
         self.std = std
@@ -83,13 +85,6 @@ class BootStrapper(WrapperMetric):
             )
         self.sampling_strategy = sampling_strategy
 
-    @property
-    def metrics(self) -> List[Metric]:
-        return self._replicas
-
-    def _children(self) -> List[Tuple[str, Metric]]:
-        return [(f"metrics.{i}", m) for i, m in enumerate(self.__dict__.get("_replicas", ()))]
-
     def update(self, *args: Any, **kwargs: Any) -> None:
         """Update each copy on its own resample of the batch."""
         arrays = [a for a in args if hasattr(a, "shape")] + [v for v in kwargs.values() if hasattr(v, "shape")]
@@ -100,7 +95,10 @@ class BootStrapper(WrapperMetric):
         draws = [_bootstrap_sampler(size, self.sampling_strategy) for _ in self._replicas]
         if self.sampling_strategy == "multinomial":
             rows = torch.from_numpy(np.stack(draws)).to(self.device)  # one copy to the card
+            if self._engine_ok(args, kwargs) and self._engine_update(args, kwargs, gather_idx=rows):
+                return
             draws = list(rows)
+        self._materialize()
         for metric, sample_idx in zip(self._replicas, draws):
             if len(sample_idx) == 0:
                 continue
@@ -109,7 +107,16 @@ class BootStrapper(WrapperMetric):
 
     def compute(self) -> Dict[str, torch.Tensor]:
         """The mean, std, quantiles and raw values of the copies' scores, as the options ask."""
-        computed_vals = torch.stack([torch.as_tensor(m.compute()) for m in self._replicas], dim=0)
+        computed_vals = None
+        if self.__dict__.get("_stacked") is not None:
+            vals = replica_compute(self._replicas[0], self.num_bootstraps, self.__dict__["_stacked"])
+            if isinstance(vals, torch.Tensor):
+                computed_vals = vals
+            else:
+                # a tuple or dict compute: the loop below stacks each copy's value
+                self._materialize()
+        if computed_vals is None:
+            computed_vals = torch.stack([torch.as_tensor(m.compute()) for m in self.metrics], dim=0)
         output_dict = {}
         if self.mean:
             output_dict["mean"] = computed_vals.mean(dim=0)
@@ -127,7 +134,3 @@ class BootStrapper(WrapperMetric):
         self.update(*args, **kwargs)
         return self.compute()
 
-    def reset(self) -> None:
-        for metric in self.__dict__.get("_replicas", ()):
-            metric.reset()
-        super().reset()

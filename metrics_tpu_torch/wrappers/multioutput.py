@@ -1,27 +1,29 @@
 """One metric per output dimension (counterpart of ``metrics_tpu/wrappers/multioutput.py``).
 
 The wrapper holds a list of deep copies of the base metric, one per output, as
-the port's ``BootStrapper`` holds its copies, and updates each with its slice
-of ``output_dim``. The JAX package's vmapped engine branch (one dispatch for
-every copy) has no counterpart: the port has no engine.
+``BootStrapper`` holds its copies, and updates each with its slice of
+``output_dim``. With ``remove_nans=False`` and ``squeeze_outputs=True`` and a
+base metric that can run batched, the output axis is moved to the front and
+ONE vmapped update runs every output's copy (the replica engine's stacked
+mode, ``wrappers/replicated.py``), as in the JAX package.
 """
 
 from __future__ import annotations
 
-from copy import deepcopy
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.wrappers.abstract import WrapperMetric, wrapped_device
+from metrics_tpu_torch.wrappers.abstract import wrapped_device
+from metrics_tpu_torch.wrappers.replicated import ReplicatedWrapper, replica_compute
 
 __all__ = ["MultioutputWrapper"]
 
 Tensor = torch.Tensor
 
 
-class MultioutputWrapper(WrapperMetric):
+class MultioutputWrapper(ReplicatedWrapper):
     """Evaluate a metric on each of ``num_outputs`` slices of ``output_dim`` independently.
 
     With ``remove_nans`` a sample is dropped from an output's update where any
@@ -56,17 +58,10 @@ class MultioutputWrapper(WrapperMetric):
             )
         kwargs["device"] = wrapped_device([base_metric], kwargs.get("device"))
         super().__init__(**kwargs)
-        self._replicas = [deepcopy(base_metric) for _ in range(num_outputs)]
+        self._init_replicas(base_metric, num_outputs)
         self.output_dim = output_dim
         self.remove_nans = remove_nans
         self.squeeze_outputs = squeeze_outputs
-
-    @property
-    def metrics(self) -> List[Metric]:
-        return self._replicas
-
-    def _children(self) -> List[Tuple[str, Metric]]:
-        return [(f"metrics.{i}", m) for i, m in enumerate(self.__dict__.get("_replicas", ()))]
 
     def _kept_rows(self, tensors: List[Tensor]) -> Optional[List[Optional[Tensor]]]:
         """Per output, the indices of the samples with no NaN in that output's slice of any input, or ``None``
@@ -103,8 +98,31 @@ class MultioutputWrapper(WrapperMetric):
         return [([select(a, i) for a in args], {k: select(v, i) for k, v in kwargs.items()})
                 for i in range(len(self._replicas))]
 
+    def _engine_sliceable(self, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> bool:
+        """Every tensor input must expose the output axis with one slot per output."""
+        num = len(self._replicas)
+        d = self.output_dim
+        for a in list(args) + list(kwargs.values()):
+            if isinstance(a, Tensor):
+                if a.ndim == 0 or not -a.ndim <= d < a.ndim or a.shape[d] != num:
+                    return False
+        return True
+
     def update(self, *args: Any, **kwargs: Any) -> None:
-        """Update each output's metric with its slice."""
+        """Update each output's metric with its slice: in one vmapped update of every copy when
+        ``remove_nans=False`` and ``squeeze_outputs=True`` allow it, else in a loop."""
+        if (
+            not self.remove_nans
+            and self.squeeze_outputs
+            and self._engine_ok(args, kwargs)
+            and self._engine_sliceable(args, kwargs)
+        ):
+            moved_args = tuple(a.movedim(self.output_dim, 0) if isinstance(a, Tensor) else a for a in args)
+            moved_kwargs = {k: (v.movedim(self.output_dim, 0) if isinstance(v, Tensor) else v)
+                            for k, v in kwargs.items()}
+            if self._engine_update(moved_args, moved_kwargs):
+                return
+        self._materialize()
         for (selected_args, selected_kwargs), metric in zip(
             self._get_args_kwargs_by_output(*args, **kwargs), self._replicas
         ):
@@ -112,19 +130,19 @@ class MultioutputWrapper(WrapperMetric):
 
     def compute(self) -> Tensor:
         """The outputs' values, stacked."""
-        return torch.stack([torch.as_tensor(m.compute()) for m in self._replicas], 0)
+        if self.__dict__.get("_stacked") is not None:
+            vals = replica_compute(self._replicas[0], len(self._replicas), self.__dict__["_stacked"])
+            if isinstance(vals, Tensor):
+                return vals
+            self._materialize()  # a tuple or dict compute: stacked below, one copy at a time
+        return torch.stack([torch.as_tensor(m.compute()) for m in self.metrics], 0)
 
     def forward(self, *args: Any, **kwargs: Any) -> Tensor:
         """Each output's batch value (accumulated into its metric), stacked."""
         return torch.stack([
             torch.as_tensor(metric(*selected_args, **selected_kwargs))
             for (selected_args, selected_kwargs), metric in zip(
-                self._get_args_kwargs_by_output(*args, **kwargs), self._replicas
+                self._get_args_kwargs_by_output(*args, **kwargs), self.metrics
             )
         ], 0)
 
-    def reset(self) -> None:
-        """Reset every output's metric."""
-        for metric in self.__dict__.get("_replicas", ()):
-            metric.reset()
-        super().reset()

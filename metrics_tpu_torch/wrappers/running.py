@@ -27,6 +27,12 @@ class Running(WrapperMetric):
     """
 
     _extra_state_keys = ("_window_states",)
+    __fleet_refusal__ = (
+        "its O(window) deque splice re-folds host-side state every update, so it "
+        "can never share a bucketed dispatch. Use metrics_tpu_torch.windows.TumblingWindow "
+        "(exact sliding windows, O(1) fixed-shape state) or "
+        "metrics_tpu_torch.windows.TimeDecayed (exponential forgetting) instead."
+    )
 
     def __init__(self, base_metric: Metric, window: int = 5, **kwargs: Any) -> None:
         if not isinstance(base_metric, Metric):

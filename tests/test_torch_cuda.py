@@ -1318,3 +1318,107 @@ def test_the_span_range_encloses_its_kernel_launch_in_a_profiler_trace(cuda_devi
     inside = kernels_inside(trace, "update:MultilabelAveragePrecision")
     assert any("binned_counts" in name for name in inside), inside
     assert not kernels_inside(trace, "compute:MultilabelAveragePrecision")
+
+
+# ----------------------------------------------------------------------------- the batched forms (fleet engine)
+def _per_row_launches(fn, rows):
+    """Each row's kernel launch on its own: the oracle of a batched launch."""
+    return [fn(r) for r in range(rows)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize(("rows", "n", "c", "t"), [(1, 100, 1, 16), (5, 16, 3, 16), (64, 257, 2, 200)])
+def test_vmapped_binned_kernel_equals_per_row_launches(cuda_device, dtype, rows, n, c, t):
+    from torch.func import vmap
+
+    g = torch.Generator().manual_seed(rows + c)
+    preds = torch.rand(rows, n, c, generator=g, dtype=torch.float64).to(dtype).to(cuda_device)
+    target = torch.randint(0, 2, (rows, n, c), generator=g).int().to(cuda_device)
+    valid = (torch.rand(rows, n, c, generator=g) > 0.1).to(cuda_device)
+    thr = _adjust_threshold_arg(t).to(dtype).to(cuda_device)
+    before = binned_counts.launches
+    got = vmap(binned_counts, in_dims=(0, 0, 0, None))(preds, target, valid, thr)
+    torch.cuda.synchronize()
+    assert binned_counts.launches - before == 1  # one launch for every row
+    want = _per_row_launches(lambda r: binned_counts(preds[r].contiguous(), target[r].contiguous(),
+                                                     valid[r].contiguous(), thr), rows)
+    for r in range(rows):
+        for a, b in zip(got, want[r]):
+            assert torch.equal(a[r], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 7, 100])
+def test_vmapped_labels_kernel_equals_per_row_label_launches(cuda_device, rows):
+    from torch.func import vmap
+
+    g = torch.Generator().manual_seed(rows)
+    preds = torch.rand(rows, 256, 10, generator=g).to(cuda_device)
+    labels = torch.randint(-1, 11, (rows, 256), generator=g).int().to(cuda_device)
+    thr = _adjust_threshold_arg(200).to(cuda_device)
+    before = (binned_counts.launches, binned_counts_labels.launches)
+    got = vmap(binned_counts_labels, in_dims=(0, 0, None))(preds, labels, thr)
+    torch.cuda.synchronize()
+    # under vmap the labels become the plain mode's one-hot columns: one plain-mode launch
+    assert (binned_counts.launches - before[0], binned_counts_labels.launches - before[1]) == (1, 0)
+    for r in range(rows):
+        want = binned_counts_labels(preds[r].contiguous(), labels[r].contiguous(), thr)
+        for a, b in zip(got, want):
+            assert torch.equal(a[r], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(("rows", "planes"), [(1, 15), (8, 15), (33, 3)])
+def test_vmapped_ssim_kernel_equals_per_row_launches(cuda_device, rows, planes):
+    from torch.func import vmap
+
+    g = torch.Generator().manual_seed(rows)
+    x = torch.rand(rows, planes, 74, 90, generator=g).to(cuda_device)
+    k = _gaussian_taps_np(11, 1.5)
+    before = ssim_window.launches
+    got = vmap(lambda a: ssim_window(a, k, k))(x)
+    torch.cuda.synchronize()
+    assert ssim_window.launches - before == 1
+    for r in range(rows):
+        assert torch.equal(got[r], ssim_window(x[r].contiguous(), k, k))
+
+
+@pytest.mark.cuda
+def test_small_fleet_on_the_card_equals_the_same_fleet_on_the_cpu(cuda_device):
+    from metrics_tpu_torch.engine import StreamEngine
+
+    def fleet(device):
+        g = torch.Generator().manual_seed(3)
+        engine = StreamEngine(initial_capacity=8)
+        sids = [engine.add_session(tc.MulticlassAccuracy(num_classes=4, device=device)) for _ in range(5)]
+        sids += [engine.add_session(tc.BinaryAUROC(thresholds=16, device=device)) for _ in range(5)]
+        sids += [engine.add_session(StructuralSimilarityIndexMeasure(data_range=1.0, device=device)) for _ in range(3)]
+        for _ in range(3):
+            for i, sid in enumerate(sids):
+                if i < 5:
+                    args = (torch.randint(0, 4, (16,), generator=g), torch.randint(0, 4, (16,), generator=g))
+                elif i < 10:
+                    args = (torch.rand(16, generator=g), torch.randint(0, 2, (16,), generator=g))
+                else:
+                    a = torch.rand(1, 3, 32, 32, generator=g)
+                    args = (a, 0.5 * a + 0.5 * torch.rand(1, 3, 32, 32, generator=g))
+                engine.submit(sid, *(x.to(device) for x in args))
+            assert engine.tick() == 1
+        return engine, sids
+
+    before = (binned_counts.launches, ssim_window.launches)
+    gpu, sids = fleet(cuda_device)
+    torch.cuda.synchronize()
+    assert (binned_counts.launches - before[0], ssim_window.launches - before[1]) == (3, 3)  # one a tick each
+    cpu, _ = fleet("cpu")
+    values_gpu, values_cpu = gpu.compute_all(), cpu.compute_all()
+    for sid in sids:
+        sg, sc = gpu._sessions[sid], cpu._sessions[sid]
+        for k in sc.bucket.stacked:
+            a, b = sg.bucket.stacked[k][sg.slot].cpu(), sc.bucket.stacked[k][sc.slot]
+            if a.is_floating_point():
+                assert torch.allclose(a, b, rtol=1e-5, atol=1e-6), (sid, k)
+            else:
+                assert torch.equal(a, b), (sid, k)
+        assert torch.allclose(values_gpu[sid].double(), values_cpu[sid].double(), rtol=1e-5, atol=1e-6)

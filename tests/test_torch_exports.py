@@ -49,6 +49,7 @@ PAIRS = [
     ("metrics_tpu.functional.audio", "metrics_tpu_torch.functional.audio"),
     ("metrics_tpu.observe", "metrics_tpu_torch.observe"),
     ("metrics_tpu.resilience", "metrics_tpu_torch.resilience"),
+    ("metrics_tpu.engine", "metrics_tpu_torch.engine"),
 ]
 
 
@@ -279,14 +280,14 @@ def test_the_streaming_slice_and_utils_are_whole():
 
 def test_observe_and_resilience_are_whole():
     """``observe`` and ``resilience`` export the JAX package's 30 and 12 names, in its order, and join the top
-    level, which then lacks only the engines, ``aot``, ``models`` and ``multimodal``."""
+    level, which then lacks only ``aot``, ``models`` and ``multimodal``."""
     for domain, count in (("observe", 30), ("resilience", 12)):
         ref = importlib.import_module(f"metrics_tpu.{domain}")
         port = importlib.import_module(f"metrics_tpu_torch.{domain}")
         assert port.__all__ == ref.__all__ and len(port.__all__) == count, domain
         assert getattr(metrics_tpu_torch, domain) is port and domain in metrics_tpu_torch.__all__
     assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == [
-        "ShardedStreamEngine", "StreamEngine", "aot", "engine", "models", "multimodal"]
+        "aot", "models", "multimodal"]
     from metrics_tpu_torch.observe import explain, latency, metering, recorder, tracing, watchdog  # noqa: F401
     from metrics_tpu_torch.resilience import checkpoint, guards  # noqa: F401
     from metrics_tpu_torch.utils import io  # noqa: F401
@@ -294,7 +295,26 @@ def test_observe_and_resilience_are_whole():
     for name in ("FleetMeter", "SessionLedger", "SpaceSaving", "MeterPolicy", "install_meter"):
         assert hasattr(metering, name)
     assert [n for n in importlib.import_module("metrics_tpu.observe.metering").__all__
-            if not hasattr(metering, n)] == ["program_cost"]
+            if not hasattr(metering, n)] == []
     assert checkpoint.__all__ == importlib.import_module("metrics_tpu.resilience.checkpoint").__all__
     assert io.__all__ == importlib.import_module("metrics_tpu.utils.io").__all__
     assert guards.__all__ == importlib.import_module("metrics_tpu.resilience.guards").__all__
+
+
+def test_the_engine_is_whole_and_joins_the_top_level():
+    """``engine`` exports the JAX package's ten names in its order; ``StreamEngine``, ``ShardedStreamEngine`` and
+    ``engine`` join the top level, in the JAX package's order."""
+    ref = importlib.import_module("metrics_tpu.engine")
+    port = importlib.import_module("metrics_tpu_torch.engine")
+    assert port.__all__ == ref.__all__ and len(port.__all__) == 10
+    assert metrics_tpu_torch.engine is port
+    new = ["ShardedStreamEngine", "StreamEngine", "engine"]
+    assert [n for n in metrics_tpu.__all__ if n in new] == [n for n in metrics_tpu_torch.__all__ if n in new] == new
+    assert metrics_tpu_torch.StreamEngine is port.StreamEngine
+    assert metrics_tpu_torch.ShardedStreamEngine is port.ShardedStreamEngine
+    from metrics_tpu_torch.engine import core, durability, sharded, smoke, stream  # noqa: F401
+    extra = {"core": {"VmapRefusalError"}}  # the port's refusal type, the counterpart of the JAX tracer errors
+    for mod in ("core", "durability", "sharded", "smoke", "stream"):
+        ref_names = set(importlib.import_module(f"metrics_tpu.engine.{mod}").__all__)
+        assert set(importlib.import_module(f"metrics_tpu_torch.engine.{mod}").__all__) == ref_names | extra.get(
+            mod, set()), mod

@@ -1005,7 +1005,13 @@ def test_meter_survives_disable_and_program_cost_waits_for_the_engine():
     tobs.disable()
     mt.note_dispatch("b", ["s"], 0.5)
     assert tobs.installed_meter() is mt and mt.totals()["measured_dispatch_s"] == 0.5
-    assert "program_cost" in jmetering.__all__ and not hasattr(tmetering, "program_cost")
+    # the engine's port brought program_cost: FLOPs of one row's update (a matmul-free update counts 0)
+    # and the bytes of its states and operands, times the capacity; a failure gives (0, 0)
+    assert "program_cost" in jmetering.__all__ and "program_cost" in tmetering.__all__
+    flops, nbytes = tmetering.program_cost(tr.MeanSquaredError(device="cpu"), 8,
+                                           (torch.zeros(8, 16), torch.ones(8, 16)), {})
+    assert flops == 0.0 and nbytes == 8 * (2 * (4 + 8) + 2 * 16 * 4)
+    assert tmetering.program_cost(tr.MeanSquaredError(device="cpu"), 8, ("bad",), {}) == (0.0, 0.0)
     tobs.uninstall_meter()
     assert tobs.installed_meter() is None and tobs.snapshot()["metering"] == {"installed": False}
 

@@ -527,12 +527,26 @@ def test_periodic_checkpointer_fires_on_cadence(tmp_path):
 
 
 def test_a_wrapper_of_replicas_is_refused_until_the_engine_port(tmp_path):
+    # the engine's port has landed: a wrapper of replicas now saves as the JAX package's "replicated" node
+    # (its stacked rows materialized first) and restores every replica's state and count
     from metrics_tpu_torch.wrappers import BootStrapper
 
+    np.random.seed(7)
     w = BootStrapper(tc.BinaryAccuracy(device="cpu"), num_bootstraps=3)
-    with pytest.raises(tres.CheckpointError, match="replicas"):
-        tres.save_checkpoint(w, str(tmp_path / "boot.ckpt"))
-    assert not os.path.exists(tmp_path / "boot.ckpt")
+    w.update(torch.tensor([0.2, 0.8, 0.6, 0.1]), torch.tensor([0, 1, 0, 1]))
+    assert w.__dict__["_stacked"] is not None  # the replica engine holds the rows
+    path = tres.save_checkpoint(w, str(tmp_path / "boot.ckpt"))
+    from metrics_tpu_torch.resilience.checkpoint import _parse
+
+    node = _parse(open(path, "rb").read(), path)
+    assert node["kind"] == "replicated" and len(node["replicas"]) == 3
+    fresh = BootStrapper(tc.BinaryAccuracy(device="cpu"), num_bootstraps=3)
+    tres.restore_checkpoint(fresh, path)
+    for a, b in zip(w.metrics, fresh.metrics):
+        assert a.update_count == b.update_count == 1
+        assert all(torch.equal(a.metric_state[k], b.metric_state[k]) for k in a._defaults)
+    with pytest.raises(tres.IncompatibleCheckpointError, match="replicas"):
+        tres.restore_checkpoint(BootStrapper(tc.BinaryAccuracy(device="cpu"), num_bootstraps=4), path)
 
 
 # ----------------------------------------------------------------------------- across the two packages
