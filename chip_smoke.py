@@ -133,15 +133,30 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    (one window launch of 7,680 planes a tick), 1,000 multiclass AUROC
    sessions, the 1,000-stream fleet's recovery (checkpoint, a journaled wave
    lost with the process, restore on the card bit-exact and on the CPU
-   equal), 100,000 two-scalar sessions over 8 shards (one dispatch a shard
+   equal), 25,000 two-scalar sessions over 8 shards (one dispatch a shard
    tick, a shard healed from its own files, an 8 -> 12 resize) and
    BootStrapper's 20 copies over the ImageNet-1k evaluation through the
-   replica engine against its loop;
+   replica engine against its loop; then ``serve``, launches counted apart:
+   10,000 and 1,000 streams served over TCP from two producer processes into
+   a StreamEngine on the card (frames a second, ack latency, fsyncs a poll
+   batch; one dispatch and one binned-counts launch a tick, host syncs a tick
+   equal at both sizes, sampled sessions bit-equal to oracles), a ``kill -9``
+   of a child server on the card mid-stream and its restart from the journal
+   (no acked record lost, states bit-equal to an oracle fed each record once),
+   the JAX package's overload soak (double, demote and shed all fire;
+   survivors bit-equal to never-shed oracles), 8 shards behind the server
+   with a resize on imbalance, refused torch-global frames and JAX-package
+   metric blobs, and ``run_serve_smoke()``; last ``model_based``: FID, KID,
+   IS and MiFID in one ``FeatureShare`` over the FID InceptionV3 at CIFAR-10's
+   size (20,000 images resized to 299, one forward a batch), LPIPS through
+   VGG16, AlexNet and SqueezeNet over 10,000 BAPPS-sized pairs, and PPL over
+   a small generator, each against the port's CPU run of a subset;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
    window at SCC's WorldView-3 planes; the binned counts at the fleet's fold, 16 x 8,192 columns x 16
-   thresholds, and the window at the SSIM bucket's 7,680 planes), beside the least time the card could
+   thresholds, and at the served 1,000-stream fold, 16 x 1,024 x 16, and the window at the SSIM bucket's
+   7,680 planes), beside the least time the card could
    take (``bound_ms``); then one MS-SSIM update of a DIV2K pair, whole and
    scale by scale, and the window at each VIF scale's two launches. With ``--baseline DIR`` (an unpacked older tree of
    this repository) the older kernels are timed in turns with these, old, new,
@@ -605,6 +620,8 @@ def main_path(seed: int, wrappers: dict) -> dict:
     APART["observe_and_durability"] = section("observe_and_durability", observe_and_durability, seed, wrappers,
                                               imagenet)
     APART["fleet_engine"] = section("fleet_engine", fleet_engine, seed, wrappers, imagenet_gpu)
+    APART["serve"] = section("serve", serve_section, seed, wrappers)
+    APART["model_based"] = section("model_based", model_based_section, seed, wrappers)
     return out
 
 
@@ -4883,14 +4900,15 @@ def _watchdog_checks(acc_batch, dev) -> dict:
 
 # ----------------------------------------------------------------------------- phase 4, the fleet engine
 # the fleet configurations of the JAX package's benchmark (bench.py:62-80): 10,000 streams of two classes, batch
-# 16, 3 ticks, 256 churned; the 1,000-stream recovery fleet; 100,000 two-scalar sessions over 8 shards
+# 16, 3 ticks, 256 churned; the 1,000-stream recovery fleet; two-scalar sessions over 8 shards (the JAX package's
+# 100,000, cut to 25,000 so that the script's time limit holds the serve and model-based sections too)
 FLEET_STREAMS, FLEET_SMALL, FLEET_TICKS, FLEET_CHURN, FLEET_BATCH = 10_000, 1_000, 3, 256, 16
 FLEET_CAPACITY = 8192  # the 5,000-session buckets padded to a power of two
 FLEET_ORACLE_EVERY = 50  # one session in 50 also runs as a per-instance oracle on the card
 FLEET_CPU_SUBSET = 256  # sessions of each class rerun through a CPU engine
 SSIM_SESSIONS, SSIM_FLEET_SHAPE, SSIM_FLEET_TICKS = 512, (1, 3, 256, 256), 2
 MCAUROC_SESSIONS, MCAUROC_CLASSES, MCAUROC_THRESHOLDS, MCAUROC_BATCH, MCAUROC_TICKS = 1000, 10, 200, 256, 2
-SHARDED_SESSIONS, SHARDED_SHARDS, SHARDED_TICKS, SHARDED_ACTIVE, SHARDED_CHURN = 100_000, 8, 4, 2048, 512
+SHARDED_SESSIONS, SHARDED_SHARDS, SHARDED_TICKS, SHARDED_ACTIVE, SHARDED_CHURN = 25_000, 8, 4, 2048, 512
 SHARDED_CAPACITY = 1 << 14
 SHARDED_ORACLE_EVERY = 500
 
@@ -5239,7 +5257,7 @@ def fleet_recovery(seed: int, dev="cuda") -> dict:
 
 
 def fleet_sharded(seed: int, dev="cuda", sessions=SHARDED_SESSIONS) -> dict:
-    """(e) 100,000 two-scalar stream means over 8 shards on one card (capacity 2^14 a shard), 2,048 sessions
+    """(e) 25,000 two-scalar stream means over 8 shards on one card (capacity 2^14 a shard), 2,048 sessions
     active a tick and 512 churned, 4 ticks: one dispatch per shard tick; then shard 0's dispatch dies and the
     shard heals from its own files, and the fleet restores into 12 shards; sampled sessions against oracles."""
     import shutil
@@ -5380,7 +5398,7 @@ def fleet_engine(seed: int, wrappers: dict, imagenet_gpu) -> dict:
     """The fleet engine on the card, its launches counted apart from the main path's: (a) 10,000 and 1,000
     streams (launches and host syncs per tick equal at both sizes; the 1,000-stream fleet's states equal the
     port's CPU run), (b) 512 SSIM monitors, (c) 1,000 multiclass AUROC sessions, (d) recovery, (e) the
-    100,000-session sharded fleet, (f) BootStrapper through the replica engine."""
+    25,000-session sharded fleet, (f) BootStrapper through the replica engine."""
     res = {}
     t0 = time.perf_counter()
     res["streams_10000"], _, _ = fleet_streams(FLEET_STREAMS, seed, wrappers)
@@ -5399,12 +5417,895 @@ def fleet_engine(seed: int, wrappers: dict, imagenet_gpu) -> dict:
     res["ssim_512"] = fleet_ssim(seed, wrappers)
     res["multiclass_auroc_1000"] = fleet_multiclass_auroc(seed, wrappers)
     res["recovery_1000"] = fleet_recovery(seed)
-    res["sharded_100000"] = fleet_sharded(seed)
+    res["sharded_25000"] = fleet_sharded(seed)
     res["bootstrap_imagenet"] = fleet_bootstrap(imagenet_gpu, seed, wrappers)
     ticks = [t for key in ("streams_10000", "streams_1000", "ssim_512", "multiclass_auroc_1000") for t in res[key]["ticks"]]
     res["launches"] = {k: sum(t["launches"][k] for t in ticks) for k in wrappers}
     res["seconds"] = time.perf_counter() - t0
     log(f"fleet_engine: {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------------------- phase 4, the front door
+# served fleets at the fleet_engine section's sizes (a): two producer processes, 5,000 + 5,000 or 500 + 500
+# streams, batch 16, 3 ticks; (b) a child server on the card killed mid-stream; (c) the JAX package's soak
+# (bench.py:81-87, :1370): 96 sessions, 3 warm-up + 10 steady ticks, 30 overload arrivals; (d) 8 shards
+SERVE_KEY = "chip-smoke-key"
+SERVE_CRASH_SESSIONS, SERVE_CRASH_WAVES = 1_000, 4
+SOAK_SESSIONS, SOAK_CAPACITY, SOAK_STEADY, SOAK_WARMUP, SOAK_ARRIVALS = 96, 128, 10, 3, 30
+SERVE_SHARDS, SERVE_SHARD_SESSIONS, SERVE_SHARD_SKEW = 8, 2_000, 1_600
+SERVE_ORACLE_EVERY = 50
+
+# one producer process: arrives ``n`` sessions of one class (port metrics on the CPU: only host bytes travel),
+# then on each "go" line submits one numpy batch to every session and reports the wave's ack latencies
+_PRODUCER_CHILD = r"""
+import json, sys, time
+import numpy as np
+from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+from metrics_tpu_torch.serve.protocol import Producer
+
+host, port, key, kind, n, ticks, batch, seed = sys.argv[1:9]
+port, n, ticks, batch, seed = int(port), int(n), int(ticks), int(batch), int(seed)
+
+
+class TimedProducer(Producer):
+    # send time of each pseq (when pump first puts it on the wire) and its ack latency
+    def __init__(self, *a, **k):
+        self.sent, self.lat = {}, []
+        super().__init__(*a, **k)
+
+    def pump(self):
+        before = set(self._inflight)
+        super().pump()
+        now = time.perf_counter()
+        for p in self._inflight - before:
+            self.sent.setdefault(p, now)
+
+    def _handle(self, rec):
+        if rec[0] == "ack" and int(rec[1]) in self.sent:
+            self.lat.append(time.perf_counter() - self.sent.pop(int(rec[1])))
+        super()._handle(rec)
+
+
+prod = TimedProducer((host, port), key, name=f"producer-{kind}", timeout=600.0)
+make = (lambda: MulticlassAccuracy(num_classes=8, validate_args=False, device="cpu")) if kind == "acc" else (
+    lambda: BinaryAUROC(thresholds=16, device="cpu"))
+for i in range(n):
+    prod.add_session(make(), session_id=f"{kind}{i}")
+prod.flush(600.0)
+print(json.dumps({"added": n, "errors": prod.errors[:3]}), flush=True)
+for t in range(ticks):
+    if sys.stdin.readline().strip() != "go":
+        sys.exit(2)
+    rng = np.random.default_rng([seed, 0 if kind == "acc" else 1, t])
+    if kind == "acc":
+        a, b = rng.integers(0, 8, (n, batch)), rng.integers(0, 8, (n, batch))
+    else:
+        a, b = rng.random((n, batch), dtype=np.float32), rng.integers(0, 2, (n, batch))
+    prod.lat = []
+    for i in range(n):
+        prod.submit(f"{kind}{i}", a[i], b[i])
+    prod.flush(600.0)
+    print(json.dumps({"tick": t, "lat": prod.lat, "errors": prod.errors[:3]}), flush=True)
+prod.close()
+"""
+
+# the crash leg's server: a fresh interpreter on the card, journaling to argv[1], polling and ticking until killed
+_SERVER_CHILD = r"""
+import sys
+from metrics_tpu_torch.engine.stream import StreamEngine
+from metrics_tpu_torch.serve.server import MetricsServer
+
+engine = StreamEngine(initial_capacity=1024, wal_path=sys.argv[1])
+server = MetricsServer(engine, sys.argv[2], host="127.0.0.1", device=sys.argv[3])
+print(server.address[1], flush=True)
+n = 0
+while True:
+    server.poll(0.02)
+    n += 1
+    if n % 8 == 0:
+        engine.tick()
+"""
+
+
+def _serve_batch(seed: int, kind: str, t: int, n: int):
+    """The numpy batch a producer of ``kind`` submits at tick ``t`` (the same draws as _PRODUCER_CHILD's)."""
+    rng = np.random.default_rng([seed, 0 if kind == "acc" else 1, t])
+    if kind == "acc":
+        return rng.integers(0, 8, (n, FLEET_BATCH)), rng.integers(0, 8, (n, FLEET_BATCH))
+    return rng.random((n, FLEET_BATCH), dtype=np.float32), rng.integers(0, 2, (n, FLEET_BATCH))
+
+
+def _spawn(code: str, *args) -> subprocess.Popen:
+    """A fresh interpreter running ``code`` from the repository root (never a fork of this CUDA process)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen([sys.executable, "-c", code, *map(str, args)], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=root, env=env)
+
+
+def _line_reader(proc, box: list):
+    import threading
+
+    def run():
+        for line in proc.stdout:
+            box.append(line)
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    return th
+
+
+def _quantile_ms(values, q) -> float:
+    return 1000 * float(np.quantile(np.asarray(values), q)) if values else float("nan")
+
+
+def _served_capacity(sessions: int) -> int:
+    """The smallest power of two that keeps a served bucket under 85 % full: the default admission table defers
+    arrivals from 90 % (5,000 sessions get the fleet_engine section's 8,192 rows, 61 % full; 500 get 1,024)."""
+    return 1 << (math.ceil(sessions / 0.85) - 1).bit_length()
+
+
+def serve_streams(n_streams: int, seed: int, wrappers: dict, dev="cuda") -> dict:
+    """(a) ``n_streams`` served streams: a StreamEngine on ``dev`` with its journal in a temporary directory, a
+    MetricsServer on 127.0.0.1, and two producer processes (half MulticlassAccuracy(8), half BinaryAUROC(16
+    thresholds)), batch 16 (numpy), 3 ticks. Each tick: the wave's frames a second, ack latency p50/p99 (send
+    to ack), fsyncs a poll batch, then the tick's ms, dispatches, launches and host syncs; sampled sessions
+    bit-equal to per-instance oracles on ``dev``."""
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    half = n_streams // 2
+    cap = _served_capacity(half)
+    tmp = tempfile.mkdtemp(prefix="serve_streams_")
+    _FLEET_JIT_CACHE.clear()
+    procs, res = [], {"streams": n_streams, "capacity": cap, "ticks": []}
+    try:
+        with observe.scope(reset=True):
+            engine = StreamEngine(initial_capacity=cap, wal_path=os.path.join(tmp, "serve.wal"))
+            server = MetricsServer(engine, SERVE_KEY, host="127.0.0.1", device=dev)
+            fsyncs = [0]
+            real_sync = engine._wal.sync
+
+            def counted_sync():
+                fsyncs[0] += 1
+                real_sync()
+
+            engine._wal.sync = counted_sync
+            lines = {}
+            for kind in ("acc", "auroc"):
+                p = _spawn(_PRODUCER_CHILD, "127.0.0.1", server.address[1], SERVE_KEY, kind, half, FLEET_TICKS,
+                           FLEET_BATCH, seed)
+                procs.append(p)
+                lines[kind] = []
+                _line_reader(p, lines[kind])
+
+            polls = {"batches": 0, "fsyncs": 0}
+
+            def pump_until(n_lines: int, timeout: float):
+                deadline = time.perf_counter() + timeout
+                while any(len(v) < n_lines for v in lines.values()):
+                    before = fsyncs[0]
+                    if server.poll(0.002):
+                        polls["batches"] += 1
+                        polls["fsyncs"] += fsyncs[0] - before
+                    if time.perf_counter() > deadline or any(p.poll() is not None for p in procs):
+                        errs = [p.stderr.read()[-2000:] for p in procs if p.poll() is not None]
+                        fail(f"served fleet {n_streams}: producers stalled or died: {errs}")
+
+            t0 = time.perf_counter()
+            pump_until(1, 900.0)
+            res["add_s"] = time.perf_counter() - t0
+            for kind in lines:
+                if json.loads(lines[kind][0])["errors"]:
+                    fail(f"served fleet {n_streams}: {kind} arrivals errored: {lines[kind][0]}")
+            if len(engine) != 2 * half:
+                fail(f"served fleet {n_streams}: the engine holds {len(engine)} sessions")
+            sids = {"acc": [f"acc{i}" for i in range(half)], "auroc": [f"auroc{i}" for i in range(half)]}
+            ctors = {"acc": lambda: MulticlassAccuracy(num_classes=8, validate_args=False, device=dev),
+                     "auroc": lambda: BinaryAUROC(thresholds=16, device=dev)}
+            oracles = {(k, i): ctors[k]() for k in sids for i in range(0, half, SERVE_ORACLE_EVERY)}
+            for t in range(FLEET_TICKS):
+                frames0, polls["batches"], polls["fsyncs"] = server.frames_total, 0, 0
+                t_wave = time.perf_counter()
+                for p in procs:
+                    p.stdin.write("go\n")
+                    p.stdin.flush()
+                pump_until(t + 2, 900.0)
+                wave_s = time.perf_counter() - t_wave
+                reports = {k: json.loads(lines[k][t + 1]) for k in lines}
+                if any(r["errors"] for r in reports.values()):
+                    fail(f"served fleet {n_streams}: tick {t} records errored: {reports}")
+                lat = [x for r in reports.values() for x in r["lat"]]
+                dispatches, ms, launches, syncs = _watched(engine.tick, dev, wrappers)
+                res["ticks"].append({
+                    "frames_per_s": (server.frames_total - frames0) / wave_s, "wave_s": wave_s,
+                    "ack_ms_p50": _quantile_ms(lat, 0.5), "ack_ms_p99": _quantile_ms(lat, 0.99), "acks": len(lat),
+                    "fsyncs_per_poll_batch": polls["fsyncs"] / max(1, polls["batches"]),
+                    "poll_batches": polls["batches"],
+                    "tick_ms": ms, "dispatches": dispatches, "launches": launches, "syncs": syncs})
+                if dispatches != 1:
+                    fail(f"served fleet {n_streams}: tick {t} made {dispatches} dispatches, not 1")
+                if polls["fsyncs"] != polls["batches"]:
+                    fail(f"served fleet {n_streams}: {polls['fsyncs']} fsyncs over {polls['batches']} poll batches")
+                if torch.device(dev).type == "cuda" and (launches["binned_counts"] != 1 or
+                                                         launches["binned_counts_labels"] or launches["ssim_window"]):
+                    fail(f"served fleet {n_streams}: tick {t} launched {launches}; the AUROC bucket's wave is one")
+                for (kind, i), oracle in oracles.items():
+                    a, b = _serve_batch(seed, kind, t, half)
+                    oracle.update(torch.from_numpy(a[i]).to(dev), torch.from_numpy(b[i]).to(dev))
+            for (kind, i), oracle in oracles.items():
+                _equal_rows(f"served fleet {n_streams} session {kind}{i}", _rows_of(engine, f"{kind}{i}"),
+                            oracle._state)
+            res["oracles_bit_equal"] = len(oracles)
+            snap = observe.snapshot()
+            res["update_programs"] = _counter(snap, "fleet_compile", True)
+            res["loose_updates"] = _counter(snap, "fleet_loose_update")
+            res["frames_total"] = server.frames_total
+            res["bytes_in_total"] = server.bytes_in_total
+            for p in procs:
+                p.wait(120)
+                if p.returncode:
+                    fail(f"served fleet {n_streams}: a producer exited {p.returncode}: {p.stderr.read()[-2000:]}")
+            server.close()
+            engine._wal.close()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+        shutil.rmtree(tmp, ignore_errors=True)
+        _FLEET_JIT_CACHE.clear()
+    return res
+
+
+def serve_crash(seed: int, dev="cuda") -> dict:
+    """(b) ``kill -9`` of a child server process on the card mid-stream over TCP: 1,000 sessions, 4 waves, the
+    child killed after the third wave's first ack; a restart from the surviving journal, a reconnect and a
+    resend. Every acked record is applied exactly once (the resent ones acked ``dup``), and every session's
+    state is bit-equal to an oracle engine fed each unique record once."""
+    import shutil
+    import signal
+    import socket
+    import tempfile
+
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAccuracy
+    from metrics_tpu_torch.engine import IngestWAL, StreamEngine, replay_wal
+    from metrics_tpu_torch.serve.protocol import Producer
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    half = SERVE_CRASH_SESSIONS // 2
+    tmp = tempfile.mkdtemp(prefix="serve_crash_")
+    wal = os.path.join(tmp, "serve.wal")
+    child = _spawn(_SERVER_CHILD, wal, SERVE_KEY, dev)
+    ctors = {"acc": lambda d: MulticlassAccuracy(num_classes=8, validate_args=False, device=d),
+             "auroc": lambda d: BinaryAUROC(thresholds=16, device=d)}
+    res = {"sessions": SERVE_CRASH_SESSIONS, "waves": SERVE_CRASH_WAVES}
+    server2 = None
+    try:
+        line = child.stdout.readline()
+        if not line.strip().isdigit():
+            fail(f"serve crash: the child server did not start: {child.stderr.read()[-2000:]}")
+        prod = Producer(("127.0.0.1", int(line)), SERVE_KEY, name="crash-producer", timeout=300.0)
+        sids = [(k, f"{k}{i}") for k in ("acc", "auroc") for i in range(half)]
+        for kind, sid in sids:
+            prod.add_session(ctors[kind]("cpu"), session_id=sid)
+
+        def wave(t):
+            cols = {k: _serve_batch(seed + 50, k, t, half) for k in ("acc", "auroc")}
+            return [prod.submit(sid, cols[k][0][j % half], cols[k][1][j % half]) for j, (k, sid) in enumerate(sids)]
+
+        for t in range(2):
+            wave(t)
+        prod.flush(300.0)
+        acked_before = prod.acked
+        wave(2)
+        deadline = time.perf_counter() + 300.0
+        while prod.acked < acked_before + 1:
+            prod.pump()
+            if time.perf_counter() > deadline:
+                fail("serve crash: no ack of the third wave before the deadline")
+            time.sleep(0.001)
+        acked_at_kill, outstanding_at_kill = prod.acked, prod.outstanding
+        t_kill = time.perf_counter()
+        os.kill(child.pid, signal.SIGKILL)
+        child.wait(60)
+        res.update(acked_at_kill=acked_at_kill, unacked_at_kill=outstanding_at_kill)
+
+        def restart():
+            # the journal-only restart: a fresh engine, the journal replayed onto the card, reopened for appends
+            eng = StreamEngine(initial_capacity=1024)
+            replay_wal(eng, wal, device=dev)
+            eng._wal, eng._wal_path = IngestWAL(wal), wal
+            return eng
+
+        recovered, res["replay_ms"] = _wall(restart, dev)
+        if recovered.serve_watermark("crash-producer") < acked_at_kill:
+            fail(f"serve crash: the journal's watermark {recovered.serve_watermark('crash-producer')} is below "
+                 f"the last ack {acked_at_kill}: an acked record was lost")
+        server2 = MetricsServer(recovered, SERVE_KEY, host="127.0.0.1", device=dev)
+        prod._drive = lambda: server2.poll(0.0)
+        prod.reconnect(socket.create_connection(server2.address))
+        prod.flush(300.0)
+        recovered.tick()
+        res["recovery_s"] = time.perf_counter() - t_kill
+        last = wave(3)
+        prod.flush(300.0)
+        recovered.tick()
+        if prod.outstanding or prod.errors:
+            fail(f"serve crash: {prod.outstanding} unacked, errors {prod.errors[:3]}")
+        if recovered.serve_watermark("crash-producer") != max(last):
+            fail("serve crash: the recovered watermark is not the last pseq")
+        res["dup_acks"] = server2.dedup_skipped
+        # the oracle: each unique record once, through a never-crashed engine on the same device
+        oracle = StreamEngine(initial_capacity=1024)
+        for kind, sid in sids:
+            oracle.add_session(ctors[kind](dev), session_id=sid)
+        for t in range(SERVE_CRASH_WAVES):
+            cols = {k: _serve_batch(seed + 50, k, t, half) for k in ("acc", "auroc")}
+            for j, (k, sid) in enumerate(sids):
+                oracle.submit(sid, cols[k][0][j % half], cols[k][1][j % half])
+            oracle.tick()
+        for _kind, sid in sids:
+            _equal_rows(f"serve crash session {sid}", _rows_of(recovered, sid), _rows_of(oracle, sid))
+        res["bit_exact_sessions"] = len(sids)
+        prod.close()
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait(30)
+        if server2 is not None:
+            server2.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def serve_overload(seed: int, dev="cuda") -> dict:
+    """(c) the JAX package's serve soak (bench.py:1370) on the card: 96 sessions over loopback TCP, an abrupt
+    producer disconnect and resend, 3 warm-up and 10 steady ticks (two hot sessions breach their quota), a
+    poison record, then a forced overload that must trip all three reflexes (double, demote, shed loose
+    sessions first), and a recovery; every surviving session bit-equal to a never-shed oracle on the card."""
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch import observe
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+    from metrics_tpu_torch.observe.metering import MeterPolicy
+    from metrics_tpu_torch.serve.admission import DEFAULT_ADMISSION_TABLE, AdmissionController, AdmissionRule
+    from metrics_tpu_torch.serve.autonomic import AutonomicController
+    from metrics_tpu_torch.serve.protocol import Producer
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    rng = np.random.default_rng(seed + 23)
+    ctor = lambda d=dev: MulticlassAccuracy(num_classes=8, validate_args=False, device=d)  # noqa: E731
+    pool = [(rng.integers(0, 8, FLEET_BATCH), rng.integers(0, 8, FLEET_BATCH)) for _ in range(16)]
+    pool_dev = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)) for a, b in pool]
+    _FLEET_JIT_CACHE.clear()
+    tmp = tempfile.mkdtemp(prefix="serve_overload_")
+    try:
+        with observe.scope(reset=True):
+            observe.install_watchdog(min_interval_s=0.0)
+            observe.install_meter(top_k=256, policy=MeterPolicy(max_updates=SOAK_STEADY * 3, action="demote"),
+                                  poll_interval_s=3600.0)
+            engine = StreamEngine(initial_capacity=SOAK_CAPACITY, wal_path=os.path.join(tmp, "serve.wal"))
+            autonomic = AutonomicController(engine, min_interval_s={"double": 0.0, "demote": 0.0, "resize": 0.0,
+                                                                    "shed": 0.0})
+            server = MetricsServer(engine, SERVE_KEY, host="127.0.0.1", autonomic=autonomic, device=dev)
+            drive = lambda _t=None: server.poll(0.0)  # noqa: E731
+            prod = Producer(server.address, SERVE_KEY, name="soak-a", drive=drive)
+            flaky = Producer(server.address, SERVE_KEY, name="soak-b", drive=drive)
+            oracles = {}
+            for i in range(SOAK_SESSIONS):
+                prod.add_session(ctor("cpu"), session_id=f"s{i}")
+                oracles[f"s{i}"] = ctor()
+            prod.flush(60.0)
+            flaky.add_session(ctor("cpu"), session_id="flaky-s")
+            flaky.flush(60.0)
+            for _ in range(4):
+                flaky.submit("flaky-s", *pool[0])
+            flaky.pump()
+            server.poll(0.0)
+            flaky._sock.close()  # the abrupt disconnect: acks lost, the reconnect resends everything unacked
+            flaky.reconnect()
+            flaky.flush(60.0)
+            oracles["flaky-s"] = ctor()
+            for _ in range(4):
+                oracles["flaky-s"].update(*pool_dev[0])
+            hot = ["s0", "s1"]
+            tick_ms, dispatches_steady, compiles_at_steady = [], 0, None
+            for t in range(SOAK_WARMUP + SOAK_STEADY):
+                for i, sid in enumerate(list(oracles)):
+                    for _ in range(3 if sid in hot else 1):
+                        prod.submit(sid, *pool[(i + t) % 16])
+                        oracles[sid].update(*pool_dev[(i + t) % 16])
+                prod.flush(60.0)
+                d, ms = _wall(server.tick, dev)
+                tick_ms.append(ms)
+                if t == SOAK_WARMUP - 1:
+                    compiles_at_steady = _counter(observe.snapshot(), "fleet_compile", True)
+                    dispatch0 = _counter(observe.snapshot(), "fleet_dispatch")
+            steady_recompiles = _counter(observe.snapshot(), "fleet_compile", True) - compiles_at_steady
+            dispatches_steady = _counter(observe.snapshot(), "fleet_dispatch") - dispatch0
+            poison = prod.submit("no-such-session", *pool[0])
+            prod.flush(60.0)
+            poison_errs = [e for e in prod.errors if e[0] >= poison]
+            server.tick()
+            server.admission = AdmissionController(
+                (AdmissionRule("forced_overload", "occupancy_pct", ">=", 0.0, "shed", None),))
+            for i in range(SOAK_ARRIVALS):
+                prod.add_session(ctor("cpu"), session_id=f"burst{i}")
+                oracles[f"burst{i}"] = ctor()
+            prod.flush(60.0)
+            mt = observe.installed_meter()
+            deadline, extra = time.perf_counter() + 60.0, 0
+            while min(autonomic.counts[a] for a in ("double", "demote", "shed")) < 1 and \
+                    time.perf_counter() < deadline:
+                prod.add_session(ctor("cpu"), session_id=f"extra{extra}")
+                oracles[f"extra{extra}"] = ctor()
+                extra += 1
+                for sid in hot:
+                    if sid in engine._sessions:
+                        prod.submit(sid, *pool[0])
+                        oracles[sid].update(*pool_dev[0])
+                prod.flush(60.0)
+                mt._last_poll = float("-inf")  # the autonomic step of the next tick's poll sees the quota breach
+                server.tick()
+            reflexes = dict(autonomic.counts)
+            server.admission = AdmissionController(DEFAULT_ADMISSION_TABLE)
+            for t in range(3):
+                for i, sid in enumerate(list(engine._sessions)):
+                    if sid in oracles:
+                        prod.submit(sid, *pool[(i + t) % 16])
+                        oracles[sid].update(*pool_dev[(i + t) % 16])
+                prod.flush(60.0)
+                server.tick()
+            health = observe.installed_watchdog().health()
+            survivors = 0
+            for sid in list(engine._sessions):
+                if sid in oracles:
+                    survivors += 1
+                    _equal_rows(f"soak survivor {sid}", _rows_of(engine, sid), oracles[sid]._state)
+            snap = observe.snapshot()
+            admission = dict(snap["counters"].get("serve_admission", {}))
+            stats = server.stats()
+            prod.close()
+            flaky.close()
+            server.close()
+            engine._wal.close()
+            observe.uninstall_meter()
+            observe.uninstall_watchdog()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _FLEET_JIT_CACHE.clear()
+    if min(reflexes[a] for a in ("double", "demote", "shed")) < 1:
+        fail(f"serve overload: the reflexes fired {reflexes}; double, demote and shed must each fire")
+    if not poison_errs:
+        fail("serve overload: the poison record got no err ack")
+    if steady_recompiles or dispatches_steady != SOAK_STEADY:
+        fail(f"serve overload: {steady_recompiles} steady recompiles, {dispatches_steady} dispatches over "
+             f"{SOAK_STEADY} steady ticks")
+    steady = sorted(tick_ms[SOAK_WARMUP:])
+    return {"sessions": SOAK_SESSIONS + 1, "overload_arrivals": SOAK_ARRIVALS + extra, "survivors_bit_exact": survivors,
+            "reflexes": reflexes, "admission": admission, "dedup_skipped": stats["dedup_skipped"],
+            "poison_err_acks": len(poison_errs), "steady_recompiles": steady_recompiles,
+            "dispatches_per_steady_tick": dispatches_steady / SOAK_STEADY,
+            "steady_tick_ms_p50": float(np.median(steady)), "steady_tick_ms_max": steady[-1],
+            "watchdog_firing": health["firing"]}
+
+
+def serve_sharded(seed: int, dev="cuda") -> dict:
+    """(d) a ShardedStreamEngine of 8 shards on the card behind the server: each session on its hash's shard,
+    each shard's watermark the last pseq routed to it, then arrivals skewed onto shard 0 until the autonomic
+    controller resizes the fleet (8 -> 9) on the imbalance; every session's state survives the resize."""
+    import shutil
+    import tempfile
+
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.engine import ShardedStreamEngine
+    from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
+    from metrics_tpu_torch.engine.sharded import shard_of
+    from metrics_tpu_torch.serve.autonomic import AutonomicController
+    from metrics_tpu_torch.serve.protocol import Producer
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    rng = np.random.default_rng(seed + 31)
+    tmp = tempfile.mkdtemp(prefix="serve_sharded_")
+    _FLEET_JIT_CACHE.clear()
+    res = {"shards": SERVE_SHARDS, "sessions": SERVE_SHARD_SESSIONS}
+    try:
+        fleet = ShardedStreamEngine(n_shards=SERVE_SHARDS, initial_capacity=4096, wal_dir=os.path.join(tmp, "w"),
+                                    devices=[dev])
+        auto = AutonomicController(fleet, occupancy_high_pct=101.0, shed_occupancy_pct=101.0, imbalance_ratio=4.0)
+        server = MetricsServer(fleet, SERVE_KEY, host="127.0.0.1")
+        prod = Producer(server.address, SERVE_KEY, name="shard-producer", drive=lambda: server.poll(0.0),
+                        timeout=300.0)
+        make = lambda: MulticlassAccuracy(num_classes=8, validate_args=False, device="cpu")  # noqa: E731
+        last_pseq = {}
+        sids = [f"d{i}" for i in range(SERVE_SHARD_SESSIONS)]
+        for sid in sids:
+            last_pseq[shard_of(sid, SERVE_SHARDS)] = prod.add_session(make(), session_id=sid)
+        for _ in range(2):
+            a, b = rng.integers(0, 8, (len(sids), FLEET_BATCH)), rng.integers(0, 8, (len(sids), FLEET_BATCH))
+            for i, sid in enumerate(sids):
+                last_pseq[shard_of(sid, SERVE_SHARDS)] = prod.submit(sid, a[i], b[i])
+            prod.flush(300.0)
+            dispatches, ms = _wall(fleet.tick, dev)
+            res.setdefault("tick_ms", []).append(ms)
+            if dispatches != SERVE_SHARDS:
+                fail(f"served shards: a tick made {dispatches} dispatches over {SERVE_SHARDS} shards")
+        for sid in sids:
+            k = shard_of(sid, SERVE_SHARDS)
+            if sid not in fleet._shards[k]._sessions:
+                fail(f"served shards: {sid} is not on shard {k}")
+        marks = [fleet._shards[k].serve_watermark("shard-producer") for k in range(SERVE_SHARDS)]
+        if marks != [last_pseq[k] for k in range(SERVE_SHARDS)]:
+            fail(f"served shards: watermarks {marks}, last pseqs routed {last_pseq}")
+        res["watermarks"] = marks
+        def rows(sid):
+            return _rows_of(fleet._shards[fleet.shard_of(sid)], sid)
+
+        before = {sid: {k: v.clone() for k, v in rows(sid).items()} for sid in sids[::97]}
+        skew, i = [], 0
+        while len(skew) < SERVE_SHARD_SKEW:
+            sid = f"z{i}"
+            i += 1
+            if shard_of(sid, SERVE_SHARDS) == 0:
+                skew.append(sid)
+        for sid in skew:
+            prod.add_session(make(), session_id=sid)
+        prod.flush(300.0)
+        counts = [len(s) for s in fleet._shards]
+        actions, res["resize_ms"] = _wall(auto.step, dev)
+        if [a.action for a in actions] != ["resize"] or fleet.n_shards != SERVE_SHARDS + 1:
+            fail(f"served shards: shard populations {counts} gave actions {actions}, {fleet.n_shards} shards")
+        if len(fleet) != len(sids) + len(skew):
+            fail(f"served shards: {len(fleet)} sessions after the resize")
+        for sid, want in before.items():
+            _equal_rows(f"served shards session {sid} after the resize", rows(sid), want)
+        a, b = rng.integers(0, 8, (len(sids), FLEET_BATCH)), rng.integers(0, 8, (len(sids), FLEET_BATCH))
+        for i, sid in enumerate(sids):
+            prod.submit(sid, a[i], b[i])
+        prod.flush(300.0)
+        dispatches = fleet.tick()
+        if prod.errors or dispatches != fleet.n_shards:
+            fail(f"served shards: after the resize {dispatches} dispatches, errors {prod.errors[:3]}")
+        res.update(populations_before_resize=counts, shards_after=fleet.n_shards, sessions_after=len(fleet))
+        prod.close()
+        server.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        _FLEET_JIT_CACHE.clear()
+    return res
+
+
+def serve_refusals(dev="cuda") -> dict:
+    """(e) a frame that pickles a torch tensor reads as damage and drops only its connection; a metric blob
+    naming a class of the JAX package gets an ``err`` ack with the reason; the reactor serves on."""
+    import pickle
+    import socket
+    import struct
+    import zlib
+
+    from metrics_tpu_torch.classification import MulticlassAccuracy
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.serve.protocol import WAL_MAGIC, Producer
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    engine = StreamEngine()
+    server = MetricsServer(engine, SERVE_KEY, host="127.0.0.1", device=dev)
+    prod = Producer(server.address, SERVE_KEY, name="honest", drive=lambda: server.poll(0.0))
+    body = pickle.dumps(("submit", 1, "s0", ((torch.arange(4),), {})), protocol=pickle.HIGHEST_PROTOCOL)
+    evil = socket.create_connection(server.address)
+    evil.sendall(WAL_MAGIC + struct.pack(">II", len(body), zlib.crc32(body) & 0xFFFFFFFF) + body)
+    deadline = time.perf_counter() + 30
+    while server.protocol_errors < 1 and time.perf_counter() < deadline:
+        server.poll(0.01)
+    if server.protocol_errors != 1 or server.disconnects != 1:
+        fail(f"serve refusals: the torch-global frame gave {server.protocol_errors} protocol errors and "
+             f"{server.disconnects} disconnects")
+    # a JAX-package metric as its pickle names it (this machine has no JAX): the server must refuse the class
+    # before importing anything
+    jax_blob = b"\x80\x02cmetrics_tpu.classification.accuracy\nMulticlassAccuracy\n)\x81}b."
+    pseq = prod._data("add", "alien", ("__metric__", jax_blob))
+    prod.flush(30.0)
+    if [e[0] for e in prod.errors] != [pseq] or "metrics_tpu.classification" not in prod.errors[0][3]:
+        fail(f"serve refusals: the JAX-package blob got {prod.errors}")
+    if "metrics_tpu" in sys.modules or "jax" in sys.modules:
+        fail("serve refusals: a refused blob imported the JAX package")
+    prod.add_session(MulticlassAccuracy(num_classes=8, validate_args=False, device="cpu"), session_id="s0")
+    prod.submit("s0", np.arange(8), np.arange(8))
+    prod.flush(30.0)
+    engine.tick()
+    if len(engine) != 1 or prod.errors[1:]:
+        fail(f"serve refusals: the reactor did not serve on ({len(engine)} sessions, {prod.errors})")
+    out = {"protocol_errors": server.protocol_errors, "disconnects": server.disconnects,
+           "err_reason": prod.errors[0][3][:160]}
+    evil.close()
+    prod.close()
+    server.close()
+    return out
+
+
+def serve_section(seed: int, wrappers: dict) -> dict:
+    """The front door on the card, its launches counted apart from the main path's: (a) 10,000 and 1,000
+    served streams (one dispatch and one binned-counts launch a tick, host syncs a tick equal at both sizes),
+    (b) the kill -9 leg, (c) the overload soak, (d) 8 shards and a resize, (e) refusals, then
+    ``run_serve_smoke()`` on the card."""
+    from metrics_tpu_torch.serve.smoke import run_serve_smoke
+
+    res = {}
+    t0 = time.perf_counter()
+    res["streams_10000"] = serve_streams(FLEET_STREAMS, seed, wrappers)
+    log(f"serve streams_10000: {json.dumps(res['streams_10000'])}")
+    res["streams_1000"] = serve_streams(FLEET_SMALL, seed + 7, wrappers)
+    log(f"serve streams_1000: {json.dumps(res['streams_1000'])}")
+    big, little = res["streams_10000"]["ticks"], res["streams_1000"]["ticks"]
+    for t, (a, b) in enumerate(zip(big, little)):
+        if a["launches"] != b["launches"] or a["syncs"] != b["syncs"]:
+            fail(f"served tick {t}: 10,000 streams launched {a['launches']} with {a['syncs']} host syncs, 1,000 "
+                 f"streams {b['launches']} with {b['syncs']}")
+    own = [t["syncs"] for t in APART["fleet_engine"]["streams_10000"]["ticks"]] if "fleet_engine" in APART else []
+    res["engine_own_tick_syncs_10000"] = own
+    if own and [t["syncs"] for t in big] != own:
+        fail(f"served ticks synchronized {[t['syncs'] for t in big]} times, the engine's own ticks {own}")
+    res["crash"] = serve_crash(seed)
+    log(f"serve crash: {json.dumps(res['crash'])}")
+    res["overload"] = serve_overload(seed)
+    log(f"serve overload: {json.dumps(res['overload'])}")
+    res["sharded"] = serve_sharded(seed)
+    log(f"serve sharded: {json.dumps(res['sharded'])}")
+    res["refusals"] = serve_refusals()
+    log(f"serve refusals: {json.dumps(res['refusals'])}")
+    smoke = run_serve_smoke()
+    if not smoke["ok"]:
+        fail(f"run_serve_smoke on the card: {smoke['failures']}")
+    res["run_serve_smoke"] = smoke
+    res["launches_1000"] = {k: sum(t["launches"][k] for t in little) for k in wrappers}
+    res["launches"] = {k: sum(t["launches"][k] for t in big + little) for k in wrappers}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"serve: {json.dumps({k: res[k] for k in ('run_serve_smoke', 'launches', 'launches_1000', 'seconds')})}")
+    return res
+
+
+# ----------------------------------------------------------------------------- phase 4, model-based image metrics
+# CIFAR-10's size for FID/KID/IS/MiFID (10,000 real and 10,000 generated 32 x 32 images, resized to 299 as
+# torch-fidelity does), BAPPS' 64 x 64 patches for LPIPS, and PPL's 2,000 samples; random weights from the port's
+# own seeded init (the repository holds no pretrained weights)
+GEN_IMAGES, GEN_BATCH, GEN_SIZE, GEN_SUBSET = 10_000, 250, 32, 64
+GEN_KID = {"subsets": 100, "subset_size": 1000}  # KID's defaults, the reference's
+LPIPS_PAIRS, LPIPS_BATCH, LPIPS_SIZE, LPIPS_SUBSET = 10_000, 500, 64, 100
+PPL_SAMPLES, PPL_BATCH, PPL_SUBSET = 2_000, 64, 128
+TAP_ATOL_OF_SCALE, TAP_RTOL = 1e-5, 1e-4  # Inception taps, as tests/test_torch_models.py holds them
+GEN_VALUE_RTOL = {"fid": 1e-4, "mifid": 1e-4, "kid": 1e-4, "is": 1e-4}  # see model_based_generative
+LPIPS_RTOL, PPL_RTOL = 1e-4, 1e-3  # as tests/test_torch_model_based.py holds LPIPS and PPL
+
+
+def _gen_members(extractor, dev, subset: bool = False) -> dict:
+    from metrics_tpu_torch.image import (
+        FrechetInceptionDistance,
+        InceptionScore,
+        KernelInceptionDistance,
+        MemorizationInformedFrechetInceptionDistance,
+    )
+
+    kid = dict(subsets=10, subset_size=16) if subset else GEN_KID
+    return {"fid": FrechetInceptionDistance(feature=extractor, device=dev),
+            "kid": KernelInceptionDistance(feature=extractor, device=dev, **kid),
+            "is": InceptionScore(feature=extractor, splits=2 if subset else 10, device=dev),
+            "mifid": MemorizationInformedFrechetInceptionDistance(feature=extractor, device=dev)}
+
+
+def _gen_values(fs) -> dict:
+    out, ms = {}, {}
+    for name, metric in fs.items():
+        value, ms[name] = _wall(metric.compute, "cuda" if metric.device.type == "cuda" else "cpu")
+        out[name] = [float(v) for v in value] if isinstance(value, tuple) else float(value)
+    return out, ms
+
+
+def model_based_generative(seed: int, dev="cuda") -> dict:
+    """FID, KID, IS and MiFID in ONE FeatureShare over the FID InceptionV3 (2048 tap) at CIFAR-10's size:
+    10,000 real and 10,000 generated uint8 images in batches of 250, one Inception forward a batch. Then a
+    64-image subset (32 + 32) through the card and through the port on the CPU: the 2048 features within the
+    taps' tolerance and the four values within ``GEN_VALUE_RTOL``, ten times the CPU tests' 1e-5 for FID and
+    MiFID: at 32 samples of 2,048 features the covariances have rank 31, and the square root's trace sums ~2,000
+    eigenvalues that are zero up to each device's rounding."""
+    from metrics_tpu_torch.models import init_inception_params, make_feature_extractor
+    from metrics_tpu_torch.wrappers import FeatureShare
+
+    g = torch.Generator(device=dev).manual_seed(seed + 60)
+    real = torch.randint(0, 256, (GEN_IMAGES, 3, GEN_SIZE, GEN_SIZE), generator=g, device=dev, dtype=torch.uint8)
+    noise = torch.randint(-40, 41, real.shape, generator=g, device=dev, dtype=torch.int16)
+    fake = (real.to(torch.int16) // 2 + 64 + noise).clamp(0, 255).to(torch.uint8)
+    state = init_inception_params(seed, device=dev)
+    inner = make_feature_extractor(state, 2048)
+    forwards = {"n": 0}
+
+    def extractor(x):
+        forwards["n"] += 1
+        return inner(x)
+
+    fs = FeatureShare(_gen_members(extractor, dev))
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    update_ms, updates = [], 0
+    for i in range(0, GEN_IMAGES, GEN_BATCH):
+        for imgs, is_real in ((real[i:i + GEN_BATCH], True), (fake[i:i + GEN_BATCH], False)):
+            _, ms = _wall(lambda: fs.update(imgs, real=is_real), dev)
+            update_ms.append(ms)
+            updates += 1
+    if forwards["n"] != updates:
+        fail(f"FeatureShare: {forwards['n']} Inception forwards over {updates} updates; want one a batch")
+    if (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) != tf32:
+        fail("the Inception forwards left the caller's TF32 settings changed")
+    values, compute_ms = _gen_values(fs)
+    for name, v in values.items():
+        if not np.all(np.isfinite(v)):
+            fail(f"{name} at CIFAR-10's size is not finite: {v}")
+    # the subset on both devices: features, then values
+    sub_r, sub_f = real[: GEN_SUBSET // 2], fake[: GEN_SUBSET // 2]
+    cpu_extract = make_feature_extractor({k: v.cpu() for k, v in state.items()}, 2048)
+    feats = {"card": [inner(sub_r).cpu(), inner(sub_f).cpu()], "cpu": [cpu_extract(sub_r.cpu()),
+                                                                      cpu_extract(sub_f.cpu())]}
+    worst_feat = 0.0
+    for a, b in zip(feats["card"], feats["cpu"]):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst_feat = max(worst_feat, err / scale)
+        if not torch.allclose(a, b, rtol=TAP_RTOL, atol=TAP_ATOL_OF_SCALE * scale):
+            fail(f"Inception 2048 features on the card differ from the CPU's by {err} (scale {scale})")
+    sub_vals = {}
+    for key, d, ext in (("card", dev, inner), ("cpu", "cpu", cpu_extract)):
+        sub = FeatureShare(_gen_members(ext, d, subset=True))
+        sub.update(sub_r.to(d), real=True)
+        sub.update(sub_f.to(d), real=False)
+        sub_vals[key], _ = _gen_values(sub)
+    for name, rtol in GEN_VALUE_RTOL.items():
+        if not np.allclose(sub_vals["card"][name], sub_vals["cpu"][name], rtol=rtol, atol=0):
+            fail(f"{name} of the 64-image subset: {sub_vals['card'][name]} on the card, {sub_vals['cpu'][name]} "
+                 "on the CPU")
+    total_s = sum(update_ms) / 1000
+    return {"images": 2 * GEN_IMAGES, "batch": GEN_BATCH, "inception_forwards": forwards["n"],
+            "images_per_s": 2 * GEN_IMAGES / total_s, "update_ms_median": float(np.median(update_ms)),
+            "update_ms_first": update_ms[0], "compute_ms": compute_ms, "values": values,
+            "subset_values": sub_vals, "subset_feature_max_err_of_scale": worst_feat}
+
+
+def _lpips_weights(directory: str, seed: int) -> None:
+    """Random towers and heads as the local ``.pth`` files the hub reads (torchvision and LPIPS layouts)."""
+    from metrics_tpu_torch.models import init_lpips
+    from metrics_tpu_torch.models.lpips_nets import ALEX_TAPS, SQUEEZE_TAPS, VGG16_TAPS
+
+    g = torch.Generator().manual_seed(seed)
+    for net, backbone, taps in (("vgg", "vgg16", VGG16_TAPS), ("alex", "alexnet", ALEX_TAPS),
+                                ("squeeze", "squeezenet1_1", SQUEEZE_TAPS)):
+        state, _ = init_lpips(net, rng_seed=seed, device="cpu")
+        torch.save(state, os.path.join(directory, f"{backbone}.pth"))
+        torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1, generator=g) for i, c in enumerate(taps)},
+                   os.path.join(directory, f"lpips_{net}.pth"))
+
+
+def model_based_lpips(seed: int, weights: str, dev="cuda") -> dict:
+    """LPIPS through each tower (VGG16, AlexNet, SqueezeNet) resolved from local weights: 10,000 pairs of
+    BAPPS-sized 64 x 64 patches in batches of 500, and the first 100 pairs on the CPU within ``LPIPS_RTOL``."""
+    from metrics_tpu_torch.image import LearnedPerceptualImagePatchSimilarity
+
+    g = torch.Generator(device=dev).manual_seed(seed + 61)
+    a = torch.rand((LPIPS_PAIRS, 3, LPIPS_SIZE, LPIPS_SIZE), generator=g, device=dev) * 2 - 1
+    b = (a + 0.3 * torch.randn(a.shape, generator=g, device=dev)).clamp(-1, 1)
+    os.environ["METRICS_TPU_WEIGHTS"] = weights
+    res = {}
+    for net in ("vgg", "alex", "squeeze"):
+        m = LearnedPerceptualImagePatchSimilarity(net_type=net, device=dev)
+        ms = [_wall(lambda i=i: m.update(a[i:i + LPIPS_BATCH], b[i:i + LPIPS_BATCH]), dev)[1]
+              for i in range(0, LPIPS_PAIRS, LPIPS_BATCH)]
+        value = float(m.compute())
+        sub = {}
+        for key, d in (("card", dev), ("cpu", "cpu")):
+            s = LearnedPerceptualImagePatchSimilarity(net_type=net, device=d)
+            s.update(a[:LPIPS_SUBSET].to(d), b[:LPIPS_SUBSET].to(d))
+            sub[key] = float(s.compute())
+        if not (np.isfinite(value) and value > 0 and abs(sub["card"] - sub["cpu"]) <= LPIPS_RTOL * abs(sub["cpu"])):
+            fail(f"LPIPS {net}: {value} over the pairs; the subset {sub['card']} on the card, {sub['cpu']} on the CPU")
+        res[net] = {"value": value, "pairs_per_s": LPIPS_PAIRS / (sum(ms) / 1000),
+                    "update_ms_median": float(np.median(ms)), "subset": sub}
+    return res
+
+
+class _SmallGenerator(torch.nn.Module):
+    """A random generator of 64 x 64 images in [0, 255]: a 128-wide latent through a linear layer and two
+    upsampling convolutions. ``sample`` draws latents on the CPU, so the card and the CPU see the same ones."""
+
+    def __init__(self, seed: int):
+        super().__init__()
+        g = torch.Generator().manual_seed(seed)
+        self.fc = torch.nn.Linear(128, 64 * 16 * 16)
+        self.conv1 = torch.nn.Conv2d(64, 32, 3, padding=1)
+        self.conv2 = torch.nn.Conv2d(32, 3, 3, padding=1)
+        with torch.no_grad():
+            for p in self.parameters():
+                p.copy_(torch.randn(p.shape, generator=g) / math.sqrt(max(1, p[0].numel() if p.ndim > 1 else 1)))
+        self._draws = torch.Generator().manual_seed(seed + 1)
+
+    def sample(self, n):
+        return torch.randn((n, 128), generator=self._draws).to(self.fc.weight.device)
+
+    @torch.no_grad()
+    def forward(self, z):
+        from metrics_tpu_torch.models._backbone import exact_fp32
+
+        # TF32 off here too: a pair's two images differ by epsilon, and TF32's rounding would swamp that
+        with exact_fp32():
+            x = self.fc(z).reshape(-1, 64, 16, 16)
+            x = F.relu(self.conv1(F.interpolate(x, scale_factor=2.0)))
+            x = self.conv2(F.interpolate(x, scale_factor=2.0))
+        return 255 * torch.sigmoid(x)
+
+
+def model_based_ppl(seed: int, dev="cuda") -> dict:
+    """PPL with the VGG LPIPS over a small random generator: 2,000 samples in batches of 64 (epsilon 1e-4); then
+    128 samples at epsilon 1e-2 on the card and on the CPU, within ``PPL_RTOL``."""
+    from metrics_tpu_torch.image import PerceptualPathLength
+    from metrics_tpu_torch.models import build_lpips, init_lpips
+
+    state, lin = init_lpips("vgg", rng_seed=seed, device=dev)
+    scorer = build_lpips("vgg", state, lin, device=dev)
+    gen = _SmallGenerator(seed + 62).to(dev)
+    ppl = PerceptualPathLength(num_samples=PPL_SAMPLES, batch_size=PPL_BATCH, sim_net=scorer, device=dev)
+    ppl.update(gen)
+    (mean, std, dists), ms = _wall(ppl.compute, dev)
+    if not (np.isfinite(float(mean)) and np.isfinite(float(std)) and dists.numel() > 0.9 * PPL_SAMPLES):
+        fail(f"PPL: mean {float(mean)}, std {float(std)} over {dists.numel()} kept distances")
+    sub = {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        s_state, s_lin = init_lpips("vgg", rng_seed=seed, device=d)
+        m = PerceptualPathLength(num_samples=PPL_SUBSET, batch_size=PPL_BATCH, epsilon=1e-2, lower_discard=None,
+                                 upper_discard=None, sim_net=build_lpips("vgg", s_state, s_lin, device=d), device=d)
+        m.update(_SmallGenerator(seed + 62).to(d))
+        sub[key] = m.compute()[2].cpu()
+    if not torch.allclose(sub["card"], sub["cpu"], rtol=PPL_RTOL, atol=PPL_RTOL * float(sub["cpu"].abs().max())):
+        fail(f"PPL distances on the card differ from the CPU's by {float((sub['card'] - sub['cpu']).abs().max())}"
+             f" (largest {float(sub['cpu'].abs().max())})")
+    return {"samples": PPL_SAMPLES, "batch": PPL_BATCH, "mean": float(mean), "std": float(std),
+            "kept": dists.numel(), "compute_ms": ms, "samples_per_s": PPL_SAMPLES / (ms / 1000),
+            "subset_max_rel_err": float(((sub["card"] - sub["cpu"]).abs() / sub["cpu"].abs().clamp(min=1e-30)).max())}
+
+
+def model_based_section(seed: int, wrappers: dict) -> dict:
+    """The model-based image metrics on the card, their launches counted apart (none is expected): FID, KID, IS
+    and MiFID through one shared InceptionV3, LPIPS through its three towers, PPL."""
+    import shutil
+    import tempfile
+
+    res = {}
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    res["generative_cifar10"] = model_based_generative(seed)
+    log(f"model_based generative: {json.dumps(res['generative_cifar10'])}")
+    weights = tempfile.mkdtemp(prefix="lpips_weights_")
+    saved = os.environ.get("METRICS_TPU_WEIGHTS")
+    try:
+        _lpips_weights(weights, seed)
+        res["lpips_bapps"] = model_based_lpips(seed, weights)
+        log(f"model_based lpips: {json.dumps(res['lpips_bapps'])}")
+    finally:
+        if saved is None:
+            os.environ.pop("METRICS_TPU_WEIGHTS", None)
+        else:
+            os.environ["METRICS_TPU_WEIGHTS"] = saved
+        shutil.rmtree(weights, ignore_errors=True)
+    res["ppl"] = model_based_ppl(seed)
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"model_based: {json.dumps({k: res[k] for k in ('ppl', 'launches', 'seconds')})}")
     return res
 
 
@@ -5476,6 +6377,20 @@ def measure(rng: np.random.Generator, plain: bool = True) -> dict:
     }
     if plain:
         held("binned_counts[fleet_binary]", row, binned_counts(*fargs), binned_counts_plain(*fargs), True)
+    # B1 at the served 1,000-stream fold: 500 AUROC sessions in a 1,024-row bucket, one launch a served tick
+    c = _served_capacity(FLEET_SMALL // 2)
+    sargs = [torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
+             torch.from_numpy(rng.integers(0, 2, (n, c), dtype=np.int32)).cuda(),
+             torch.ones((n, c), dtype=torch.bool, device="cuda"), thr16]
+    res["binned_counts[served_binary]"] = row = {
+        "shape": [n, c, t16],
+        "ms": time_ms(lambda: binned_counts(*sargs), flush=flush),
+        "plain_ms": time_ms(lambda: binned_counts_plain(*sargs), reps=5, flush=flush) if plain else None,
+        **bound(n * c * (4 + 4 + 1) + 4 * t16 + 4 * (2 * c * t16 + 2 * c), n * c * math.ceil(math.log2(t16 + 1))),
+        "library_ms": None,
+    }
+    if plain:
+        held("binned_counts[served_binary]", row, binned_counts(*sargs), binned_counts_plain(*sargs), True)
     n, c = MC_N, 10
     largs = [torch.from_numpy(rng.random((n, c), dtype=np.float32)).cuda(),
              torch.from_numpy(rng.integers(0, c, n, dtype=np.int32)).cuda(), thresholds]
@@ -5735,6 +6650,8 @@ def main() -> int:
                                          "metrics_tpu/ops/ssim_window.py:60"),
                "binned_counts[fleet_binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
                                                "metrics_tpu/ops/binned_hist.py:151"),
+               "binned_counts[served_binary]": ("binned_counts", "metrics_tpu_torch/csrc/binned_hist.cu",
+                                                "metrics_tpu/ops/binned_hist.py:151"),
                "ssim_window[fleet_ssim]": ("ssim_window", "metrics_tpu_torch/csrc/ssim_window.cu",
                                            "metrics_tpu/ops/ssim_window.py:60")}
     fleet_launches = APART["fleet_engine"]["launches"]
@@ -5745,6 +6662,8 @@ def main() -> int:
         err = row["max_abs_err"]
         # the fleet rows' launches are the fleet_engine section's, counted apart from the main path's
         count = fleet_launches[name] if key.endswith(("[fleet_binary]", "[fleet_ssim]")) else launches[name]
+        if key.endswith("[served_binary]"):  # the serve section's 1,000-stream ticks, counted apart
+            count = APART["serve"]["launches_1000"][name]
         kernels.append({
             "name": key, "route": "cuda", "source": source, "replaces": replaces, "launches": count,
             "max_abs_err": err, "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

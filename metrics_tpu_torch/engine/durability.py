@@ -114,10 +114,18 @@ def _load_device(device: DeviceLike) -> Iterator[None]:
         _LOAD_DEVICE[0] = prev
 
 
+def _settle(obj: Any, device: DeviceLike) -> Any:
+    """A metric rebuilt for ``device``: the configuration's tensors too (a host tensor stays on the host while
+    unpickling, so a curve's thresholds packed on the CPU would), as a metric built there holds them."""
+    if device is not None and isinstance(obj, Metric):
+        obj.to_device(device)
+    return obj
+
+
 def unpack_metric(blob: bytes, device: DeviceLike = None) -> Any:
     """Rebuild a :func:`pack_metric` payload: on the device it was packed on, or on ``device``."""
     with _load_device(device):
-        return pickle.loads(blob)
+        return _settle(pickle.loads(blob), device)
 
 
 def _on_device(v: Any, device: DeviceLike) -> Any:
@@ -344,7 +352,7 @@ def _unpickle(blob: bytes, what: str, path: str) -> Any:
 
 def _unpack(blob: bytes, what: str, path: str, device: DeviceLike) -> Any:
     with _load_device(device):
-        return _unpickle(blob, what, path)
+        return _settle(_unpickle(blob, what, path), device)
 
 
 def _validate_bucket(bnode: Any, i: int, path: str, device: DeviceLike) -> Metric:

@@ -153,6 +153,13 @@ def _host_value(v: Any) -> Any:
     return v
 
 
+def _eager_update(metric: Metric, args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> None:
+    """One submission applied through the metric's own update: host rows (numpy arrays, as a served or
+    replayed submission carries them) become tensors on the metric's device first."""
+    metric.update(*(_as_operand(a, metric.device) for a in args),
+                  **{k: _as_operand(v, metric.device) for k, v in kwargs.items()})
+
+
 class _Session:
     """One live stream: its metric instance plus where its state lives."""
 
@@ -569,7 +576,7 @@ class StreamEngine:
         pending, sess.queue = sess.queue, []
         for i, (seq, args, kwargs) in enumerate(pending):
             try:
-                sess.metric.update(*args, **kwargs)
+                _eager_update(sess.metric, args, kwargs)
             except BaseException:
                 # the metric rolled itself back (transactional update); the failed submission is consumed,
                 # the rest stay queued for the next flush
@@ -834,7 +841,7 @@ class StreamEngine:
                         sess.health = "loose"
                         done.add(i)
                         dead_slots.add(slot)
-                        sess.metric.update(*args, **kwargs)
+                        _eager_update(sess.metric, args, kwargs)
                         self._mark_applied(seq)
                         _observe.note_fleet_loose_update(type(sess.metric).__name__)
                         self._meter_loose(sess)
@@ -907,7 +914,7 @@ class StreamEngine:
             if j in done or qslot != slot:
                 continue
             done.add(j)
-            sess.metric.update(*args, **kwargs)
+            _eager_update(sess.metric, args, kwargs)
             self._mark_applied(seq)
             _observe.note_fleet_loose_update(type(sess.metric).__name__)
             self._meter_loose(sess)
@@ -918,7 +925,8 @@ class StreamEngine:
         """Scatter one wave's batches into (capacity, ...) staging tensors on the bucket's device.
 
         Submissions already on that device are stacked there (no host round trip); host rows (numpy
-        arrays, CPU tensors for a card bucket) are stacked on the host and copied over once per column.
+        arrays, CPU tensors for a card bucket) are stacked on the host and copied over once per column, from
+        pinned memory to a card so that the copy does not wait for it (a served fleet's rows are numpy).
         """
         capacity = bucket.capacity
         device = bucket.template.device
@@ -938,7 +946,8 @@ class StreamEngine:
                     col = torch.as_tensor(
                         np.stack([r.detach().cpu().numpy() if isinstance(r, torch.Tensor) else np.asarray(r)
                                   for r in rows], axis=0)
-                    ).to(device)
+                    )
+                    col = col.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else col.to(device)
                 buf = torch.zeros((capacity,) + tuple(col.shape[1:]), dtype=col.dtype, device=device)
                 return buf.index_copy_(0, index, col)
 

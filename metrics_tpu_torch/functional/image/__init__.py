@@ -19,6 +19,10 @@ from metrics_tpu_torch.functional.image.metrics import (
     universal_image_quality_index,
     visual_information_fidelity,
 )
+from metrics_tpu_torch.functional.image.perceptual import (
+    learned_perceptual_image_patch_similarity,
+    perceptual_path_length,
+)
 from metrics_tpu_torch.functional.image.psnr import peak_signal_noise_ratio
 from metrics_tpu_torch.functional.image.ssim import (
     multiscale_structural_similarity_index_measure,
@@ -27,6 +31,8 @@ from metrics_tpu_torch.functional.image.ssim import (
 
 __all__ = [
     "error_relative_global_dimensionless_synthesis",
+    "learned_perceptual_image_patch_similarity",
+    "perceptual_path_length",
     "multiscale_structural_similarity_index_measure",
     "peak_signal_noise_ratio",
     "peak_signal_noise_ratio_with_blocked_effect",

@@ -4,6 +4,13 @@ The names are those of ``metrics_tpu.image.__all__`` that are ported, in its
 order.
 """
 
+from metrics_tpu_torch.image.generative import (
+    FrechetInceptionDistance,
+    InceptionScore,
+    KernelInceptionDistance,
+    MemorizationInformedFrechetInceptionDistance,
+)
+from metrics_tpu_torch.image.lpips import LearnedPerceptualImagePatchSimilarity, PerceptualPathLength
 from metrics_tpu_torch.image.metrics import (
     ErrorRelativeGlobalDimensionlessSynthesis,
     MultiScaleStructuralSimilarityIndexMeasure,
@@ -23,6 +30,12 @@ from metrics_tpu_torch.image.metrics import (
 )
 
 __all__ = [
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
+    "MemorizationInformedFrechetInceptionDistance",
+    "PerceptualPathLength",
     "ErrorRelativeGlobalDimensionlessSynthesis",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",

@@ -854,9 +854,9 @@ class Metric(ABC):
         return self
 
     def to_device(self, device: Union[str, torch.device]) -> "Metric":
-        """Move every state, list states included, and every default to ``device``, which becomes the metric's:
-        later updates and ``compute`` run there. List states that ``compute_on_cpu`` keeps on the CPU stay there.
-        Returns ``self``."""
+        """Move every state, list states included, every default and every tensor of the configuration (a curve's
+        thresholds) to ``device``, which becomes the metric's: later updates and ``compute`` run there. List
+        states that ``compute_on_cpu`` keeps on the CPU stay there. Returns ``self``."""
         device = resolve_device(device)
         for key in ("_state", "_defaults"):
             store = self.__dict__[key]
@@ -864,6 +864,9 @@ class Metric(ABC):
                 if key == "_state" and isinstance(v, list) and self.compute_on_cpu:
                     continue
                 store[k] = _map_tensors(v, lambda t: t.to(device))
+        for k, v in list(self.__dict__.items()):
+            if isinstance(v, torch.Tensor):
+                self.__dict__[k] = v.to(device)
         self.device = device
         self._computed = None
         return self

@@ -1422,3 +1422,95 @@ def test_small_fleet_on_the_card_equals_the_same_fleet_on_the_cpu(cuda_device):
             else:
                 assert torch.equal(a, b), (sid, k)
         assert torch.allclose(values_gpu[sid].double(), values_cpu[sid].double(), rtol=1e-5, atol=1e-6)
+
+
+def _served_fleet(device):
+    """Sixteen sessions (MulticlassAccuracy and BinaryAUROC) served over a socketpair into an engine on
+    ``device``, three numpy waves, one tick each; the producer's metrics are on the CPU, rebuilt on ``device``."""
+    import socket
+
+    from metrics_tpu_torch.engine import StreamEngine
+    from metrics_tpu_torch.serve.protocol import Producer
+    from metrics_tpu_torch.serve.server import MetricsServer
+
+    engine = StreamEngine(initial_capacity=16)
+    server = MetricsServer(engine, "card-key", host=None, device=device)
+    srv, cli = socket.socketpair()
+    server.adopt(srv)
+    prod = Producer(None, "card-key", name="p", sock=cli, drive=lambda: server.poll(0.0))
+    rng = np.random.default_rng(9)
+    for i in range(8):
+        prod.add_session(tc.MulticlassAccuracy(num_classes=4, validate_args=False, device="cpu"), session_id=f"a{i}")
+        prod.add_session(tc.BinaryAUROC(thresholds=16, device="cpu"), session_id=f"b{i}")
+    for _ in range(3):
+        for i in range(8):
+            prod.submit(f"a{i}", rng.integers(0, 4, 16), rng.integers(0, 4, 16))
+            prod.submit(f"b{i}", rng.random(16, dtype=np.float32), rng.integers(0, 2, 16))
+        prod.flush(30.0)
+        assert server.tick() == 1
+    assert prod.errors == []
+    server.close()
+    return engine
+
+
+@pytest.mark.cuda
+def test_a_small_served_fleet_on_the_card_equals_the_same_fleet_served_on_the_cpu(cuda_device):
+    before = binned_counts.launches
+    gpu = _served_fleet(cuda_device)
+    torch.cuda.synchronize()
+    assert binned_counts.launches - before == 3  # the AUROC bucket: one launch a tick
+    cpu = _served_fleet("cpu")
+    for sid in cpu.session_ids():
+        sg, sc = gpu._sessions[sid], cpu._sessions[sid]
+        assert sg.metric.device.type == "cuda"
+        for k in sc.bucket.stacked:
+            assert torch.equal(sg.bucket.stacked[k][sg.slot].cpu(), sc.bucket.stacked[k][sc.slot]), (sid, k)
+
+
+# the Inception taps on the card and on the CPU, both in float32 with TF32 off: as tests/test_torch_models.py
+# holds the port against the JAX package (atol 1e-5 of each tap's largest value, rtol 1e-4)
+INCEPTION_ATOL_OF_SCALE, INCEPTION_RTOL = 1e-5, 1e-4
+
+
+@pytest.mark.cuda
+def test_inception_taps_on_the_card_with_tf32_off_equal_the_cpu(cuda_device):
+    from metrics_tpu_torch.models import InceptionV3FID, init_inception_params
+
+    taps = (64, 192, 768, 2048, "logits_unbiased", "logits")
+    state = init_inception_params(5, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(10).integers(0, 256, (4, 3, 64, 80)).astype(np.float32))
+    outs = {}
+    for device in (cuda_device, torch.device("cpu")):
+        model = InceptionV3FID()
+        model.load_state_dict(state)
+        model.to(device).eval()
+        from metrics_tpu_torch.models._backbone import exact_fp32
+
+        flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        with torch.inference_mode(), exact_fp32():
+            outs[device.type] = {k: v.cpu() for k, v in model(x.to(device), features=taps).items()}
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == flags
+    for tap in taps:
+        want, got = outs["cpu"][tap], outs["cuda"][tap]
+        scale = float(want.abs().max())
+        assert torch.allclose(got, want, rtol=INCEPTION_RTOL, atol=INCEPTION_ATOL_OF_SCALE * scale), tap
+
+
+@pytest.mark.cuda
+def test_fid_on_the_card_equals_fid_on_the_cpu_for_the_same_features(cuda_device):
+    """The float64 sums and products on the card, FID's float64 ``eigh`` on the card: within rtol 1e-5 of the
+    CPU's, as the CPU tests hold the port against the JAX package."""
+    from metrics_tpu_torch.image import FrechetInceptionDistance
+
+    rng = np.random.default_rng(11)
+    real = rng.standard_normal((600, 64)).astype(np.float32)
+    fake = (rng.standard_normal((600, 64)) * 1.2 + 0.3).astype(np.float32)
+    values = {}
+    for device in (cuda_device, torch.device("cpu")):
+        fid = FrechetInceptionDistance(device=device)
+        for r, f in zip(np.array_split(real, 3), np.array_split(fake, 3)):
+            fid.update(torch.from_numpy(r).to(device), real=True)
+            fid.update(torch.from_numpy(f).to(device), real=False)
+        assert fid.real_features_cov_sum.device.type == device.type
+        values[device.type] = float(fid.compute())
+    assert values["cuda"] == pytest.approx(values["cpu"], rel=1e-5)

@@ -185,8 +185,8 @@ def test_top_level_imports_of_the_ported_classes():
 
 
 def test_the_regression_domain_and_the_slice_s_wrappers_are_whole():
-    """Every class and function of the JAX package's regression domain, and every wrapper but the vmapped replica
-    engine and the feature-sharing pair, is ported."""
+    """Every class and function of the JAX package's regression domain, and every wrapper, is ported: the
+    wrappers' ``__all__`` is the JAX package's, in its order."""
     import metrics_tpu.functional.regression as jf
     import metrics_tpu.regression as jr
     import metrics_tpu.wrappers as jw
@@ -196,12 +196,23 @@ def test_the_regression_domain_and_the_slice_s_wrappers_are_whole():
 
     assert tr.__all__ == jr.__all__ and len(tr.__all__) == 20
     assert tf.__all__ == jf.__all__ and len(tf.__all__) == 20
-    assert sorted(set(jw.__all__) - set(tw.__all__)) == ["FeatureShare", "NetworkCache", "ReplicatedWrapper"]
+    assert sorted(set(jw.__all__) - set(tw.__all__)) == []
+    assert tw.__all__ == jw.__all__
+
+
+def test_the_replicated_wrapper_is_exported():
+    """``ReplicatedWrapper`` is exported by ``wrappers`` as the JAX package exports it, as the class the
+    port's replica engine defines."""
+    import metrics_tpu_torch.wrappers as tw
+    import metrics_tpu_torch.wrappers.replicated as replicated
+
+    assert tw.ReplicatedWrapper is replicated.ReplicatedWrapper
+    assert "ReplicatedWrapper" in tw.__all__
 
 
 def test_image_beyond_the_models_and_segmentation_are_whole():
-    """Every image class and function but the model-based ones (FID, KID, IS, MiFID, LPIPS, PPL), and the whole
-    segmentation domain, are ported; ``generalized_dice_score`` is also in the classification namespace."""
+    """Every image class and function, the model-based ones (FID, KID, IS, MiFID, LPIPS, PPL) included, and the
+    whole segmentation domain, are ported; ``generalized_dice_score`` is also in the classification namespace."""
     import metrics_tpu.functional.classification as jfc
     import metrics_tpu.functional.image as jfi
     import metrics_tpu.functional.segmentation as jfs
@@ -213,14 +224,15 @@ def test_image_beyond_the_models_and_segmentation_are_whole():
     import metrics_tpu_torch.image as ti
     import metrics_tpu_torch.segmentation as ts
 
-    assert sorted(set(ji.__all__) - set(ti.__all__)) == [
-        "FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
-        "LearnedPerceptualImagePatchSimilarity", "MemorizationInformedFrechetInceptionDistance",
-        "PerceptualPathLength",
-    ]
-    assert sorted(set(jfi.__all__) - set(tfi.__all__)) == [
-        "learned_perceptual_image_patch_similarity", "perceptual_path_length",
-    ]
+    assert sorted(set(ji.__all__) - set(ti.__all__)) == []
+    assert sorted(set(jfi.__all__) - set(tfi.__all__)) == []
+    assert ti.__all__ == ji.__all__ and tfi.__all__ == jfi.__all__
+    for name in ("FrechetInceptionDistance", "InceptionScore", "KernelInceptionDistance",
+                 "LearnedPerceptualImagePatchSimilarity", "MemorizationInformedFrechetInceptionDistance",
+                 "PerceptualPathLength"):
+        assert getattr(ti, name).__module__.startswith("metrics_tpu_torch.image.")
+    for name in ("learned_perceptual_image_patch_similarity", "perceptual_path_length"):
+        assert getattr(tfi, name).__module__ == "metrics_tpu_torch.functional.image.perceptual"
     assert ts.__all__ == js.__all__ and tfs.__all__ == jfs.__all__
     assert tfc.__all__ == jfc.__all__
     assert tfc.generalized_dice_score is tfs.generalized_dice_score
@@ -280,14 +292,13 @@ def test_the_streaming_slice_and_utils_are_whole():
 
 def test_observe_and_resilience_are_whole():
     """``observe`` and ``resilience`` export the JAX package's 30 and 12 names, in its order, and join the top
-    level, which then lacks only ``aot``, ``models`` and ``multimodal``."""
+    level, which then lacks only ``aot`` and ``multimodal``."""
     for domain, count in (("observe", 30), ("resilience", 12)):
         ref = importlib.import_module(f"metrics_tpu.{domain}")
         port = importlib.import_module(f"metrics_tpu_torch.{domain}")
         assert port.__all__ == ref.__all__ and len(port.__all__) == count, domain
         assert getattr(metrics_tpu_torch, domain) is port and domain in metrics_tpu_torch.__all__
-    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == [
-        "aot", "models", "multimodal"]
+    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == ["aot", "multimodal"]
     from metrics_tpu_torch.observe import explain, latency, metering, recorder, tracing, watchdog  # noqa: F401
     from metrics_tpu_torch.resilience import checkpoint, guards  # noqa: F401
     from metrics_tpu_torch.utils import io  # noqa: F401
@@ -318,3 +329,31 @@ def test_the_engine_is_whole_and_joins_the_top_level():
         ref_names = set(importlib.import_module(f"metrics_tpu.engine.{mod}").__all__)
         assert set(importlib.import_module(f"metrics_tpu_torch.engine.{mod}").__all__) == ref_names | extra.get(
             mod, set()), mod
+
+
+def test_serve_exports_the_jax_package_s_nineteen_names():
+    """``serve`` exports the JAX package's 19 names in its order; like the JAX package's, it is not a name of the
+    top level."""
+    import metrics_tpu.serve as js
+    import metrics_tpu_torch.serve as ts
+
+    assert ts.__all__ == js.__all__ and len(ts.__all__) == 19
+    for sub in ("protocol", "admission", "autonomic", "server"):
+        ref = importlib.import_module(f"metrics_tpu.serve.{sub}")
+        port = importlib.import_module(f"metrics_tpu_torch.serve.{sub}")
+        assert port.__all__ == ref.__all__, sub
+    assert "serve" not in metrics_tpu.__all__ and "serve" not in metrics_tpu_torch.__all__
+
+
+def test_models_exports_the_jax_package_s_thirteen_names():
+    """``models`` exports the JAX package's 13 names in its order and joins the top level; ``functional`` then
+    lacks only ``multimodal``."""
+    import metrics_tpu.functional as jf
+    import metrics_tpu.models as jm
+    import metrics_tpu_torch.models as tm
+
+    assert tm.__all__ == jm.__all__ and len(tm.__all__) == 13
+    assert metrics_tpu_torch.models is tm and "models" in metrics_tpu_torch.__all__
+    assert [n for n in jf.__all__ if n not in metrics_tpu_torch.functional.__all__] == ["multimodal"]
+    for sub in ("hub", "inception_v3", "lpips_nets", "simple_cnn"):
+        importlib.import_module(f"metrics_tpu_torch.models.{sub}")
