@@ -146,11 +146,27 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    the JAX package's overload soak (double, demote and shed all fire;
    survivors bit-equal to never-shed oracles), 8 shards behind the server
    with a resize on imbalance, refused torch-global frames and JAX-package
-   metric blobs, and ``run_serve_smoke()``; last ``model_based``: FID, KID,
+   metric blobs, and ``run_serve_smoke()``; then ``model_based``: FID, KID,
    IS and MiFID in one ``FeatureShare`` over the FID InceptionV3 at CIFAR-10's
    size (20,000 images resized to 299, one forward a batch), LPIPS through
    VGG16, AlexNet and SqueezeNet over 10,000 BAPPS-sized pairs, and PPL over
-   a small generator, each against the port's CPU run of a subset;
+   a small generator, each against the port's CPU run of a subset; then
+   ``model_based_text_multimodal``, launches counted apart, through synthetic
+   encoders computed on the card (no weights exist): BERTScore over WMT14
+   newstest2014's 3,003 pairs at roberta-large's 1,024-d token embeddings
+   (reference token counts drawn over 10-60), InfoLM with each of its nine
+   measures over the same pairs' distributions on bert-base-uncased's 30,522
+   words, CLIPScore and CLIP-IQA with all 16 prompts over MS-COCO val2017's
+   5,000 images (3 x 224 x 224) with one caption each at ViT-L/14's 768-d
+   projection, each against the port's CPU run of a stated subset (compute ms,
+   peak MB), then the default paths, ``load_clip`` and ``load_text_encoder``
+   over random checkpoints of ViT-L/14's and roberta-large's published widths
+   saved with hand-written vocabularies (images/s, pairs/s); last
+   ``observe_costs``, launches counted apart: the telemetry overhead budget with
+   its step loop on the card, every ``PROFILE_CASES`` class profiled on the
+   card with ``flops`` and ``bytes_accessed`` equal to the committed CPU
+   baseline, each case's peak memory, and the binned-counts and window launches
+   of the thresholded AUROC/AP, SSIM and UQI cases;
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -622,6 +638,9 @@ def main_path(seed: int, wrappers: dict) -> dict:
     APART["fleet_engine"] = section("fleet_engine", fleet_engine, seed, wrappers, imagenet_gpu)
     APART["serve"] = section("serve", serve_section, seed, wrappers)
     APART["model_based"] = section("model_based", model_based_section, seed, wrappers)
+    APART["model_based_text_multimodal"] = section("model_based_text_multimodal", model_based_text_multimodal_section,
+                                                   seed, wrappers)
+    APART["observe_costs"] = section("observe_costs", observe_costs_section, seed, wrappers)
     return out
 
 
@@ -6306,6 +6325,423 @@ def model_based_section(seed: int, wrappers: dict) -> dict:
     res["launches"] = {k: w.launches for k, w in wrappers.items()}
     res["seconds"] = time.perf_counter() - t0
     log(f"model_based: {json.dumps({k: res[k] for k in ('ppl', 'launches', 'seconds')})}")
+    return res
+
+
+# ----------------------------------------------------------------------------- model-based text and multimodal
+# The encoders below are synthetic: the repository holds no weights. Token embeddings, per-token distributions
+# and image and text embeddings come from seeded torch.Generator draws and a fixed random projection of the
+# inputs (a text's words hashed to ids; an image's pixels), computed on the card.
+MB_PAIRS, MB_TOKENS = 3_003, (10, 60)  # WMT14 newstest2014 en-de; reference token counts drawn over 10-60
+MB_DIM, MB_VOCAB = 1_024, 32_768  # roberta-large's token embeddings; hashed word ids
+MLM_VOCAB, MLM_DIM = 30_522, 256  # bert-base-uncased's vocabulary; the distributions' hidden width
+COCO_IMAGES, CLIP_BATCH, CLIP_DIM = 5_000, 500, 768  # MS-COCO val2017, one caption an image; ViT-L/14's projection
+CLIP_IMAGE = (3, 224, 224)
+MB_CPU_PAIRS, INFOLM_CPU_PAIRS, CLIP_CPU_IMAGES = 64, 16, 100  # the stated subsets the CPU run repeats
+MB_RTOL = 1e-5
+HF_CLIP_IMAGES, HF_TEXT_PAIRS = 256, 512  # what the default (Hugging Face) paths score, for their throughput
+HF_CPU_ITEMS, HF_FEATURE_RTOL = 8, 1e-5  # images, captions and sentences whose features the CPU run repeats;
+# the card's features within HF_FEATURE_RTOL of the CPU's largest magnitude (float32 forwards under exact_fp32)
+HF_CLIP = dict(  # ViT-L/14's published widths (openai/clip-vit-large-patch14)
+    vision_config=dict(hidden_size=1024, intermediate_size=4096, num_hidden_layers=24, num_attention_heads=16,
+                       patch_size=14, image_size=224, projection_dim=768),
+    text_config=dict(hidden_size=768, intermediate_size=3072, num_hidden_layers=12, num_attention_heads=12,
+                     vocab_size=49_408, max_position_embeddings=77, projection_dim=768),
+    projection_dim=768)
+HF_ROBERTA = dict(vocab_size=50_265, hidden_size=1_024, num_hidden_layers=24, num_attention_heads=16,
+                  intermediate_size=4_096, max_position_embeddings=514, type_vocab_size=1, pad_token_id=1,
+                  bos_token_id=0, eos_token_id=2)  # roberta-large's published widths
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    return x / x.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+
+def _word_ids(texts, vocab: int) -> list:
+    import zlib
+
+    return [[zlib.crc32(w.encode()) % vocab for w in t.split()] for t in texts]
+
+
+class _SyntheticText:
+    """Per-token rows of hashed word ids: ``E[ids] @ P`` (an embedding), or a softmax over ``V`` of
+    ``E[ids] @ W`` (a distribution), computed on the card for all the texts of a call at once and handed back
+    as one view per text; a call's result is kept for the same texts (one forward per text list)."""
+
+    def __init__(self, g: torch.Generator, vocab: int, dim: int, out: int, softmax: bool):
+        self.table = torch.randn(vocab, dim, generator=g, device=g.device)
+        self.proj = torch.randn(dim, out, generator=g, device=g.device) / math.sqrt(dim)
+        self.vocab, self.softmax, self.memo = vocab, softmax, {}
+
+    def __call__(self, texts) -> list:
+        key = tuple(texts)
+        if key not in self.memo:
+            ids = _word_ids(texts, self.vocab)
+            flat = torch.tensor([i for row in ids for i in row], dtype=torch.int64).to(self.table.device)
+            rows = self.table[flat] @ self.proj
+            if self.softmax:
+                rows.sub_(rows.amax(-1, keepdim=True)).exp_()
+                rows.div_(rows.sum(-1, keepdim=True))
+            self.memo[key] = list(torch.split(rows, [len(r) for r in ids]))
+        return self.memo[key]
+
+    def on_cpu(self, texts) -> list:
+        """The same rows, copied to the host: the CPU run scores the card's embeddings."""
+        return [r.cpu() for r in self(texts)]
+
+
+def _mb_pairs(rng: np.random.Generator, n: int):
+    vocab = _vocabulary(rng, 5_000)
+    refs, hyps = [], []
+    for k in rng.integers(MB_TOKENS[0], MB_TOKENS[1] + 1, n):
+        ref = _draw(rng, vocab, int(k))
+        refs.append(" ".join(ref))
+        hyps.append(" ".join(_corrupt_tokens(rng, ref, vocab, 0.2, 0.03, 0.03) or ref[:1]))
+    return hyps, refs, vocab
+
+
+def _mb_compute(name, make, pairs, res):
+    """Update with every pair on the card, time a first ``compute()`` and its peak memory."""
+    m = make("cuda")
+    m.update(*pairs)
+    base = _reset_peak()
+    t0 = time.perf_counter()
+    value = m.compute()
+    torch.cuda.synchronize()
+    res[name] = {"compute_ms": 1000 * (time.perf_counter() - t0), "peak_mb": _peak_mb(base)}
+    return m, value
+
+
+def _finite(name, value):
+    vals = list(value.values()) if isinstance(value, dict) else [value]
+    if not all(bool(torch.isfinite(torch.as_tensor(v)).all()) for v in vals):
+        fail(f"{name}: non-finite result on the card")
+
+
+def mb_bert_infolm(seed: int) -> dict:
+    """BERTScore and InfoLM (each measure) over WMT14's pairs, each against the CPU run of a subset."""
+    from metrics_tpu_torch.text import BERTScore, InfoLM
+    from metrics_tpu_torch.text.model_based import _CHUNK_BYTES
+
+    res = {"pairs": MB_PAIRS, "float64_chunk_mb": _CHUNK_BYTES / 2**20}
+    rng = np.random.default_rng(seed + 41)
+    hyps, refs, _ = _mb_pairs(rng, MB_PAIRS)
+    g = torch.Generator(device="cuda").manual_seed(seed + 41)
+    enc = _SyntheticText(g, MB_VOCAB, MB_DIM, MB_DIM, softmax=False)
+    dist = _SyntheticText(g, MB_VOCAB, MLM_DIM, MLM_VOCAB, softmax=True)
+    res["tokens"] = int(sum(len(t.split()) for t in hyps + refs))
+    for fn in (enc, dist):  # the encoders' forwards, out of the computes' times
+        fn(hyps)
+        fn(refs)
+
+    _, value = _mb_compute("bert_score", lambda d: BERTScore(encoder=enc, device=d), (hyps, refs), res)
+    _finite("BERTScore", value)
+    res["bert_score"]["f1"] = float(value["f1"])
+    sub = (hyps[:MB_CPU_PAIRS], refs[:MB_CPU_PAIRS])
+    card, host = BERTScore(encoder=enc, device="cuda"), BERTScore(encoder=enc.on_cpu, device="cpu")
+    card.update(*sub)
+    host.update(*sub)
+    got, want = card.compute(), host.compute()
+    res["bert_score"]["cpu_subset_max_rel"] = max(
+        _agree(f"BERTScore[{k}]", got[k], want[k], False, MB_RTOL, 0.0) / max(abs(float(want[k])), 1e-30)
+        for k in want)
+
+    sub = (hyps[:INFOLM_CPU_PAIRS], refs[:INFOLM_CPU_PAIRS])
+    for measure in InfoLM._MEASURES:
+        name = f"infolm[{measure}]"
+        make = lambda d, fn=dist: InfoLM(distribution_fn=fn, information_measure=measure, device=d)  # noqa: E731
+        _, value = _mb_compute(name, make, (hyps, refs), res)
+        _finite(name, value)
+        res[name]["value"] = float(value)
+        card, host = make("cuda"), make("cpu", dist.on_cpu)
+        card.update(*sub)
+        host.update(*sub)
+        _agree(name, card.compute_sentence_scores(), host.compute_sentence_scores(), False, MB_RTOL, 0.0)
+    dist.memo.clear()
+    enc.memo.clear()
+    return res
+
+
+def mb_clip(seed: int) -> dict:
+    """CLIPScore and CLIP-IQA (all 16 prompts) over MS-COCO's images, each against the CPU run of a subset."""
+    from metrics_tpu_torch.functional.multimodal.clip_iqa import _PROMPTS
+    from metrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+
+    res = {"images": COCO_IMAGES}
+    rng = np.random.default_rng(seed + 43)
+    vocab = _vocabulary(rng, 5_000)
+    captions = [" ".join(_draw(rng, vocab, int(k))) for k in rng.integers(8, 16, COCO_IMAGES)]
+    g = torch.Generator(device="cuda").manual_seed(seed + 43)
+    pix = int(np.prod(CLIP_IMAGE))
+    # each image is drawn from its caption's embedding through a random decoder, plus noise, and the image
+    # encoder projects back through the decoder: a pair's embeddings correlate, as a captioned photo's do
+    decoder = torch.randn(CLIP_DIM, pix, generator=g, device="cuda") / math.sqrt(CLIP_DIM)
+    txt = _SyntheticText(g, MB_VOCAB, CLIP_DIM, CLIP_DIM, softmax=False)
+
+    def image_encoder(images):
+        return (images.reshape(len(images), -1).to("cuda") - 0.5) @ decoder.T
+
+    def text_encoder(texts):
+        return torch.stack([r.sum(0) for r in txt(texts)])
+
+    def cpu(fn):
+        return lambda x: fn(x).cpu()
+
+    batches = []
+    for i in range(0, COCO_IMAGES, CLIP_BATCH):
+        caps = captions[i:i + CLIP_BATCH]
+        signal = torch.sigmoid(_unit_rows(text_encoder(caps)) @ decoder).reshape(len(caps), *CLIP_IMAGE)
+        batches.append((0.5 * signal + 0.5 * torch.rand((len(caps), *CLIP_IMAGE), generator=g, device="cuda"), caps))
+    prompts = tuple(_PROMPTS)
+    for name, make, feed in (
+            ("clip_score", lambda d, i=image_encoder, t=text_encoder: CLIPScore(
+                image_encoder=i, text_encoder=t, device=d), lambda m, b: m.update(*b)),
+            ("clip_iqa", lambda d, i=image_encoder, t=text_encoder: CLIPImageQualityAssessment(
+                prompts=prompts, image_encoder=i, text_encoder=t, device=d), lambda m, b: m.update(b[0]))):
+        m = make("cuda")
+        base = _reset_peak()
+        t0 = time.perf_counter()
+        for b in batches:
+            feed(m, b)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        value = m.compute()
+        torch.cuda.synchronize()
+        res[name] = {"update_ms": 1000 * (t1 - t0), "compute_ms": 1000 * (time.perf_counter() - t1),
+                     "peak_mb": _peak_mb(base)}
+        _finite(name, value)
+        card = make("cuda")
+        host = (CLIPScore(image_encoder=cpu(image_encoder), text_encoder=cpu(text_encoder), device="cpu")
+                if name == "clip_score" else CLIPImageQualityAssessment(
+                    prompts=prompts, image_encoder=cpu(image_encoder), text_encoder=cpu(text_encoder), device="cpu"))
+        sub = (batches[0][0][:CLIP_CPU_IMAGES], batches[0][1][:CLIP_CPU_IMAGES])
+        feed(card, sub)
+        feed(host, (sub[0].cpu(), sub[1]))
+        got, want = card.compute(), host.compute()
+        if isinstance(want, dict):
+            if list(got) != list(want) or len(want) != 16:
+                fail(f"{name}: prompts {list(got)} on the card, {list(want)} on the CPU")
+            for k in want:
+                _agree(f"{name}[{k}]", got[k], want[k], False, MB_RTOL, 1e-7)
+            res[name]["mean_quality"] = float(value["quality"].mean())
+        else:
+            _agree(name, got, want, False, MB_RTOL, 0.0)
+            res[name]["value"] = float(value)
+    txt.memo.clear()
+    return res
+
+
+def _bpe_files(directory: str, words) -> None:
+    """A hand-written CLIP BPE vocabulary: the special tokens, every byte-level character alone and word-final,
+    and ``words`` whole; no merges (``merges.txt`` holds only its header)."""
+    vocab = {"<|startoftext|>": 0, "<|endoftext|>": 1}
+    for w in words:
+        vocab.setdefault(w + "</w>", len(vocab))
+    for c in "abcdefghijklmnopqrstuvwxyz0123456789.,'!?":
+        vocab.setdefault(c, len(vocab))
+        vocab.setdefault(c + "</w>", len(vocab))
+    with open(os.path.join(directory, "vocab.json"), "w") as fh:
+        json.dump(vocab, fh)
+    with open(os.path.join(directory, "merges.txt"), "w") as fh:
+        fh.write("#version: 0.2\n")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>", "eos_token": "<|endoftext|>",
+                   "unk_token": "<|endoftext|>", "pad_token": "<|endoftext|>", "model_max_length": 77}, fh)
+    with open(os.path.join(directory, "preprocessor_config.json"), "w") as fh:
+        json.dump({"image_processor_type": "CLIPImageProcessor", "do_resize": True, "size": {"shortest_edge": 224},
+                   "do_center_crop": True, "crop_size": {"height": 224, "width": 224}, "do_rescale": False,
+                   "do_normalize": True, "image_mean": [0.48145466, 0.4578275, 0.40821073],
+                   "image_std": [0.26862954, 0.26130258, 0.27577711], "resample": 3, "do_convert_rgb": False}, fh)
+
+
+def _wordpiece_files(directory: str, words) -> None:
+    """A hand-written WordPiece vocabulary (``[PAD]`` at roberta's pad id 1) read by ``BertTokenizer``."""
+    with open(os.path.join(directory, "vocab.txt"), "w") as fh:
+        fh.write("\n".join(["[UNK]", "[PAD]", "[CLS]", "[SEP]", "[MASK]"] + sorted(set(words))) + "\n")
+    with open(os.path.join(directory, "tokenizer_config.json"), "w") as fh:
+        json.dump({"tokenizer_class": "BertTokenizer", "do_lower_case": True, "model_max_length": 512}, fh)
+
+
+def _features_agree(name: str, got, want) -> float:
+    """The card's encoder features (a tensor or a list of them) against the CPU's: finite, the same shapes, and
+    within ``HF_FEATURE_RTOL`` of the CPU's largest magnitude. Returns the difference over that magnitude."""
+    got = [t.cpu().double() for t in (got if isinstance(got, (list, tuple)) else [got])]
+    want = [t.cpu().double() for t in (want if isinstance(want, (list, tuple)) else [want])]
+    if [t.shape for t in got] != [t.shape for t in want]:
+        fail(f"{name}: features of shapes {[tuple(t.shape) for t in got]} on the card, "
+             f"{[tuple(t.shape) for t in want]} on the CPU")
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"{name}: non-finite features on the card")
+    scale = max(float(t.abs().max()) for t in want)
+    rel = max(float((g - w).abs().max()) for g, w in zip(got, want)) / max(scale, 1e-30)
+    if not rel <= HF_FEATURE_RTOL:
+        fail(f"{name}: the card's features differ from the CPU's by {rel} of their scale {scale}")
+    return rel
+
+
+def mb_default_paths(seed: int) -> dict:
+    """``load_clip`` and ``load_text_encoder`` (through ``CLIPScore`` and ``BERTScore`` with no encoder) over
+    random checkpoints of the published widths, saved to a temporary directory with hand-written vocabularies.
+    The encoders' features on the card are held against the same checkpoints' on the CPU for a few inputs."""
+    import shutil
+    import tempfile
+
+    import transformers
+
+    from metrics_tpu_torch.models import load_clip, load_text_encoder
+    from metrics_tpu_torch.multimodal import CLIPScore
+    from metrics_tpu_torch.text import BERTScore
+
+    res = {"transformers": transformers.__version__}
+    rng = np.random.default_rng(seed + 47)
+    root = tempfile.mkdtemp(prefix="hf_random_")
+    try:
+        vocab = _vocabulary(rng, 2_000)
+        captions = [" ".join(_draw(rng, vocab, int(k))) for k in rng.integers(5, 12, HF_CLIP_IMAGES)]
+        clip_dir = os.path.join(root, "clip-vit-large-patch14")
+        os.makedirs(clip_dir)
+        t0 = time.perf_counter()
+        torch.manual_seed(seed + 47)
+        with torch.device("cuda"):
+            model = transformers.CLIPModel(transformers.CLIPConfig(**HF_CLIP))
+        model.save_pretrained(clip_dir)
+        del model
+        _bpe_files(clip_dir, vocab[0])
+        res["clip_setup_s"] = time.perf_counter() - t0
+        images = torch.rand((HF_CLIP_IMAGES, *CLIP_IMAGE), generator=torch.Generator().manual_seed(seed + 47))
+        t0 = time.perf_counter()
+        metric = CLIPScore(model_name_or_path=clip_dir, device="cuda")
+        t1 = time.perf_counter()
+        for i in range(0, HF_CLIP_IMAGES, 64):
+            metric.update(images[i:i + 64], captions[i:i + 64])
+        value = metric.compute()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _finite("CLIPScore[load_clip]", value)
+        res["clip"] = {"load_s": t1 - t0, "images": HF_CLIP_IMAGES, "images_per_s": HF_CLIP_IMAGES / (t2 - t1),
+                       "value": float(value)}
+        # the score is a clamped mean, 0 for a random model: hold the unclamped features at full width instead
+        host_image, host_text = load_clip(clip_dir, device="cpu")
+        few_images, few_captions = images[:HF_CPU_ITEMS], captions[:HF_CPU_ITEMS]
+        card_feats = (metric.image_encoder(few_images), metric.text_encoder(few_captions))
+        if [f.shape[-1] for f in card_feats] != [HF_CLIP["projection_dim"]] * 2:
+            fail(f"load_clip's encoders give widths {[f.shape[-1] for f in card_feats]}, "
+                 f"not the projection's {HF_CLIP['projection_dim']}")
+        res["clip"]["image_features_rel_err"] = _features_agree(
+            "load_clip image features", card_feats[0], host_image(few_images))
+        res["clip"]["text_features_rel_err"] = _features_agree(
+            "load_clip text features", card_feats[1], host_text(few_captions))
+        del metric, host_image, host_text
+        shutil.rmtree(clip_dir, ignore_errors=True)
+
+        hyps, refs, words = _mb_pairs(rng, HF_TEXT_PAIRS)
+        text_dir = os.path.join(root, "roberta-large")
+        os.makedirs(text_dir)
+        t0 = time.perf_counter()
+        with torch.device("cuda"):
+            model = transformers.RobertaModel(transformers.RobertaConfig(**HF_ROBERTA), add_pooling_layer=False)
+        model.save_pretrained(text_dir)
+        del model
+        _wordpiece_files(text_dir, words[0])
+        res["roberta_setup_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metric = BERTScore(model_name_or_path=text_dir, device="cuda")
+        t1 = time.perf_counter()
+        metric.update(hyps, refs)
+        value = metric.compute()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        _finite("BERTScore[load_text_encoder]", value)
+        res["roberta"] = {"load_s": t1 - t0, "pairs": HF_TEXT_PAIRS, "pairs_per_s": HF_TEXT_PAIRS / (t2 - t1),
+                          "f1": float(value["f1"])}
+        res["roberta"]["token_features_rel_err"] = _features_agree(
+            "load_text_encoder token features", metric.encoder(hyps[:HF_CPU_ITEMS]),
+            load_text_encoder(text_dir, device="cpu")(hyps[:HF_CPU_ITEMS]))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return res
+
+
+def model_based_text_multimodal_section(seed: int, wrappers: dict) -> dict:
+    """BERTScore, InfoLM, CLIPScore and CLIP-IQA on the card through synthetic injected encoders, then the
+    default Hugging Face paths over random checkpoints; launches counted apart (none is expected)."""
+    res = {}
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+    res["wmt14"] = mb_bert_infolm(seed)
+    log(f"model_based_text_multimodal wmt14: {json.dumps(res['wmt14'])}")
+    res["coco"] = mb_clip(seed)
+    log(f"model_based_text_multimodal coco: {json.dumps(res['coco'])}")
+    res["default_paths"] = mb_default_paths(seed)
+    log(f"model_based_text_multimodal default paths: {json.dumps(res['default_paths'])}")
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    res["seconds"] = time.perf_counter() - t0
+    log(f"model_based_text_multimodal: {json.dumps({k: res[k] for k in ('launches', 'seconds')})}")
+    return res
+
+
+# ----------------------------------------------------------------------------- observe: overhead, costs
+COST_KERNEL_CASES = {"BinaryAUROC": "binned_counts", "BinaryAveragePrecision": "binned_counts",
+                     "MulticlassAUROC": "binned_counts_labels", "StructuralSimilarityIndexMeasure": "ssim_window",
+                     "UniversalImageQualityIndex": "ssim_window"}
+
+
+def observe_costs_section(seed: int, wrappers: dict) -> dict:
+    """The telemetry overhead budget with its step loop on the card, every ``PROFILE_CASES`` entry profiled on
+    the card against the committed (CPU-written) baseline, and the kernels each thresholded-curve and window
+    case's update launches; launches counted apart."""
+    from metrics_tpu_torch.observe import costs, overhead, profile
+
+    res = {}
+    t0 = time.perf_counter()
+    report = {}
+    if overhead.run_telemetry_check(".", report=report, device="cuda") != 0:
+        fail(f"telemetry overhead over {overhead.MAX_OVERHEAD_PCT} %: {json.dumps(report)}")
+    res["overhead_pct"] = {k: report[k]["overhead_pct"] for k in report}
+    res["step_us"] = report["disabled_mode"]["step_us"]
+
+    for w in wrappers.values():
+        w.launches = 0
+    results = costs.collect_cost_report(device="cuda")
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    baseline = profile.load_cost_baseline(profile._DEFAULT_BASELINE)
+    ok = {r.case.name for r in results if r.ok}
+    if ok != set(baseline):
+        fail(f"cases profiled on the card {sorted(ok ^ set(baseline))} differ from the CPU baseline's")
+    for r in results:
+        if r.ok:
+            for key in ("flops", "bytes_accessed", "shareable", "donation_eligible", "compile_count"):
+                if r.cost[key] != baseline[r.case.name][key]:
+                    fail(f"{r.case.name}: {key} {r.cost[key]} on the card, {baseline[r.case.name][key]} on the CPU")
+            if "peak_memory_bytes" not in r.cost:
+                fail(f"{r.case.name}: no peak memory on the card")
+    regressions, stale, new = profile.diff_cost_baseline(results, baseline)
+    if regressions or stale or new:
+        fail(f"perf ratchet on the card: {regressions + stale + new}")
+    res["profiled"] = f"{len(ok)}/{len(results)}"
+    res["peak_memory_bytes"] = {r.case.name: r.cost.get("peak_memory_bytes") for r in results if r.ok}
+
+    by = {c.name: c for c in costs.PROFILE_CASES}
+    res["kernel_launches"] = {}
+    for name, kernel in COST_KERNEL_CASES.items():
+        m = by[name].ctor(device="cuda")
+        batch = costs.case_batch(by[name], "cuda")
+        for w in wrappers.values():
+            w.launches = 0
+        m.update(*batch)
+        if m._has_list_state():  # UQI keeps its inputs and windows them at compute
+            m.compute()
+        torch.cuda.synchronize()
+        got = {k: w.launches for k, w in wrappers.items() if w.launches}
+        for k, v in got.items():
+            res["launches"][k] += v
+        if got.get(kernel, 0) < 1:
+            fail(f"the {name} cost case's update launched {got}, expected {kernel}")
+        res["kernel_launches"][name] = got
+    res["seconds"] = time.perf_counter() - t0
+    log(f"observe_costs: {json.dumps(res)}")
     return res
 
 

@@ -30,8 +30,6 @@ to run it on the CPU.
 
 from __future__ import annotations
 
-import json
-import os
 import time
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -42,7 +40,7 @@ from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
 from metrics_tpu_torch.engine.stream import StreamEngine
 from metrics_tpu_torch.metric import resolve_device
 from metrics_tpu_torch.observe import recorder as rec_mod
-from metrics_tpu_torch.utils.io import atomic_write_chunks
+from metrics_tpu_torch.observe._baseline import load_baseline_section, write_baseline_section
 
 __all__ = [
     "diff_fleet_baseline",
@@ -196,34 +194,19 @@ def run_fleet_smoke(
 
 
 # ------------------------------------------------------------------ baseline IO
-# The file format is the JAX package's (``analysis/engine.py``): one JSON object, a top-level "comment" and
-# one object per section; a write rewrites its own section and keeps every sibling.
+# The file format is the JAX package's (``analysis/engine.py``; here ``observe/_baseline.py``): one JSON object,
+# a top-level "comment" and one object per section; a write rewrites its own section and keeps every sibling.
 def load_fleet_baseline(path: str) -> Dict[str, Any]:
     """The ``fleet`` section of the baseline file at ``path`` ({} when the file or section is missing)."""
-    if not os.path.exists(path):
-        return {}
-    with open(path, encoding="utf-8") as fh:
-        value = json.load(fh).get("fleet", {})
-    return dict(value) if isinstance(value, dict) else {}
+    return load_baseline_section(path, "fleet")
 
 
 def write_fleet_baseline(path: str, observed: Dict[str, Any]) -> Dict[str, Any]:
     """Pin ``observed``'s ratcheted numbers as the ``fleet`` section of the baseline file at ``path``."""
     pinned = {k: observed[k] for k in ("streams", "buckets", *_RATCHETED_MAX)}
-    payload: Dict[str, Any] = {
-        "comment": "fleet-engine dispatch economy ('fleet'), pinned by "
-        "metrics_tpu_torch.engine.smoke.write_fleet_baseline",
-        "fleet": pinned,
-    }
-    if os.path.exists(path):
-        try:
-            with open(path, encoding="utf-8") as fh:
-                existing = json.load(fh)
-            payload.update({k: v for k, v in existing.items() if k not in ("comment", "fleet")})
-        except (OSError, ValueError):
-            pass
-    atomic_write_chunks(path, [(json.dumps(payload, indent=2, sort_keys=True) + "\n").encode("utf-8")])
-    return pinned
+    return write_baseline_section(
+        path, "fleet", pinned,
+        "fleet-engine dispatch economy ('fleet'), pinned by metrics_tpu_torch.engine.smoke.write_fleet_baseline")
 
 
 def diff_fleet_baseline(observed: Dict[str, Any], baseline: Dict[str, Any]) -> Tuple[List[str], List[str], List[str]]:

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
@@ -79,6 +80,13 @@ def _binary_stat_scores_tensor_validation(
         _check_binary_values(preds, "preds", None)
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
+
+
+def np_vals(x: Tensor) -> list:
+    """The values of ``x`` as a host list (a validation helper, as in the JAX package)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy().tolist()
+    return np.asarray(x).tolist()
 
 
 # --------------------------------------------------------------------------- binary

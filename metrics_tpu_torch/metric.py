@@ -1097,6 +1097,9 @@ class CompositionalMetric(Metric):
     lives where its first child metric lives, unless ``device`` says otherwise.
     """
 
+    # update feeds child metrics whose states live outside this metric's own, as in the JAX package
+    __jit_ineligible__ = True
+
     def __init__(
         self,
         operator: Callable,

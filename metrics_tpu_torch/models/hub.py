@@ -30,7 +30,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from metrics_tpu_torch.models._backbone import DeviceLike
+from metrics_tpu_torch.models._backbone import DeviceLike, exact_fp32
 
 __all__ = ["load_clip", "load_feature_extractor", "load_lpips", "load_text_encoder", "resolve_weights_dir"]
 
@@ -131,6 +131,18 @@ def _local_checkpoint(model_name_or_path: str, weights_dir: Optional[str], what:
     raise _missing(model_name_or_path, what)
 
 
+def _projected(out: Any, name: str) -> torch.Tensor:
+    """The projected embeddings of ``get_image_features``/``get_text_features``: the tensor itself where
+    ``transformers`` returns one, else the output's ``name`` or ``pooler_output`` field (a model output)."""
+    if isinstance(out, torch.Tensor):
+        return out
+    for field in (name, "pooler_output"):
+        value = getattr(out, field, None)
+        if isinstance(value, torch.Tensor):
+            return value
+    raise TypeError(f"CLIP features of an unknown form: {type(out).__name__}")
+
+
 def load_clip(
     model_name_or_path: str, weights_dir: Optional[str] = None, device: DeviceLike = None
 ) -> Tuple[Callable, Callable]:
@@ -152,14 +164,14 @@ def load_clip(
     def image_encoder(images: Any) -> torch.Tensor:
         arr = [np.asarray(i.detach().cpu() if isinstance(i, torch.Tensor) else i) for i in images]
         inputs = processor(images=arr, return_tensors="pt")
-        with torch.inference_mode():
-            return model.get_image_features(pixel_values=inputs["pixel_values"].to(dev))
+        with torch.inference_mode(), exact_fp32():
+            return _projected(model.get_image_features(pixel_values=inputs["pixel_values"].to(dev)), "image_embeds")
 
     def text_encoder(texts: Any) -> torch.Tensor:
         inputs = processor(text=list(texts), return_tensors="pt", padding=True, truncation=True)
-        with torch.inference_mode():
-            return model.get_text_features(
-                input_ids=inputs["input_ids"].to(dev), attention_mask=inputs["attention_mask"].to(dev))
+        with torch.inference_mode(), exact_fp32():
+            return _projected(model.get_text_features(
+                input_ids=inputs["input_ids"].to(dev), attention_mask=inputs["attention_mask"].to(dev)), "text_embeds")
 
     return image_encoder, text_encoder
 
@@ -183,7 +195,7 @@ def load_text_encoder(
 
     def encoder(texts: Any) -> list:
         batch = tokenizer(list(texts), return_tensors="pt", padding=True, truncation=True)
-        with torch.inference_mode():
+        with torch.inference_mode(), exact_fp32():
             out = model(**{k: batch[k].to(dev) for k in ("input_ids", "attention_mask")}).last_hidden_state
         mask = batch["attention_mask"].to(torch.bool)
         return [out[i, mask[i].to(dev)] for i in range(out.shape[0])]

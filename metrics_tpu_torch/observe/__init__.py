@@ -21,9 +21,12 @@
   top-K tenants, a mergeable SpaceSaving sketch beyond, and an opt-in soft
   quota :class:`MeterPolicy`.
 
-The JAX package's static half (``costs``, ``profile``) and its overhead smoke
-(``overhead``) read XLA's lowering and cost analysis; they have no counterpart
-here yet.
+* **static half** (:mod:`metrics_tpu_torch.observe.costs` +
+  :mod:`metrics_tpu_torch.observe.profile`) — the cost of one update of each
+  profiled class (FLOPs, bytes of the ops it dispatches, peak memory on the
+  card), ratcheted against ``metrics_tpu_torch/observe/perf_baseline.json``;
+  :mod:`metrics_tpu_torch.observe.overhead` holds the telemetry budget. They
+  load lazily.
 
 Quick start::
 
@@ -104,7 +107,7 @@ __all__ = [
     "uninstall_watchdog",
 ]
 
-_LAZY_SUBMODULES = ("explain", "latency", "metering", "recorder", "tracing", "watchdog")
+_LAZY_SUBMODULES = ("costs", "explain", "latency", "metering", "overhead", "profile", "recorder", "tracing", "watchdog")
 
 
 def __getattr__(name):

@@ -17,8 +17,9 @@ the CPU keeps the plain version's gradient: the op has no autograd formula.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-from typing import List, Sequence
+from typing import Iterator, List, Sequence
 
 import torch
 
@@ -106,12 +107,27 @@ def _ssim_window_vmap(info, in_dims, x, kh, kw):
     return out.reshape(rows, planes, *out.shape[1:]), 0
 
 
+_THROUGH_OP = [0]
+
+
+@contextlib.contextmanager
+def through_custom_op() -> Iterator[None]:
+    """Eager calls go through the custom op inside the block too, so that a dispatch mode (a cost count,
+    ``observe/costs.py``) sees the kernel as one op on either device; the op has no autograd formula."""
+    _THROUGH_OP[0] += 1
+    try:
+        yield
+    finally:
+        _THROUGH_OP[0] -= 1
+
+
 def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
     """Windowed sum of (N, H_pad, W_pad) float32 planes: the kernel on CUDA, the plain version on the CPU.
 
-    Under ``torch.func.vmap`` it calls the custom op, whose rule makes one call of the batch's planes.
+    Under ``torch.func.vmap`` (or :func:`through_custom_op`) it calls the custom op, whose rule makes one call
+    of the batch's planes.
     """
-    if _is_traced(x):
+    if _is_traced(x) or _THROUGH_OP[0]:
         return _ssim_window_op(x, [float(v) for v in kh], [float(v) for v in kw])
     return _ssim_window_eager(x, kh, kw)
 

@@ -22,6 +22,7 @@ import json
 import os
 import sys
 import tempfile
+import time
 from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
@@ -92,7 +93,10 @@ def run_serve_smoke(
             # watermark dedup: replay an already-acked pseq (dedup consults the
             # watermark before admission or apply, so the payload is irrelevant)
             prod._send_raw(encode_frame("submit", 1, "s0", ((), {})))
-            server.poll(0.0)
+            # the frame crosses a socket: poll until it has been read (one pass may find nothing yet)
+            deadline = time.monotonic() + 5.0
+            while server.dedup_skipped < 1 and time.monotonic() < deadline:
+                server.poll(0.05)
             prod.pump()
             if server.dedup_skipped < 1:
                 failures.append("resent record was not watermark-deduped")

@@ -1,5 +1,5 @@
-"""Modular text metrics (counterpart of ``metrics_tpu/text``): every class but the two that need a pretrained
-model (``BERTScore``, ``InfoLM``)."""
+"""Modular text metrics (counterpart of ``metrics_tpu/text``); ``BERTScore`` and ``InfoLM`` take an injected
+encoder or distribution function."""
 
 from metrics_tpu_torch.text.metrics import (
     BLEUScore,
@@ -17,13 +17,17 @@ from metrics_tpu_torch.text.metrics import (
     WordInfoLost,
     WordInfoPreserved,
 )
+from metrics_tpu_torch.text.model_based import BERTScore, InfoLM
+
 
 __all__ = [
+    "BERTScore",
     "BLEUScore",
     "CHRFScore",
     "CharErrorRate",
     "EditDistance",
     "ExtendedEditDistance",
+    "InfoLM",
     "MatchErrorRate",
     "Perplexity",
     "ROUGEScore",

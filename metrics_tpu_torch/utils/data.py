@@ -7,6 +7,7 @@ from typing import Dict, List, Sequence, Tuple, Union
 import torch
 
 from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.compute import interp  # noqa: F401  (the JAX package defines it in this module)
 
 
 def dim_zero_cat(x: Union[torch.Tensor, List[torch.Tensor]]) -> torch.Tensor:

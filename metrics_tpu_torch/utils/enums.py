@@ -33,6 +33,40 @@ class EnumStr(str, Enum):
         return hash(self.value.lower())
 
 
+class DataType(EnumStr):
+    """The data type of inputs."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Data type"
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+
+class AverageMethod(EnumStr):
+    """The average methods."""
+
+    @staticmethod
+    def _name() -> str:
+        return "Average method"
+
+    MICRO = "micro"
+    MACRO = "macro"
+    WEIGHTED = "weighted"
+    NONE = "none"
+    SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    """The multi-dim multi-class average methods."""
+
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"
+
+
 class ClassificationTask(EnumStr):
     """The classification tasks.
 

@@ -1514,3 +1514,75 @@ def test_fid_on_the_card_equals_fid_on_the_cpu_for_the_same_features(cuda_device
         assert fid.real_features_cov_sum.device.type == device.type
         values[device.type] = float(fid.compute())
     assert values["cuda"] == pytest.approx(values["cpu"], rel=1e-5)
+
+
+@pytest.mark.cuda
+def test_clip_forwards_on_the_card_with_tf32_allowed_equal_the_cpu(cuda_device, tmp_path):
+    """``load_clip``'s encoders run inside ``exact_fp32``: with TF32 allowed globally, a tiny local CLIP's
+    image and text features on the card equal the CPU's within 1e-5 of their scale, and the flags come back."""
+    from _torch_hf import tiny_clip
+
+    from metrics_tpu_torch.models import load_clip
+
+    path, _, _ = tiny_clip(tmp_path / "clip")
+    card, host = load_clip(path, device=cuda_device), load_clip(path, device="cpu")
+    images = torch.rand(4, 3, 32, 32, generator=torch.Generator().manual_seed(0))
+    texts = ["a photo of a cat", "a good dog", "the bad photo", "a cat"]
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+    try:
+        for got, want in ((card[0](images), host[0](images)), (card[1](texts), host[1](texts))):
+            assert got.device.type == "cuda" and got.shape == want.shape
+            scale = float(want.abs().max())
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0, atol=1e-5 * scale)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.cuda
+def test_model_based_text_and_multimodal_on_the_card_equal_the_cpu(cuda_device):
+    """BERTScore, InfoLM (each measure), CLIPScore and CLIP-IQA over the same embeddings: the card's float64
+    pair batches and float32 scores equal the CPU's within rtol 1e-5."""
+    from metrics_tpu_torch.multimodal import CLIPImageQualityAssessment, CLIPScore
+    from metrics_tpu_torch.text import BERTScore, InfoLM
+
+    g = torch.Generator().manual_seed(3)
+    lengths = torch.randint(1, 30, (40,), generator=g).tolist()
+    emb = [torch.randn(n, 64, generator=g) for n in lengths]
+    dist = [torch.softmax(torch.randn(n, 500, generator=g), -1) for n in lengths]
+    texts = [str(i) for i in range(40)]
+
+    def on(table, dev):
+        return lambda xs: [table[int(x)].to(dev) for x in xs]
+
+    def close(got, want):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5, atol=1e-7)
+
+    pairs = (texts[:20], texts[20:])
+    for make in (lambda d: BERTScore(encoder=on(emb, d), device=d),
+                 *[lambda d, m=m: InfoLM(distribution_fn=on(dist, d), information_measure=m, device=d)
+                   for m in InfoLM._MEASURES]):
+        card, host = make(cuda_device), make("cpu")
+        card.update(*pairs)
+        host.update(*pairs)
+        got, want = card.compute(), host.compute()
+        for k in (want if isinstance(want, dict) else [None]):
+            close(got[k] if k else got, want[k] if k else want)
+    img = torch.randn(8, 32, generator=g)
+    txt = {t: torch.randn(32, generator=g) for t in ("a", "b", "Good photo.", "Bad photo.", "x.", "y.")}
+    encoders = lambda d: dict(image_encoder=lambda x: img[: len(x)].to(d),  # noqa: E731
+                              text_encoder=lambda ts: torch.stack([txt[t] for t in ts]).to(d))
+    card, host = CLIPScore(device=cuda_device, **encoders(cuda_device)), CLIPScore(device="cpu", **encoders("cpu"))
+    card.update(torch.zeros(2, 3, 4, 4), ["a", "b"])
+    host.update(torch.zeros(2, 3, 4, 4), ["a", "b"])
+    close(card.compute(), host.compute())
+    prompts = ("quality", ("x.", "y."))
+    card = CLIPImageQualityAssessment(prompts=prompts, device=cuda_device, **encoders(cuda_device))
+    host = CLIPImageQualityAssessment(prompts=prompts, device="cpu", **encoders("cpu"))
+    card.update(torch.zeros(8, 3, 4, 4))
+    host.update(torch.zeros(8, 3, 4, 4))
+    got, want = card.compute(), host.compute()
+    assert list(got) == list(want) == ["quality", "user_defined_0"]
+    for k in want:
+        close(got[k], want[k])

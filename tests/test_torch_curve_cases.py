@@ -9,6 +9,14 @@ the binary, multiclass and multilabel task, as a function and as a class fed
 two updates. The port runs on the CPU through the binned-counts kernel's plain
 version; the JAX package runs on the CPU as its own tests run it.
 
+Inputs: N = 16 samples (C = 4 classes or labels), shuffled rows; scores are logits or, in each column, eight
+distinct uniform scores and four values on the grid of eighths twice each (planted ties; 0.5 and an end of
+[0, 1], both ends in column 0, are thresholds of the listed and 7-point grids); with ``ignore_index`` a
+quarter of the samples are ignored, two distinct scores and one copy of two tied values (other rows in each
+multilabel column). So
+every column and batch has as many distinct scores as every other, the JAX package's exact path meets the
+same curve lengths from case to case, and its compiles are reused.
+
 Tolerances:
 
 * binned confusion states: integer-equal;
@@ -30,12 +38,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+import _torch_workers  # noqa: F401  (one share of the cores per xdist worker)
 import metrics_tpu.classification as jc
 import metrics_tpu.functional.classification as jf
 import metrics_tpu_torch.classification as tc
 import metrics_tpu_torch.functional.classification as tf
 
-N = 48
+N = 16
 C = 4
 RTOL, ATOL = 1e-5, 1e-6
 SCORE_RTOL = 1e-6
@@ -73,26 +82,55 @@ def _thresholds(thresholds):
     return thresholds, thresholds
 
 
-def _scores(rng, shape, kind):
-    """Half uniform float32 scores, half on a grid of eighths (ties, and scores on thresholds), or logits."""
+def _grid(column):
+    """A column's four values on the grid of eighths, the same in every batch: 0.5 (a threshold of the
+    listed and the 7-point grids), an end of [0, 1] (thresholds too) and two more. Column 0, the binary
+    task's, has both ends, so each task meets a tie on the top threshold 1.0."""
+    rest = np.random.RandomState(100 + column).choice([1, 2, 3, 5, 6, 7], 2, replace=False)
+    if column == 0:
+        return np.array([4, 0, 8, rest[0]]) / 8
+    return np.array([4, 0 if column % 2 == 0 else 8, *rest]) / 8
+
+
+def _scores(rng, cols, kind):
+    """(N, cols) scores, rows not yet shuffled: logits, or in each column N/2 distinct uniform float32 scores
+    (rows 0 .. N/2 - 1) and then the column's four grid values twice each (planted ties, and scores on
+    thresholds). Every column has as many distinct scores as every other, in every batch, so the exact
+    path's curves keep their lengths from case to case."""
     if kind == "logits":
-        return (rng.randn(*shape) * 3).astype(np.float32)
-    fine = rng.rand(*shape).astype(np.float32)
-    coarse = (rng.randint(0, 9, shape) / 8).astype(np.float32)
-    return np.where(rng.rand(*shape) < 0.5, fine, coarse)
+        return (rng.randn(N, cols) * 3).astype(np.float32)
+    half = N // 2
+    return np.stack([np.concatenate([rng.rand(half), np.repeat(_grid(j), half // 4)]) for j in range(cols)],
+                    axis=1).astype(np.float32)
+
+
+def _ignored_rows(column):
+    """The rows a column ignores: two of its distinct scores and one copy of two of its tied grid values,
+    so a quarter of the samples, and still each grid value; other rows in each column (multilabel)."""
+    half = N // 2
+    return [(2 * column) % half, (2 * column + 1) % half, half + (2 * column) % half, half + (2 * column + 2) % half]
 
 
 def _inputs(task, kind, ignore_index, seed):
     rng = np.random.RandomState(seed)
+    cols = 1 if task == "binary" else C
+    preds = _scores(rng, cols, kind)
     if task == "binary":
-        preds, target = _scores(rng, (N,), kind), rng.randint(0, 2, N)
+        target = rng.randint(0, 2, N)
     elif task == "multiclass":
-        preds, target = _scores(rng, (N, C), kind), rng.randint(0, C, N)
+        target = rng.randint(0, C, N)
     else:
-        preds, target = _scores(rng, (N, C), kind), rng.randint(0, 2, (N, C))
+        target = rng.randint(0, 2, (N, C))
     if ignore_index is not None:
-        target = np.where(rng.rand(*target.shape) < 0.2, ignore_index, target)
-    return preds, target
+        target = target.copy()
+        if task == "multilabel":
+            for j in range(C):
+                target[_ignored_rows(j), j] = ignore_index
+        else:
+            target[_ignored_rows(0)] = ignore_index
+    order = rng.permutation(N)
+    preds, target = preds[order], target[order]
+    return (preds[:, 0] if task == "binary" else preds), target
 
 
 def _task_args(task):

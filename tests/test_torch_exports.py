@@ -50,6 +50,8 @@ PAIRS = [
     ("metrics_tpu.observe", "metrics_tpu_torch.observe"),
     ("metrics_tpu.resilience", "metrics_tpu_torch.resilience"),
     ("metrics_tpu.engine", "metrics_tpu_torch.engine"),
+    ("metrics_tpu.multimodal", "metrics_tpu_torch.multimodal"),
+    ("metrics_tpu.functional.multimodal", "metrics_tpu_torch.functional.multimodal"),
 ]
 
 
@@ -292,13 +294,13 @@ def test_the_streaming_slice_and_utils_are_whole():
 
 def test_observe_and_resilience_are_whole():
     """``observe`` and ``resilience`` export the JAX package's 30 and 12 names, in its order, and join the top
-    level, which then lacks only ``aot`` and ``multimodal``."""
+    level, which (with ``multimodal`` since) lacks only ``aot``."""
     for domain, count in (("observe", 30), ("resilience", 12)):
         ref = importlib.import_module(f"metrics_tpu.{domain}")
         port = importlib.import_module(f"metrics_tpu_torch.{domain}")
         assert port.__all__ == ref.__all__ and len(port.__all__) == count, domain
         assert getattr(metrics_tpu_torch, domain) is port and domain in metrics_tpu_torch.__all__
-    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == ["aot", "multimodal"]
+    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == ["aot"]
     from metrics_tpu_torch.observe import explain, latency, metering, recorder, tracing, watchdog  # noqa: F401
     from metrics_tpu_torch.resilience import checkpoint, guards  # noqa: F401
     from metrics_tpu_torch.utils import io  # noqa: F401
@@ -347,13 +349,81 @@ def test_serve_exports_the_jax_package_s_nineteen_names():
 
 def test_models_exports_the_jax_package_s_thirteen_names():
     """``models`` exports the JAX package's 13 names in its order and joins the top level; ``functional`` then
-    lacks only ``multimodal``."""
+    has every name (``multimodal`` joined it later)."""
     import metrics_tpu.functional as jf
     import metrics_tpu.models as jm
     import metrics_tpu_torch.models as tm
 
     assert tm.__all__ == jm.__all__ and len(tm.__all__) == 13
     assert metrics_tpu_torch.models is tm and "models" in metrics_tpu_torch.__all__
-    assert [n for n in jf.__all__ if n not in metrics_tpu_torch.functional.__all__] == ["multimodal"]
+    assert [n for n in jf.__all__ if n not in metrics_tpu_torch.functional.__all__] == []
     for sub in ("hub", "inception_v3", "lpips_nets", "simple_cnn"):
         importlib.import_module(f"metrics_tpu_torch.models.{sub}")
+
+
+def test_text_and_multimodal_are_whole_and_the_top_level_lacks_only_aot():
+    """``text`` and ``functional.text`` export the JAX package's 16 names each, ``multimodal`` and
+    ``functional.multimodal`` its two, in its order; ``multimodal`` joins both top levels in its place."""
+    import metrics_tpu.functional as jf
+
+    for domain, count in (("text", 16), ("functional.text", 16), ("multimodal", 2), ("functional.multimodal", 2)):
+        ref = importlib.import_module(f"metrics_tpu.{domain}")
+        port = importlib.import_module(f"metrics_tpu_torch.{domain}")
+        assert port.__all__ == ref.__all__ and len(port.__all__) == count, domain
+    assert [n for n in metrics_tpu.__all__ if n not in metrics_tpu_torch.__all__] == ["aot"]
+    assert [n for n in metrics_tpu_torch.__all__ if n in metrics_tpu.__all__] == metrics_tpu_torch.__all__
+    assert metrics_tpu_torch.multimodal.__name__ == "metrics_tpu_torch.multimodal"
+    assert metrics_tpu_torch.functional.__all__ == [n for n in jf.__all__ if n in metrics_tpu_torch.functional.__all__]
+    assert set(jf.__all__) <= set(metrics_tpu_torch.functional.__all__)
+    from metrics_tpu_torch.functional.text import model_based  # noqa: F401
+    from metrics_tpu_torch.observe import costs, overhead, profile
+
+    for mod, ref in ((costs, "costs"), (overhead, "overhead"), (profile, "profile")):
+        assert mod.__all__ == importlib.import_module(f"metrics_tpu.observe.{ref}").__all__, ref
+
+
+# JAX-only names (ROADMAP.md section A, "JAX-only, no counterpart"), each with its reason
+JAX_ONLY = {
+    # the compiled-update machinery: PyTorch runs eagerly, so there is no shared jit cache to clear and
+    # nothing to jit or donate (``jit_update=``/``donate_states=`` are accepted and kept)
+    "metrics_tpu.metric": {"clear_jit_cache", "donate_updates_enabled", "jit_update_enabled"},
+    # jitted forms of the matching functions: the port's ``match_units``/``batched_box_iou`` are eager
+    "metrics_tpu.functional.detection.map_matching": {"match_units_jit", "batched_box_iou_jit"},
+    # the Pallas entry points and their planners; their CUDA counterparts are ``binned_counts``/``ssim_window``
+    "metrics_tpu.ops": {"ssim_window_pallas", "use_pallas_window"},
+    "metrics_tpu.ops.binned_hist": {"binned_counts_pallas", "binned_kernel_plan", "pallas_binned_fits",
+                                    "use_pallas_binned"},
+    "metrics_tpu.ops.ssim_window": {"ssim_window_pallas", "use_pallas_window"},
+    # device meshes: the port's ranks are a torch.distributed group, a subgroup takes a mesh axis's place
+    "metrics_tpu.parallel": {"build_mesh", "shard_map_compat"},
+    "metrics_tpu.parallel.sync": {"build_mesh", "shard_map_compat"},
+}
+
+
+def _shared_modules():
+    import pkgutil
+
+    for info in pkgutil.walk_packages(metrics_tpu.__path__, "metrics_tpu."):
+        port = _port_name(info.name)
+        try:
+            if importlib.util.find_spec(port) is None:
+                continue
+        except ModuleNotFoundError:
+            continue
+        yield info.name, port
+
+
+def test_every_shared_module_has_the_reference_public_names():
+    """Every module path in both packages (the top level aside: it lacks ``aot``, above): the JAX module's
+    ``__all__``, or else the public names it defines itself, exist in the port's module, but the JAX-only ones."""
+    checked, missing = 0, {}
+    for ref_name, port_name in _shared_modules():
+        ref = importlib.import_module(ref_name)
+        port = importlib.import_module(port_name)
+        names = list(ref.__all__) if hasattr(ref, "__all__") else [
+            n for n, o in vars(ref).items() if not n.startswith("_") and getattr(o, "__module__", None) == ref_name]
+        gap = [n for n in names if not hasattr(port, n) and n not in JAX_ONLY.get(ref_name, ())]
+        if gap:
+            missing[ref_name] = gap
+        checked += 1
+    assert missing == {} and checked > 200

@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_hf import transformers as _hf_transformers
 from _torch_inception import TorchInceptionV3FID
 from metrics_tpu.models import inception_v3 as j_incep
 from metrics_tpu.models import lpips_nets as j_lpips
@@ -183,10 +184,12 @@ _TOWERS = {"vgg": (j_lpips.VGG16Features, VGG16Features, j_lpips.VGG16_TAPS),
 def towers():
     out = {}
     rng = np.random.default_rng(5)
-    a = (rng.random((2, 3, 64, 64), dtype=np.float32) * 2 - 1)
-    b = (rng.random((2, 3, 64, 64), dtype=np.float32) * 2 - 1)
+    # 32 x 32 reaches every tap of the three towers (AlexNet's last three are 1 x 1 there; at 24 its pooling
+    # leaves none); the weights' shapes do not depend on the size
+    a = (rng.random((2, 3, 32, 32), dtype=np.float32) * 2 - 1)
+    b = (rng.random((2, 3, 32, 32), dtype=np.float32) * 2 - 1)
     for i, (name, (jcls, tcls, taps)) in enumerate(_TOWERS.items()):
-        variables = random_flax_variables(lambda c=jcls: c().init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3))),
+        variables = random_flax_variables(lambda c=jcls: c().init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))),
                                           seed=10 + i)
         lin = [np.random.default_rng(20 + i).random(c).astype(np.float32) for c in taps]
         ref_taps = [np.asarray(t) for t in jcls().apply(variables, jnp.asarray(a.transpose(0, 2, 3, 1)))]
@@ -359,7 +362,7 @@ def test_clip_and_text_loaders_error_without_local_checkpoint(monkeypatch):
 
 def test_text_encoder_loads_a_local_torch_checkpoint(tmp_path):
     """A tiny random BERT saved locally through ``transformers``' torch classes drives the loader."""
-    transformers = pytest.importorskip("transformers")
+    transformers = _hf_transformers()
     cfg = transformers.BertConfig(vocab_size=40, hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
                                   intermediate_size=37, max_position_embeddings=64)
     torch.manual_seed(0)

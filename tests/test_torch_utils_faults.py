@@ -171,3 +171,138 @@ def test_runtime_marks_match_the_reference():
         assert port._jit_update_opt == ref._jit_update_opt, strategy
     assert tm.CatMetric(device="cpu")._has_list_state() and jm.CatMetric()._has_list_state()
     assert not tm.SumMetric(device="cpu")._has_list_state() and not jm.SumMetric()._has_list_state()
+
+
+# ----------------------------------------------------------------------------- F2
+def _accuracies(n_batches=3, seed=0):
+    import metrics_tpu.classification as jc
+    import metrics_tpu_torch.classification as tc
+
+    rng = np.random.RandomState(seed)
+    batches = [(rng.randint(0, 3, 32), rng.randint(0, 3, 32)) for _ in range(n_batches)]
+    return (lambda: tc.MulticlassAccuracy(num_classes=3, device="cpu")), (lambda: jc.MulticlassAccuracy(num_classes=3)), batches
+
+
+@pytest.mark.parametrize("wrapper", ["TimeDecayed", "TumblingWindow"])
+@pytest.mark.parametrize("op", ["add", "mul"])
+def test_a_composition_is_refused_by_the_time_windows_as_in_the_reference(wrapper, op):
+    """``CompositionalMetric`` is jit-ineligible in both packages, so the windows refuse it at construction with
+    the JAX package's error and text."""
+    import metrics_tpu as jm
+    import metrics_tpu_torch as tm
+    from metrics_tpu.utils.exceptions import TPUMetricsUserError as RefError
+    from metrics_tpu_torch.utils.exceptions import TPUMetricsUserError
+
+    make_t, make_j, _ = _accuracies()
+    compose = (lambda a, b: a + b) if op == "add" else (lambda a, b: a * 2)
+    kw = {"half_life_s": 10.0} if wrapper == "TimeDecayed" else {"pane_s": 10.0, "n_panes": 3}
+    assert tm.CompositionalMetric.__jit_ineligible__ is jm.CompositionalMetric.__jit_ineligible__ is True
+    with pytest.raises(TPUMetricsUserError) as port_err:
+        getattr(tm, wrapper)(compose(make_t(), make_t()), **kw)
+    with pytest.raises(RefError) as ref_err:
+        getattr(jm, wrapper)(compose(make_j(), make_j()), **kw)
+    assert str(port_err.value) == str(ref_err.value)
+    assert "cannot wrap CompositionalMetric: its update body is declared jit-ineligible" in str(port_err.value)
+
+
+def test_a_composition_still_updates_and_computes_as_the_reference():
+    make_t, make_j, batches = _accuracies()
+    port, ref = make_t() + make_t() * 2, make_j() + make_j() * 2
+    for p, t in batches:
+        port.update(torch.from_numpy(p), torch.from_numpy(t))
+        ref.update(jnp.asarray(p), jnp.asarray(t))
+    _close(port.compute(), ref.compute())
+    assert not port._jit_eligible((), {})
+
+
+def test_the_fleet_engine_still_sends_a_composition_loose():
+    import metrics_tpu.engine as je
+    import metrics_tpu_torch.engine as te
+
+    make_t, make_j, batches = _accuracies()
+    port_engine, ref_engine = te.StreamEngine(), je.StreamEngine()
+    sp, sr = port_engine.add_session(make_t() + make_t()), ref_engine.add_session(make_j() + make_j())
+    assert port_engine.session_health(sp) == ref_engine.session_health(sr) == "loose"
+    for p, t in batches:
+        port_engine.submit(sp, torch.from_numpy(p), torch.from_numpy(t))
+        ref_engine.submit(sr, jnp.asarray(p), jnp.asarray(t))
+        port_engine.tick()
+        ref_engine.tick()
+    _close(port_engine.compute(sp), ref_engine.compute(sr))
+
+
+def test_bootstrapper_over_a_composition_still_agrees_with_the_reference():
+    from metrics_tpu.wrappers import BootStrapper as RefBootStrapper
+    from metrics_tpu_torch.wrappers import BootStrapper
+
+    make_t, make_j, batches = _accuracies()
+    np.random.seed(1234)
+    ref = RefBootStrapper(make_j() + make_j(), num_bootstraps=5, quantile=0.5, raw=True)
+    for p, t in batches:
+        ref.update(jnp.asarray(p), jnp.asarray(t))
+    np.random.seed(1234)
+    port = BootStrapper(make_t() + make_t(), num_bootstraps=5, quantile=0.5, raw=True)
+    for p, t in batches:
+        port.update(torch.from_numpy(p), torch.from_numpy(t))
+    got, want = port.compute(), ref.compute()
+    assert sorted(got) == sorted(want)
+    for k in want:
+        _close(got[k], want[k])
+
+
+# ----------------------------------------------------------------------------- F3
+def test_the_shared_modules_missing_names_exist_as_in_the_reference():
+    import importlib
+
+    import metrics_tpu.utils.enums as je
+
+    jss = importlib.import_module("metrics_tpu.functional.classification.stat_scores")
+    te = importlib.import_module("metrics_tpu_torch.utils.enums")
+    tss = importlib.import_module("metrics_tpu_torch.functional.classification.stat_scores")
+    from metrics_tpu_torch.utils import compute, data
+
+    for name in ("DataType", "AverageMethod", "MDMCAverageMethod"):
+        port, ref = getattr(te, name), getattr(je, name)
+        assert [(m.name, m.value) for m in port] == [(m.name, m.value) for m in ref], name
+        assert issubclass(port, te.EnumStr)
+    assert te.DataType.from_str("multilabel") == "MULTI-LABEL" and te.AverageMethod.NONE == "none"
+    assert te.MDMCAverageMethod.from_str("global") is te.MDMCAverageMethod.GLOBAL
+    with pytest.raises(ValueError, match="Invalid Average method"):
+        te.AverageMethod.from_str("median")
+    assert data.interp is compute.interp
+    x, xp, fp = np.array([0.5, 1.5, 3.0], np.float32), np.array([0.0, 1.0, 2.0], np.float32), np.array(
+        [1.0, 3.0, 2.0], np.float32)
+    _close(data.interp(torch.from_numpy(x), torch.from_numpy(xp), torch.from_numpy(fp)),
+           importlib.import_module("metrics_tpu.utils.data").interp(jnp.asarray(x), jnp.asarray(xp), jnp.asarray(fp)))
+    for value in (np.array([[1, 0], [2, 1]]), np.array([0.5, -1.0], np.float32), np.array(3)):
+        assert tss.np_vals(torch.from_numpy(value)) == jss.np_vals(jnp.asarray(value))
+        assert tss.np_vals(value) == jss.np_vals(value)
+
+
+# ----------------------------------------------------------------------------- F4
+def test_the_hugging_face_forwards_run_with_tf32_off(tmp_path):
+    """``load_clip``'s two encoders and ``load_text_encoder``'s forward run inside ``exact_fp32``: a forward
+    pre-hook sees both TF32 flags off, and the caller's flags come back after the forward."""
+    from _torch_hf import tiny_bert, tiny_clip
+
+    from metrics_tpu_torch.models import load_clip, load_text_encoder
+
+    clip_path, _, _ = tiny_clip(tmp_path / "clip")
+    bert_path, _, _ = tiny_bert(tmp_path / "bert")
+    image_encoder, text_encoder = load_clip(clip_path, device="cpu")
+    encoder = load_text_encoder(bert_path, device="cpu")
+    seen = []
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda module, args: seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)))
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = True, True
+    try:
+        for call in (lambda: image_encoder(torch.rand(2, 3, 32, 32)), lambda: text_encoder(["a photo of a cat"]),
+                     lambda: encoder(["the cat sat"])):
+            seen.clear()
+            call()
+            assert seen and set(seen) == {(False, False)}
+            assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True, True)
+    finally:
+        hook.remove()
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
