@@ -166,7 +166,18 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    its step loop on the card, every ``PROFILE_CASES`` class profiled on the
    card with ``flops`` and ``bytes_accessed`` equal to the committed CPU
    baseline, each case's peak memory, and the binned-counts and window launches
-   of the thresholded AUROC/AP, SSIM and UQI cases;
+   of the thresholded AUROC/AP, SSIM and UQI cases; then
+   ``analysis_contracts``, launches counted apart: every transfer case under
+   ``set_sync_debug_mode("error")`` with its verdict equal to the CPU
+   dispatch-mode prediction (and the binned curves and SSIM at the main path's
+   shapes), a fleet tick at 100 sessions and at 10,000 streams and a sharded
+   churn tick with no sync outside ``_transfer_scope``, the 73 merge
+   classifications equal to the CPU's, the precision registry and its five
+   regimes, every bucketable class through a churning CUDA bucket (B1/B2
+   launched through the ``vmap`` rules), the chaos metric and fleet suites over
+   the kernel classes and ``BinaryAccuracy``, and the kernel-library cache (a
+   cold build into an empty directory in one process, nothing built in the
+   next);
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -641,6 +652,7 @@ def main_path(seed: int, wrappers: dict) -> dict:
     APART["model_based_text_multimodal"] = section("model_based_text_multimodal", model_based_text_multimodal_section,
                                                    seed, wrappers)
     APART["observe_costs"] = section("observe_costs", observe_costs_section, seed, wrappers)
+    APART["analysis_contracts"] = section("analysis_contracts", analysis_contracts_section, seed, wrappers)
     return out
 
 
@@ -6742,6 +6754,230 @@ def observe_costs_section(seed: int, wrappers: dict) -> dict:
         res["kernel_launches"][name] = got
     res["seconds"] = time.perf_counter() - t0
     log(f"observe_costs: {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------------------- phase 4, the analysis contracts
+# the classes whose registry case runs a kernel (the cost section's), the engine leg's sizes (the JAX
+# package's 100 sessions and the fleet_engine section's 10,000 streams), and the full-size kernel classes of
+# the transfer leg at the main path's shapes
+CONTRACT_ENGINE_SESSIONS = (100, FLEET_STREAMS)
+CONTRACT_CHAOS_CLASSES = ("BinaryAccuracy", "BinaryAUROC", "BinaryAveragePrecision", "MulticlassAUROC",
+                          "StructuralSimilarityIndexMeasure")
+
+
+def _sync_sites(fn) -> dict:
+    """Where ``fn()`` synchronizes with the host: the innermost package frame of each sync, counted
+    (``file:line``), through the transfer contract's recording guard."""
+    from collections import Counter
+
+    from metrics_tpu_torch.analysis.transfer_contracts import transfer_guard
+
+    with transfer_guard("cuda", mode="warn") as guard:
+        fn()
+    torch.cuda.synchronize()
+    return dict(Counter(guard.reads))
+
+
+def _full_size_cases() -> list:
+    """The kernel classes at the main path's shapes: B1 binary 2^22 x 200 thresholds, B1's labels mode
+    2^20 x 10 classes x 200, B2 over 300 planes of 256² (100 RGB pairs); each with a CPU twin at 64 samples
+    (the CPU leg predicts the class's verdict, not the size's)."""
+    from metrics_tpu_torch.classification import BinaryAUROC, MulticlassAUROC
+    from metrics_tpu_torch.image import StructuralSimilarityIndexMeasure
+    from metrics_tpu_torch.observe.costs import ProfileCase
+
+    def scores(n, c=None):
+        def batch(rng):
+            shape = (n,) if c is None else (n, c)
+            s = torch.from_numpy(rng.rand(*shape).astype(np.float32))
+            t = torch.from_numpy(rng.randint(0, 2 if c is None else c, n).astype(np.int64))
+            return s, t
+        return batch
+
+    def images(n):
+        def batch(rng):
+            a = torch.from_numpy(rng.rand(n, 3, 256, 256).astype(np.float32))
+            return a, (a * 0.9 + 0.05).clamp(0, 1)
+        return batch
+
+    out = []
+    for name, ctor, big, small in (
+        ("BinaryAUROC[2^22 x 200]", lambda device: BinaryAUROC(thresholds=200, device=device),
+         scores(1 << 22), scores(64)),
+        ("MulticlassAUROC[2^20 x 10 x 200]", lambda device: MulticlassAUROC(num_classes=10, thresholds=200,
+                                                                             device=device),
+         scores(1 << 20, 10), scores(64, 10)),
+        ("StructuralSimilarityIndexMeasure[300 planes 256²]",
+         lambda device: StructuralSimilarityIndexMeasure(data_range=1.0, device=device), images(100), images(2)),
+    ):
+        out.append((ProfileCase(name, ctor, big), ProfileCase(name, ctor, small)))
+    return out
+
+
+def analysis_contracts_section(seed: int, wrappers: dict) -> dict:
+    """The analysis harness's runtime contracts on the card, each against the CPU's prediction or verdict:
+    transfer (every registry case under ``set_sync_debug_mode("error")`` against the CPU dispatch-mode
+    verdict, the kernel classes at the main path's shapes, the engine at 100 sessions and 10,000 streams with
+    no sync outside ``_transfer_scope``), merge (73 classifications equal to the CPU's), precision (the
+    registry and the five regimes), fleet (every bucketable case on CUDA buckets, the kernel classes
+    launching B1/B2 through the ``vmap`` rules, and the eager-vs-vmapped gap of the classes whose float state
+    is held within tolerance), chaos (the metric and fleet suites over the kernel classes
+    and ``BinaryAccuracy``), aot (a cold build into an empty cache in one process, none in the next);
+    launches counted apart."""
+    from metrics_tpu_torch import aot
+    from metrics_tpu_torch.analysis import (
+        chaos_contracts,
+        fleet_contracts,
+        merge_contracts,
+        precision_contracts,
+        transfer_contracts,
+    )
+
+    res: dict = {"seconds_by_leg": {}}
+    t0 = time.perf_counter()
+    for w in wrappers.values():
+        w.launches = 0
+
+    def leg(name, t):
+        res["seconds_by_leg"][name] = time.perf_counter() - t
+        return time.perf_counter()
+
+    # ---- transfer: every case on the card against its CPU prediction
+    t = time.perf_counter()
+    cases = transfer_contracts.transfer_cases()
+    card = {c.name: transfer_contracts.check_transfer_case(c, "cuda") for c in cases}
+    cpu = {c.name: transfer_contracts.check_transfer_case(c, "cpu") for c in cases}
+    for big, small in _full_size_cases():
+        card[big.name] = transfer_contracts.check_transfer_case(big, "cuda")
+        cpu[big.name] = transfer_contracts.check_transfer_case(small, "cpu")
+    verdict = {name: r.runtime.split(":")[0] for name, r in card.items()}
+    res["transfer"] = {
+        "card": {k: sum(1 for v in verdict.values() if v == k) for k in ("CLEAN", "TRANSFER", "ERROR")},
+        "card_verdicts": {name: r.runtime for name, r in card.items()},
+        "cpu_disagreements": sorted(n for n in card if verdict[n] != cpu[n].runtime.split(":")[0]),
+        "not_agreeing_on_card": sorted(n for n, r in card.items() if not r.agree),
+    }
+    bad = res["transfer"]["cpu_disagreements"] + res["transfer"]["not_agreeing_on_card"]
+    if bad:
+        by = {c.name: c for c in cases}
+        by.update({b.name: b for b, _ in _full_size_cases()})
+        sites = {}
+        for name in sorted(set(bad)):
+            m = by[name].ctor("cuda")
+            batches = transfer_contracts._materialized_batches(by[name], 2, "cuda")
+            m.update(*batches[0])
+            sites[name] = {"card": card[name].render(), "cpu": cpu[name].render(),
+                           "sites": _sync_sites(lambda: m.update(*batches[1]))}
+        log(f"analysis_contracts: transfer disagreements: {json.dumps(sites)}")
+        fail(f"transfer: the card's verdict differs from the CPU prediction, or the legs disagree: {sorted(set(bad))}")
+    engine = {}
+    bauroc = next(c for c in cases if c.name == "BinaryAUROC")
+    for n in CONTRACT_ENGINE_SESSIONS:
+        r = transfer_contracts.check_engine_contract("StreamEngine", "cuda", sessions=n, case=bauroc)
+        engine[f"StreamEngine[{n}]"] = r.render()
+        if r.runtime != "CLEAN" or not r.agree:
+            fail(f"transfer: a {n}-session tick synchronized outside _transfer_scope: {r.render()}")
+    r = transfer_contracts.check_engine_contract("ShardedStreamEngine", "cuda", case=bauroc)
+    engine["ShardedStreamEngine[16]"] = r.render()
+    if r.runtime != "CLEAN" or not r.agree:
+        fail(f"transfer: the sharded churn tick synchronized outside _transfer_scope: {r.render()}")
+    res["transfer"]["engine"] = engine
+    t = leg("transfer", t)
+
+    # ---- merge: the 73 classifications on the card equal the CPU's
+    card_m = {r.case.name: r.classification for r in merge_contracts.run_merge_contracts(device="cuda")}
+    cpu_m = {r.case.name: r.classification for r in merge_contracts.run_merge_contracts(device="cpu")}
+    res["merge"] = {k: sum(1 for v in card_m.values() if v == k) for k in merge_contracts.CLASSIFICATIONS}
+    if card_m != cpu_m or len(card_m) != 73:
+        fail(f"merge: the card's classifications differ from the CPU's: "
+             f"{ {k: (card_m.get(k), cpu_m.get(k)) for k in set(card_m) | set(cpu_m) if card_m.get(k) != cpu_m.get(k)} }")
+    tshift = [r for r in merge_contracts.run_time_shifted_contracts(device="cuda") if not r.ok]
+    if tshift:
+        fail(f"merge: time-shifted merges diverge on the card: {[(r.case.name, r.detail) for r in tshift]}")
+    t = leg("merge", t)
+
+    # ---- precision: the registry and the five regimes
+    prec = precision_contracts.collect_precision_report(device="cuda")
+    res["precision"] = {"verdicts": {r.name: r.runtime for r in prec if r.name.startswith("regime:")},
+                        "registry": {k: sum(1 for r in prec if not r.name.startswith("regime:")
+                                            and r.runtime.split(":")[0] == k) for k in ("STABLE", "DRIFT", "ERROR")},
+                        "regime_detail": {r.name: r.detail for r in prec if r.name.startswith("regime:")}}
+    bad = [r.render() for r in prec if not r.agree]
+    if bad:
+        fail(f"precision: disagreements on the card: {bad}")
+    t = leg("precision", t)
+
+    # ---- fleet: every bucketable case on CUDA buckets; the kernel classes launch through the vmap rules
+    verdicts, fleet_launches, close = {}, {}, {}
+    for case in fleet_contracts.fleet_cases():
+        before = {k: w.launches for k, w in wrappers.items()}
+        r = fleet_contracts.check_fleet_case(case, "cuda")
+        torch.cuda.synchronize()
+        verdicts[case.name] = r.verdict
+        if r.verdict == "CLOSE":
+            close[case.name] = r.detail
+        got = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches - before[k]}
+        if not r.ok:
+            fail(f"fleet: {r.render()}")
+        if case.name in COST_KERNEL_CASES:
+            fleet_launches[case.name] = got
+            if not got:
+                fail(f"fleet: {case.name}'s CUDA bucket launched no kernel")
+    # the witness of the card's float-state tolerance (fleet CLOSE and the chaos poison row): the same batches
+    # through eager updates and a bucket's vmapped update, each state's largest relative gap
+    by_case = {c.name: c for c in fleet_contracts.fleet_cases()}
+    witness = {name: fleet_contracts.eager_vs_bucket_gap(by_case[name], "cuda")
+               for name in sorted(set(close) | {"StructuralSimilarityIndexMeasure"})}
+    res["fleet"] = {"verdicts": {k: sum(1 for v in verdicts.values() if v == k) for k in ("EXACT", "CLOSE", "LOOSE")},
+                    "close": close, "eager_vs_bucket": witness, "kernel_launches": fleet_launches}
+    log(f"analysis_contracts: eager vs vmapped bucket update, largest relative gap per state: {json.dumps(witness)}")
+    t = leg("fleet", t)
+
+    # ---- chaos: the metric and fleet suites over the kernel classes and BinaryAccuracy
+    by = {c.name: c for c in chaos_contracts.chaos_cases()}
+    chaos = {}
+    for name in CONTRACT_CHAOS_CLASSES:
+        for suite in (chaos_contracts.check_chaos_case, chaos_contracts.check_fleet_chaos_case):
+            r = suite(by[name], "cuda")
+            if not r.ok:
+                fail(f"chaos: {r.render()}")
+            chaos.setdefault(name, []).extend(r.ran)
+    res["chaos"] = {name: len(ran) for name, ran in chaos.items()}
+    t = leg("chaos", t)
+
+    # ---- aot: the environment, a cold build into an empty cache in one process, none in the next
+    res["aot"] = {"environment": aot.environment_fingerprint()}
+    cache = os.path.join(os.path.abspath("chiprun_out"), f"kernel_cache_{os.getpid()}")
+    try:
+        for run in ("cold", "warm"):
+            t1 = time.perf_counter()
+            # the kernel cases' updates run the freshly built libraries; the other cases' were timed above
+            out = subprocess.run([sys.executable, "-m", "metrics_tpu_torch.aot.warm", "--cache-dir", cache,
+                                  "--device", "cuda", "--classes", ",".join(COST_KERNEL_CASES), "--json"],
+                                 capture_output=True, text=True, timeout=600)
+            if out.returncode != 0:
+                fail(f"aot: the {run} warm run failed: {out.stderr[-2000:]}")
+            summary = json.loads(out.stdout.strip().splitlines()[-1])
+            res["aot"][run] = {"seconds": time.perf_counter() - t1, "build_s": summary["built_s"],
+                               "libraries": summary["libraries"], "cases": len(summary["cases"])}
+            want = "built" if run == "cold" else "hit"
+            if summary["error"] or len(summary["cases"]) != len(COST_KERNEL_CASES):
+                fail(f"aot: the {run} run's kernel-case updates failed: {summary['cases']}")
+            if set(summary["libraries"].values()) != {want}:
+                fail(f"aot: the {run} run's libraries are {summary['libraries']}, expected all {want}")
+    finally:
+        aot.purge_cache(cache)
+        if os.path.isdir(cache):
+            os.rmdir(cache)
+    leg("aot", t)
+
+    res["launches"] = {k: w.launches for k, w in wrappers.items()}
+    for k in ("binned_counts", "ssim_window"):
+        if res["launches"][k] < 1:
+            fail(f"analysis_contracts launched no {k}")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"analysis_contracts: {json.dumps(res)}")
     return res
 
 

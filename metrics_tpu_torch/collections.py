@@ -289,6 +289,7 @@ class MetricCollection:
                     continue
                 equal[(k1, k2)] = equal[(k2, k1)] = verdict
         if pending:
+            # hotlint: intentional-transfer: one batched read of every pending equality verdict
             flat = torch.stack([t.to(pending[0][1].device) for _, t in pending]).tolist()
             _observe.note_explicit_transfer("collection_state_equal")
             for ((k1, k2), _), ok in zip(pending, flat):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.compute import acc_dtype
 
 Tensor = torch.Tensor
 
@@ -134,7 +135,7 @@ class PanopticQuality(Metric):
         cats = sorted(things | stuffs)
         self._cat_index = {c: i for i, c in enumerate(cats)}
         n = len(cats)
-        self.add_state("iou_sum", torch.zeros(n, dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("iou_sum", torch.zeros(n, dtype=acc_dtype()), dist_reduce_fx="sum")
         self.add_state("true_positives", torch.zeros(n, dtype=torch.int32), dist_reduce_fx="sum")
         self.add_state("false_positives", torch.zeros(n, dtype=torch.int32), dist_reduce_fx="sum")
         self.add_state("false_negatives", torch.zeros(n, dtype=torch.int32), dist_reduce_fx="sum")

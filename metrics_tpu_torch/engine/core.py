@@ -35,6 +35,7 @@ executable cache are JAX-only.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from collections import OrderedDict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -170,10 +171,23 @@ _REPLICA_JIT_CACHE = ProgramCache("replica", 64)
 _FLEET_JIT_CACHE = ProgramCache("fleet", 256)
 
 
+# id(template) -> its configuration key, dropped with the template: a bucket's template never changes its
+# configuration, and keying a curve's thresholds (a tensor on the card) at every dispatch would read the card
+_TEMPLATE_CONFIG: Dict[int, Any] = {}
+
+
+def _template_config(template: Metric) -> Any:
+    cfg = _TEMPLATE_CONFIG.get(id(template), _TEMPLATE_CONFIG)
+    if cfg is _TEMPLATE_CONFIG:
+        cfg = _TEMPLATE_CONFIG[id(template)] = template._config_key()
+        weakref.finalize(template, _TEMPLATE_CONFIG.pop, id(template), None)
+    return cfg
+
+
 def _template_key(template: Metric) -> Any:
     """The template's program identity: its configuration key and its device (the program makes its
     tensors there; ``config_fingerprint`` leaves the device out on purpose)."""
-    return (template._config_key(), str(template.device))
+    return (_template_config(template), str(template.device))
 
 
 def _key_components(template: Metric, n: int, mode: str, *extra: Tuple[str, Any]) -> Tuple[Tuple[str, Any], ...]:
@@ -182,7 +196,7 @@ def _key_components(template: Metric, n: int, mode: str, *extra: Tuple[str, Any]
     The per-row ``capacity`` is its own component, so masked batch avals are reported with their leading
     (capacity-sized) row axis stripped: growing a bucket then attributes as exactly ``capacity``.
     """
-    cfg = template._config_key()
+    cfg = _template_config(template)
     return (
         ("class", type(template).__name__),
         *(("config:" + k.lstrip("_"), v) for k, v in (cfg[1] if cfg is not None else ())),
@@ -372,7 +386,7 @@ def engine_update_fused(
             comps.append(("buckets", tuple(e.label or type(e.template).__name__ for e in entries)))
         for i, e in enumerate(entries):
             sfx = "" if len(entries) == 1 else f"[{e.label or i}]"
-            cfg = e.template._config_key()
+            cfg = _template_config(e.template)
             groups_sig = specs[i][2]
             comps.append((f"class{sfx}", type(e.template).__name__))
             comps.extend((f"config{sfx}:" + k.lstrip("_"), v) for k, v in (cfg[1] if cfg is not None else ()))
@@ -436,8 +450,10 @@ def engine_update_fused(
             flat = tuple(_as_operand(a, device) for a in tuple(args) + tuple(kwargs[k] for k in kw_names))
             gops.append((mask, flat))
         live = e.live
-        if spec[3] and not isinstance(live, torch.Tensor):
-            live = torch.as_tensor(np.asarray(live, dtype=bool), device=device)
+        if spec[3] and not isinstance(e.live, torch.Tensor):
+            live = torch.from_numpy(np.asarray(e.live, dtype=bool))
+            # from pinned memory a copy to the card does not wait for it (a pageable one would)
+            live = live.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else live.to(device)
         aux.append((gops, live))
     return [tuple(r) for r in entry(states, aux)]  # type: ignore[misc]
 

@@ -508,9 +508,11 @@ class ShardedStreamEngine:
                 v = torch.full_like(d, fill.min if op == "MAX" else fill.max)
             dist.all_reduce(v, op=getattr(dist.ReduceOp, op), group=group)
             state[k] = v
-        if int(count.item()) == 0:
+        # hotlint: intentional-transfer: the folded session count, read once after the all-reduce
+        n = int(count.item())
+        if n == 0:
             return None
-        return state, int(count.item())
+        return state, n
 
     @staticmethod
     def _fold(template: Metric, parts: List[Tuple[Dict[str, Any], int]]) -> Tuple[Dict[str, Any], int]:

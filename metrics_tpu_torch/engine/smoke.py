@@ -40,7 +40,7 @@ from metrics_tpu_torch.engine.core import _FLEET_JIT_CACHE
 from metrics_tpu_torch.engine.stream import StreamEngine
 from metrics_tpu_torch.metric import resolve_device
 from metrics_tpu_torch.observe import recorder as rec_mod
-from metrics_tpu_torch.observe._baseline import load_baseline_section, write_baseline_section
+from metrics_tpu_torch.analysis.engine import load_baseline_section, write_baseline_section
 
 __all__ = [
     "diff_fleet_baseline",
@@ -194,7 +194,7 @@ def run_fleet_smoke(
 
 
 # ------------------------------------------------------------------ baseline IO
-# The file format is the JAX package's (``analysis/engine.py``; here ``observe/_baseline.py``): one JSON object,
+# The file format is the JAX package's (``analysis/engine.py`` in both packages): one JSON object,
 # a top-level "comment" and one object per section; a write rewrites its own section and keeps every sibling.
 def load_fleet_baseline(path: str) -> Dict[str, Any]:
     """The ``fleet`` section of the baseline file at ``path`` ({} when the file or section is missing)."""

@@ -120,11 +120,21 @@ def _submission_sig(args: Tuple[Any, ...], kwargs: Dict[str, Any]) -> Tuple[Any,
     return (len(args), kw_names, tuple(leaf(a) for a in args), tuple(leaf(kwargs[k]) for k in kw_names))
 
 
+# the transfer guard a running transfer contract installed (``analysis/transfer_contracts.py``): every
+# annotated site lifts it for its own extent, as the JAX package's sites scope ``transfer_guard("allow")``
+_TRANSFER_GUARD: Optional[Any] = None
+
+
 @contextlib.contextmanager
 def _transfer_scope(site: str) -> Iterator[None]:
     """An intentional host/device transfer: counted by the ``explicit_transfer`` observe counter, so that
-    a fleet's transfer budget is visible."""
-    yield
+    a fleet's transfer budget is visible, and allowed under a transfer contract's guard."""
+    guard = _TRANSFER_GUARD
+    if guard is None:
+        yield
+    else:
+        with guard.allow(site):
+            yield
     _observe.note_explicit_transfer(site)
 
 
@@ -399,7 +409,9 @@ class StreamEngine:
         return sid
 
     def _apply_add(self, sid: Hashable, metric: Metric) -> None:
-        key = self._bucket_key(metric)
+        # an arrival's configuration tensors (a curve's thresholds on the card) are read once to key its bucket
+        with _transfer_scope("arrival_key"):
+            key = self._bucket_key(metric)
         self._skey_index[str(sid)] = sid
         if key is None:
             self._sessions[sid] = _Session(sid, metric, None, -1)
@@ -409,7 +421,8 @@ class StreamEngine:
         if bucket is None:
             template = metric.clone()
             template.reset()
-            label = _bucket_label(metric)
+            with _transfer_scope("arrival_key"):
+                label = _bucket_label(metric)
             if self._name != "engine":
                 # per-engine label namespace: two shards holding the same class must not fight over one gauge
                 label = f"{self._name}/{label}"
@@ -688,7 +701,7 @@ class StreamEngine:
         return bucket.fold_eligible
 
     def _live_mask(self, bucket: _Bucket) -> np.ndarray:
-        return np.array([sid is not None for sid in bucket.slot_sids], dtype=bool)
+        return np.fromiter((sid is not None for sid in bucket.slot_sids), dtype=bool, count=len(bucket.slot_sids))
 
     def _flush_fleet(self, plans: List["_BucketPlan"]) -> int:
         """Dispatch every planned bucket's every wave as ONE call of the fused program.

@@ -38,7 +38,7 @@ def _psnr_update(
     target = target.float()
     if dim is None:
         sum_squared_error = torch.sum((preds - target) ** 2)
-        return sum_squared_error, torch.tensor(target.numel(), dtype=count_dtype(), device=target.device)
+        return sum_squared_error, torch.full((), target.numel(), dtype=count_dtype(), device=target.device)
     diff = preds - target
     sum_squared_error = torch.sum(diff * diff, dim=dim)
     num = 1

@@ -42,7 +42,9 @@ def _tweedie_deviance_score_update(preds: Tensor, targets: Tensor, power: float 
         raise ValueError(
             f"Deviance Score is not defined for power={power}. Set power to be in (-inf, 0] u [1, inf)."
         )
-    return torch.sum(deviance_score), torch.tensor(deviance_score.numel(), device=deviance_score.device)
+    # a fill on the device, not a copy from the host (which would wait for the card)
+    return torch.sum(deviance_score), torch.full((), deviance_score.numel(), dtype=torch.int64,
+                                                 device=deviance_score.device)
 
 
 def _tweedie_deviance_score_compute(sum_deviance_score: Tensor, num_observations: Tensor) -> Tensor:

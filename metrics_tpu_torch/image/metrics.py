@@ -30,7 +30,7 @@ from metrics_tpu_torch.functional.image.metrics import (
 from metrics_tpu_torch.functional.image.psnr import _psnr_compute, _psnr_update
 from metrics_tpu_torch.functional.image.ssim import _multiscale_ssim_update, _ssim_check_inputs, _ssim_update
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utils.compute import count_dtype
+from metrics_tpu_torch.utils.compute import acc_dtype, count_dtype
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -69,7 +69,7 @@ class PeakSignalNoiseRatio(Metric):
         self.dim = tuple(dim) if isinstance(dim, Sequence) else dim
         self.clamp_range = None
         if dim is None:
-            self.add_state("sum_squared_error", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+            self.add_state("sum_squared_error", torch.zeros((), dtype=acc_dtype()), dist_reduce_fx="sum")
             self.add_state("total", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
         else:
             self.add_state("sum_squared_error", [], dist_reduce_fx="cat")
@@ -149,7 +149,7 @@ class StructuralSimilarityIndexMeasure(Metric):
         if reduction not in valid_reduction:
             raise ValueError(f"Argument `reduction` must be one of {valid_reduction}, but got {reduction}")
         if reduction in ("elementwise_mean", "sum"):
-            self.add_state("similarity", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+            self.add_state("similarity", torch.zeros((), dtype=acc_dtype()), dist_reduce_fx="sum")
         else:
             self.add_state("similarity", [], dist_reduce_fx="cat")
         self.add_state("total", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
@@ -232,7 +232,7 @@ class MultiScaleStructuralSimilarityIndexMeasure(Metric):
         if reduction not in valid_reduction:
             raise ValueError(f"Argument `reduction` must be one of {valid_reduction}, but got {reduction}")
         if reduction in ("elementwise_mean", "sum"):
-            self.add_state("similarity", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+            self.add_state("similarity", torch.zeros((), dtype=acc_dtype()), dist_reduce_fx="sum")
         else:
             self.add_state("similarity", [], dist_reduce_fx="cat")
         self.add_state("total", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
@@ -420,7 +420,7 @@ class TotalVariation(Metric):
             raise ValueError("Expected argument `reduction` to either be 'sum', 'mean', 'none' or None")
         self.reduction = reduction
         if reduction in ("sum", "mean"):
-            self.add_state("score", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+            self.add_state("score", torch.zeros((), dtype=acc_dtype()), dist_reduce_fx="sum")
             self.add_state("num_elements", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
         else:
             self.add_state("score_list", [], dist_reduce_fx="cat")

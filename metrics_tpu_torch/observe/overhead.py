@@ -359,7 +359,7 @@ def run_telemetry_check(
     )
 
     if update_baseline:
-        from metrics_tpu_torch.observe._baseline import write_baseline_section
+        from metrics_tpu_torch.analysis.engine import write_baseline_section
 
         path = os.path.join(root, baseline_path) if baseline_path else _DEFAULT_BASELINE
         write_baseline_section(

@@ -33,7 +33,7 @@ import json
 import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
-from metrics_tpu_torch.observe._baseline import load_baseline_section, write_baseline_section
+from metrics_tpu_torch.analysis.engine import load_baseline_section, write_baseline_section
 from metrics_tpu_torch.observe.costs import CostReport, collect_cost_report
 
 __all__ = [

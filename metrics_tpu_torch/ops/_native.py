@@ -6,10 +6,14 @@ own shared library with a plain C interface, loaded with ``ctypes``; each
 host compiler (``g++ -O3 -shared -fPIC``). The build happens at first use, from
 the sources in the checkout only, into ``metrics_tpu_torch/_build/`` (listed in
 ``.gitignore``). A library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded. :func:`build`
-starts one compiler per source, all at once, each writing a private file that
-is renamed into place, so processes that build at the same time never load
-half a file. A failed build raises: nothing falls back to a plain version.
+edited source is rebuilt. Whether a built library may be reused is decided by
+its manifest (:mod:`metrics_tpu_torch.aot.cache`): a library with no manifest,
+a damaged one, bytes that differ from it, or one written under another torch,
+CUDA, compiler or card is rebuilt, and every build writes its manifest.
+:func:`build` starts one compiler per source, all at once, each writing a
+private file that is renamed into place, so processes that build at the same
+time never load half a file. A failed build raises: nothing falls back to a
+plain version.
 
 Nothing here runs when the package is imported: the CPU tests import every
 module, and a machine may have no ``nvcc``.
@@ -28,7 +32,11 @@ from typing import Dict, Iterable
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+# where the libraries are built and found: the package's _build/, or the directory this variable names
+# (``metrics_tpu_torch.aot.set_cache_dir`` moves it at run time)
+CACHE_ENV_VAR = "METRICS_TPU_TORCH_KERNEL_CACHE"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = Path(os.environ.get(CACHE_ENV_VAR) or DEFAULT_BUILD_DIR)
 KERNEL_SOURCES = ("binned_hist", "ssim_window")
 HOST_SOURCES = ("rle_codec",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -36,6 +44,9 @@ HOST_CXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}  # the compiler's output of each library built by this process
+# how the last build() found each library: "hit" (its manifest validated, nothing built), "built" (no
+# manifest) or "refreshed" (a stale or corrupt manifest, or bytes that differ from it: rebuilt)
+build_outcomes: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -72,18 +83,23 @@ def library_path(name: str) -> Path:
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) -> Dict[str, Path]:
-    """Compile every named library that is not built yet, one compiler each, in parallel.
+    """Compile every named library whose manifest does not validate, one compiler each, in parallel, and
+    write the manifest of each one built.
 
     With ``ptxas_verbose`` ``nvcc`` also reports each kernel's registers,
     spills and shared memory (``-Xptxas -v``), kept in :data:`build_logs`.
     Raises ``RuntimeError`` with the compiler's output if any build fails.
     """
+    from metrics_tpu_torch.aot import cache  # imported here: aot.cache imports this module
+
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     running = []
     for name, path in paths.items():
-        if path.exists():
+        if cache.lookup(name) is not None:
+            build_outcomes[name] = "hit"
             continue
+        build_outcomes[name] = "refreshed" if cache.has_manifest(name) else "built"
         compiler = _cxx() if name in HOST_SOURCES else _nvcc()
         # write to a private name and rename: a concurrent build never sees half a file
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
@@ -101,6 +117,7 @@ def build(names: Iterable[str] = KERNEL_SOURCES, ptxas_verbose: bool = False) ->
         build_logs[name] = out
         if proc.returncode == 0:
             os.replace(tmp, path)
+            cache.store(name)
         else:
             os.unlink(tmp)
             failures.append(

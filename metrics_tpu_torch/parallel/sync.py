@@ -278,6 +278,7 @@ def _gather_many(tensors: List[torch.Tensor], group: Any = None, rec: Any = None
     meta = torch.tensor([_meta(t) for t in tensors], dtype=torch.int64, device=device)
     metas = [torch.empty_like(meta) for _ in range(world)]
     dist.all_gather(metas, meta, group=group)
+    # hotlint: intentional-transfer: the one host read that settles every gathered size and dtype
     table = torch.stack(metas).tolist()  # [rank][state][field]
     out: List[List[torch.Tensor]] = []
     for i, t in enumerate(tensors):

@@ -15,7 +15,7 @@ from metrics_tpu_torch.functional.segmentation.metrics import (
     mean_iou,
 )
 from metrics_tpu_torch.metric import Metric
-from metrics_tpu_torch.utils.compute import count_dtype
+from metrics_tpu_torch.utils.compute import acc_dtype, count_dtype
 from metrics_tpu_torch.utils.data import dim_zero_cat
 
 
@@ -124,7 +124,7 @@ class GeneralizedDiceScore(Metric):
         self.weight_type = weight_type
         self.input_format = input_format
         shape = (num_classes - (0 if include_background else 1),) if per_class else ()
-        self.add_state("score", torch.zeros(shape, dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("score", torch.zeros(shape, dtype=acc_dtype()), dist_reduce_fx="sum")
         self.add_state("samples", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
@@ -173,7 +173,7 @@ class MeanIoU(Metric):
         self.per_class = per_class
         self.input_format = input_format
         shape = (num_classes - (0 if include_background else 1),) if per_class else ()
-        self.add_state("score", torch.zeros(shape, dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("score", torch.zeros(shape, dtype=acc_dtype()), dist_reduce_fx="sum")
         self.add_state("num_batches", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:
@@ -212,7 +212,7 @@ class HausdorffDistance(Metric):
         self.spacing = spacing
         self.directed = directed
         self.input_format = input_format
-        self.add_state("score", torch.zeros((), dtype=torch.float32), dist_reduce_fx="sum")
+        self.add_state("score", torch.zeros((), dtype=acc_dtype()), dist_reduce_fx="sum")
         self.add_state("total", torch.zeros((), dtype=count_dtype()), dist_reduce_fx="sum")
 
     def update(self, preds: torch.Tensor, target: torch.Tensor) -> None:

@@ -122,7 +122,7 @@ def _safe_divide(num, denom, zero_division: float = 0.0) -> torch.Tensor:
     denom = denom.to(work)
     zero_mask = denom == 0
     safe_denom = torch.where(zero_mask, torch.ones((), dtype=work, device=denom.device), denom)
-    quotient = torch.where(zero_mask, torch.tensor(zero_division, dtype=work, device=denom.device), num / safe_denom)
+    quotient = torch.where(zero_mask, torch.full((), zero_division, dtype=work, device=denom.device), num / safe_denom)
     return quotient.to(out_dtype)
 
 

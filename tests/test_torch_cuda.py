@@ -1586,3 +1586,44 @@ def test_model_based_text_and_multimodal_on_the_card_equal_the_cpu(cuda_device):
     assert list(got) == list(want) == ["quality", "user_defined_0"]
     for k in want:
         close(got[k], want[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["BinaryAUROC", "MeanSquaredError", "MeanIoU"])
+def test_transfer_verdict_on_the_card_equals_its_cpu_prediction(cuda_device, name):
+    """Under ``set_sync_debug_mode("error")`` the class's steady update loop does on the card what the CPU's
+    host-read recorder predicted: BinaryAUROC reads the targets' distinct values, the others read nothing."""
+    from metrics_tpu_torch.analysis import transfer_contracts
+
+    case = next(c for c in transfer_contracts.transfer_cases() if c.name == name)
+    card = transfer_contracts.check_transfer_case(case, "cuda")
+    cpu = transfer_contracts.check_transfer_case(case, "cpu")
+    assert card.agree and cpu.agree, (card.render(), cpu.render())
+    assert card.runtime.split(":")[0] == cpu.runtime.split(":")[0], (card.render(), cpu.render())
+
+
+@pytest.mark.cuda
+def test_fleet_contract_on_a_cuda_bucket_launches_the_binned_counts(cuda_device):
+    """BinaryAUROC's churning 4-slot bucket on the card agrees with its per-instance oracles and runs B1
+    through the custom op's ``vmap`` rule."""
+    from metrics_tpu_torch.analysis import fleet_contracts
+
+    case = next(c for c in fleet_contracts.fleet_cases() if c.name == "BinaryAUROC")
+    before = binned_counts.launches
+    r = fleet_contracts.check_fleet_case(case, "cuda")
+    torch.cuda.synchronize()
+    assert r.ok, r.render()
+    assert binned_counts.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["PeakSignalNoiseRatio", "StructuralSimilarityIndexMeasure", "CUSUM"])
+def test_the_eager_and_vmapped_gap_on_the_card_is_inside_the_fleet_tolerance(cuda_device, name):
+    """The classes whose float state the fleet contract holds only within tolerance on the card: the same
+    batches through eager updates and a bucket's vmapped update differ by less than that tolerance."""
+    from metrics_tpu_torch.analysis import fleet_contracts
+
+    case = next(c for c in fleet_contracts.fleet_cases() if c.name == name)
+    gaps = fleet_contracts.eager_vs_bucket_gap(case, "cuda")
+    print(name, gaps)
+    assert len(gaps) == 4 and max(g for tick in gaps.values() for g in tick.values()) <= fleet_contracts._RTOL, gaps

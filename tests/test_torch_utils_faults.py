@@ -306,3 +306,35 @@ def test_the_hugging_face_forwards_run_with_tf32_off(tmp_path):
     finally:
         hook.remove()
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_f5_sum_states_follow_the_float64_regime():
+    """F5: the running sums of PSNR, SSIM, TotalVariation, MeanIoU, GeneralizedDiceScore (and PanopticQuality's
+    IoU sum) were pinned float32, where the JAX package's follow its x64 regime; in the port's float64 regime
+    (torch's default dtype float64) they are float64 as the JAX package's are under ``jax.enable_x64(True)``,
+    and float32 by default as before."""
+    import jax
+
+    import metrics_tpu as J
+    import metrics_tpu_torch as M
+
+    pairs = [("PeakSignalNoiseRatio", {"data_range": 1.0}, "sum_squared_error"),
+             ("StructuralSimilarityIndexMeasure", {"data_range": 1.0}, "similarity"),
+             ("TotalVariation", {}, "score")]
+    prev = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        with jax.enable_x64(True):
+            for name, kw, state in pairs:
+                assert getattr(getattr(M, name)(device="cpu", **kw), state).dtype == torch.float64, name
+                assert getattr(getattr(J, name)(**kw), state).dtype == jnp.float64, name
+            for name in ("MeanIoU", "GeneralizedDiceScore"):
+                kw = {"num_classes": 3, "input_format": "index"}
+                assert getattr(M.segmentation, name)(device="cpu", **kw).score.dtype == torch.float64, name
+                assert getattr(J.segmentation, name)(**kw).score.dtype == jnp.float64, name
+            port = M.PanopticQuality(things={0, 1}, stuffs={6, 7}, device="cpu")
+            assert port.iou_sum.dtype == torch.float64
+            assert J.PanopticQuality(things={0, 1}, stuffs={6, 7}).iou_sum.dtype == jnp.float64
+    finally:
+        torch.set_default_dtype(prev)
+    assert M.PeakSignalNoiseRatio(data_range=1.0, device="cpu").sum_squared_error.dtype == torch.float32
