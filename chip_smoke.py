@@ -175,9 +175,15 @@ Phases, in order; any failure exits non-zero and no phase is skipped:
    classifications equal to the CPU's, the precision registry and its five
    regimes, every bucketable class through a churning CUDA bucket (B1/B2
    launched through the ``vmap`` rules), the chaos metric and fleet suites over
-   the kernel classes and ``BinaryAccuracy``, and the kernel-library cache (a
-   cold build into an empty directory in one process, nothing built in the
-   next);
+   the kernel classes and ``BinaryAccuracy``, jitlint, distlint, donlint and
+   racelint over the port's source clean against their baselines, every
+   functional kernel traced on fake CUDA tensors to its fake CPU trace's shapes,
+   every jit-eligible class's donation lifecycle on the card with the CPU's
+   verdicts (B1/B2 launched), 1,100 interleaving schedules of the served engine
+   with its sessions on the card, and the kernel-library cache (a cold build
+   into an empty directory in one process, then the aot contract over the
+   registry against it with no build of its own, ``ROUNDTRIP`` for every class
+   that launches B1 or B2; nothing built in the next);
 5. time each kernel, its plain version and (for the window) one library call
    with CUDA events at the main path's shapes (the window also at the DIV2K
    first scale, VIF's 17-tap window at the LIVE size and the 8-tap uniform
@@ -6823,24 +6829,37 @@ def analysis_contracts_section(seed: int, wrappers: dict) -> dict:
     registry and the five regimes), fleet (every bucketable case on CUDA buckets, the kernel classes
     launching B1/B2 through the ``vmap`` rules, and the eager-vs-vmapped gap of the classes whose float state
     is held within tolerance), chaos (the metric and fleet suites over the kernel classes
-    and ``BinaryAccuracy``), aot (a cold build into an empty cache in one process, none in the next);
-    launches counted apart."""
+    and ``BinaryAccuracy``), static (jitlint, distlint, donlint and racelint over the port's source, clean
+    against their baselines), abstract (every functional kernel on fake CUDA tensors, shapes and dtypes equal to
+    the fake CPU trace's), donation (every jit-eligible case's 3-update lifecycle on the card, verdicts equal
+    to the CPU's), interleave (1,100 schedules of the served engine with its sessions on the card), aot (a cold
+    build into an empty cache in one process, then the aot contract over the registry against that cache, with
+    no build of its own; none in the next); launches counted apart, per leg."""
     from metrics_tpu_torch import aot
     from metrics_tpu_torch.analysis import (
+        abstract_contracts,
         chaos_contracts,
+        donation_contracts,
         fleet_contracts,
+        interleave_contracts,
         merge_contracts,
         precision_contracts,
         transfer_contracts,
     )
+    from metrics_tpu_torch.analysis import cli as analysis_cli
+    from metrics_tpu_torch.analysis import engine as lint_engine
 
-    res: dict = {"seconds_by_leg": {}}
+    res: dict = {"seconds_by_leg": {}, "launches_by_leg": {}}
     t0 = time.perf_counter()
     for w in wrappers.values():
         w.launches = 0
+    marks = {"launches": {k: 0 for k in wrappers}}
 
     def leg(name, t):
         res["seconds_by_leg"][name] = time.perf_counter() - t
+        now = {k: w.launches for k, w in wrappers.items()}
+        res["launches_by_leg"][name] = {k: now[k] - marks["launches"][k] for k in now}
+        marks["launches"] = now
         return time.perf_counter()
 
     # ---- transfer: every case on the card against its CPU prediction
@@ -6946,7 +6965,62 @@ def analysis_contracts_section(seed: int, wrappers: dict) -> dict:
     res["chaos"] = {name: len(ran) for name, ran in chaos.items()}
     t = leg("chaos", t)
 
-    # ---- aot: the environment, a cold build into an empty cache in one process, none in the next
+    # ---- static: the four newer packs over the port's source, clean against their baselines
+    res["static"] = {}
+    for name in ("jitlint", "distlint", "donlint", "racelint"):
+        spec = analysis_cli._PASSES[name]
+        result = lint_engine.lint_paths([lint_engine.PACKAGE_DIR], root=lint_engine.REPO_ROOT, rules=spec["rules"])
+        baseline = lint_engine.load_baseline(spec["baseline"], section=spec.get("section", "entries"))
+        new, baselined, stale = lint_engine.diff_against_baseline(result.violations, baseline)
+        res["static"][name] = {"files": result.files_scanned, "new": len(new), "baselined": baselined,
+                               "inline_suppressed": result.suppressed, "stale": len(stale)}
+        if new or stale or result.parse_errors:
+            fail(f"static: {name} is not clean against its baseline: {[v.render() for v in new]} stale {stale} "
+                 f"{result.parse_errors}")
+    t = leg("static", t)
+
+    # ---- abstract: every functional kernel on fake CUDA tensors, as on fake CPU tensors
+    card_a = abstract_contracts.verify_contracts(device="cuda")
+    cpu_a = abstract_contracts.verify_contracts(device="cpu")
+    bad = [f"{r.contract.name}: {r.error}" for r in card_a if not r.ok]
+    bad += [r.contract.name for r, c in zip(card_a, cpu_a) if r.outputs != c.outputs]
+    res["abstract"] = {"contracts": len(card_a), "clean": sum(r.ok for r in card_a)}
+    if bad:
+        fail(f"abstract: fake CUDA traces failed or differ from the CPU's: {bad}")
+    t = leg("abstract", t)
+
+    # ---- donation: every jit-eligible case on the card; the kernel classes launch B1 and B2
+    card_d, cpu_d, kernel_launch = {}, {}, {}
+    for case in donation_contracts.donation_cases():
+        before = {k: w.launches for k, w in wrappers.items()}
+        card_d[case.name] = donation_contracts.check_donation_case(case, "cuda")
+        torch.cuda.synchronize()
+        got = {k: w.launches - before[k] for k, w in wrappers.items() if w.launches - before[k]}
+        if case.name in COST_KERNEL_CASES:
+            kernel_launch[case.name] = got
+            if not got.get(COST_KERNEL_CASES[case.name]):
+                fail(f"donation: {case.name} on the card launched no {COST_KERNEL_CASES[case.name]}")
+        cpu_d[case.name] = donation_contracts.check_donation_case(case, "cpu")
+    verdict = lambda r: (r.static_eligible, r.costs_eligible, r.runtime)  # noqa: E731
+    res["donation"] = {"cases": len(card_d), "agree": sum(r.agree for r in card_d.values()),
+                       "kernel_launches": kernel_launch}
+    bad = [r.render() for r in card_d.values() if not r.agree]
+    bad += [f"{n}: card {verdict(r)} cpu {verdict(cpu_d[n])}" for n, r in card_d.items() if verdict(r) != verdict(cpu_d[n])]
+    if bad:
+        fail(f"donation: disagreements on the card: {bad}")
+    t = leg("donation", t)
+
+    # ---- interleave: the full schedule set with the engine's sessions on the card
+    report: dict = {}
+    rc = interleave_contracts.run_interleave_check(os.getcwd(), report=report, device="cuda")
+    res["interleave"] = {"schedules": report["schedules_explored"], "violations": sum(report["violations"].values()),
+                         "explore_s": report["explore_wall_s"]}
+    if rc or report["schedules_explored"] != interleave_contracts.DEFAULT_TARGET_SCHEDULES or report["violations"]:
+        fail(f"interleave: {report['violations']} {report['details'][:5]}")
+    t = leg("interleave", t)
+
+    # ---- aot: the environment, a cold build into an empty cache in one process, then the aot contract over the
+    # registry against that cache (it builds nothing more); none in the next
     res["aot"] = {"environment": aot.environment_fingerprint()}
     cache = os.path.join(os.path.abspath("chiprun_out"), f"kernel_cache_{os.getpid()}")
     try:
@@ -6954,7 +7028,8 @@ def analysis_contracts_section(seed: int, wrappers: dict) -> dict:
             t1 = time.perf_counter()
             # the kernel cases' updates run the freshly built libraries; the other cases' were timed above
             out = subprocess.run([sys.executable, "-m", "metrics_tpu_torch.aot.warm", "--cache-dir", cache,
-                                  "--device", "cuda", "--classes", ",".join(COST_KERNEL_CASES), "--json"],
+                                  "--device", "cuda", "--classes", ",".join(COST_KERNEL_CASES), "--json",
+                                  *(("--contract",) if run == "cold" else ())],
                                  capture_output=True, text=True, timeout=600)
             if out.returncode != 0:
                 fail(f"aot: the {run} warm run failed: {out.stderr[-2000:]}")
@@ -6966,6 +7041,18 @@ def analysis_contracts_section(seed: int, wrappers: dict) -> dict:
                 fail(f"aot: the {run} run's kernel-case updates failed: {summary['cases']}")
             if set(summary["libraries"].values()) != {want}:
                 fail(f"aot: the {run} run's libraries are {summary['libraries']}, expected all {want}")
+            if run == "cold":
+                verdicts = summary["contract"]
+                res["aot"]["contract"] = {"verdicts": {v: sum(1 for x in verdicts.values() if x == v)
+                                                       for v in sorted(set(verdicts.values()))},
+                                          "kernel_classes": {n: verdicts.get(n) for n in COST_KERNEL_CASES},
+                                          "roundtrip": sorted(n for n, v in verdicts.items() if v == "ROUNDTRIP"),
+                                          "builds": summary["contract_builds"], "seconds": summary["contract_s"]}
+                rebuilt = {n: o for n, o in summary["contract_builds"].items() if set(o) != {"hit"}}
+                if summary["contract_failures"] or rebuilt:
+                    fail(f"aot: the contract failed or built: {summary['contract_failures']} {rebuilt}")
+                if any(verdicts.get(n) != "ROUNDTRIP" for n in COST_KERNEL_CASES):
+                    fail(f"aot: a kernel class did not round-trip: { {n: verdicts.get(n) for n in COST_KERNEL_CASES} }")
     finally:
         aot.purge_cache(cache)
         if os.path.isdir(cache):

@@ -1,28 +1,44 @@
 """Analysis command line: ``python -m metrics_tpu_torch.analysis.cli`` (counterpart of
 ``metrics_tpu/analysis/cli.py``).
 
-Two static passes share one engine and one exit-code contract:
+Six static passes share one engine and one exit-code contract, each baselined in
+``metrics_tpu_torch/analysis/baselines/``:
 
-* ``hotlint``: host-sync and dispatch-economy rules HL001-HL006 over the hot-path modules, baselined in the
-  ``entries`` section of ``metrics_tpu_torch/analysis/baselines/hotlint_baseline.json``;
-* ``numlint``: numerical-soundness rules NL001-NL006, baselined in the ``rules`` section of
-  ``metrics_tpu_torch/analysis/baselines/numlint_baseline.json``.
+* ``jitlint``: tracer-safety and recompilation rules JL001-JL006 (``jitlint_baseline.json``);
+* ``distlint``: merge-soundness and collective-safety rules DL001-DL005 (the ``entries`` section of
+  ``distlint_baseline.json``);
+* ``donlint``: state escape and alias rules ML001-ML006 (the ``entries`` section of ``donlint_baseline.json``);
+* ``hotlint``: host-sync and dispatch-economy rules HL001-HL006 over the hot-path modules
+  (``hotlint_baseline.json``);
+* ``numlint``: numerical-soundness rules NL001-NL006 (the ``rules`` section of ``numlint_baseline.json``);
+* ``racelint``: concurrency and ordering rules RC001-RC006 over the control plane (the ``rules`` section of
+  ``racelint_baseline.json``).
 
-Five dynamic passes ride the same selection and exit codes, each on ``--device`` (the card by default):
+Ten dynamic passes ride the same selection and exit codes, cheap first, each on ``--device`` (the card by
+default):
 
+* ``telemetry``: the disabled, watchdog and meter overhead budgets (:mod:`~metrics_tpu_torch.observe.overhead`);
+* ``donation``: 3-update loops against the static donlint verdict and ``costs.py``'s eligibility
+  (:mod:`~metrics_tpu_torch.analysis.donation_contracts`, the ``donation`` section of ``donlint_baseline.json``);
+* ``interleave``: the real server, engine, producer and autonomic stack through 1,100 schedules
+  (:mod:`~metrics_tpu_torch.analysis.interleave_contracts`, the ``interleave`` section of
+  ``racelint_baseline.json``);
 * ``merge``: split-update-merge against the single stream (:mod:`~metrics_tpu_torch.analysis.merge_contracts`);
 * ``transfer``: steady update loops and fleet ticks under a host-read guard
   (:mod:`~metrics_tpu_torch.analysis.transfer_contracts`);
 * ``precision``: float32 streams against a float64 oracle and five adversarial regimes
   (:mod:`~metrics_tpu_torch.analysis.precision_contracts`);
+* ``aot``: the kernel libraries each update loads, reloaded from their manifests with no build
+  (:mod:`~metrics_tpu_torch.analysis.aot_contracts`, ``aot_baseline.json``);
 * ``fleet``: a churning 4-slot ``StreamEngine`` bucket per class (:mod:`~metrics_tpu_torch.analysis.fleet_contracts`);
 * ``chaos``: fault injection into updates, fleets, sharded fleets and the front door
-  (:mod:`~metrics_tpu_torch.analysis.chaos_contracts`).
+  (:mod:`~metrics_tpu_torch.analysis.chaos_contracts`);
+* ``perf``: cost profiles of the registry and the fleet smoke against their ratchet
+  (:mod:`~metrics_tpu_torch.observe.profile`).
 
-Every baseline lives in ``metrics_tpu_torch/analysis/baselines/``. Select passes with ``--pass <name>`` or
-run everything with ``--all``; ``--format json`` (or ``--json``) prints one machine-readable document.
-Exit codes: 0 clean (or fully baselined), 1 new violations or regressions in any selected pass, 2 usage or
-parse error.
+Select passes with ``--pass <name>`` or run everything with ``--all``; ``--format json`` (or ``--json``) prints
+one machine-readable document. Exit codes: 0 clean (or fully baselined), 1 new violations or regressions in any
+selected pass, 2 usage or parse error.
 """
 
 from __future__ import annotations
@@ -34,7 +50,14 @@ import sys
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
-from metrics_tpu_torch.analysis.contexts import NUM_RULE_CODES, SYNC_RULE_CODES
+from metrics_tpu_torch.analysis.contexts import (
+    DIST_RULE_CODES,
+    MEM_RULE_CODES,
+    NUM_RULE_CODES,
+    RACE_RULE_CODES,
+    RULE_CODES,
+    SYNC_RULE_CODES,
+)
 from metrics_tpu_torch.analysis.engine import (
     PACKAGE_DIR,
     REPO_ROOT,
@@ -44,23 +67,57 @@ from metrics_tpu_torch.analysis.engine import (
     write_baseline,
 )
 
-__all__ = ["main", "main_chaoslint", "main_hotlint", "main_numlint"]
+__all__ = [
+    "main",
+    "main_chaoslint",
+    "main_distlint",
+    "main_donlint",
+    "main_hotlint",
+    "main_numlint",
+    "main_racelint",
+]
 
 BASELINE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "baselines")
 
-# "section" names the baseline section the static pass owns (numlint shares its file with the precision pass)
+# "section" names the baseline section the static pass owns (numlint and racelint share their files with a
+# dynamic pass)
 _PASSES: Dict[str, Dict[str, Any]] = {
+    "jitlint": {"rules": RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "jitlint_baseline.json")},
+    "distlint": {"rules": DIST_RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "distlint_baseline.json")},
+    "donlint": {"rules": MEM_RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "donlint_baseline.json")},
     "hotlint": {"rules": SYNC_RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "hotlint_baseline.json")},
     "numlint": {"rules": NUM_RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "numlint_baseline.json"),
                 "section": "rules"},
+    "racelint": {"rules": RACE_RULE_CODES, "baseline": os.path.join(BASELINE_DIR, "racelint_baseline.json"),
+                 "section": "rules"},
 }
 
-# dynamic passes, cheap first for --all
-_DYNAMIC = ("merge", "transfer", "precision", "fleet", "chaos")
+# dynamic passes, cheap first for --all (the JAX package's order, with merge before transfer)
+_DYNAMIC = ("telemetry", "donation", "interleave", "merge", "transfer", "precision", "aot", "fleet", "chaos", "perf")
 
 
 def _dynamic_runner(name: str) -> Callable[..., int]:
     """A dynamic pass's ``run_*_check``, imported on use (each builds the metric registry)."""
+    if name == "telemetry":
+        from metrics_tpu_torch.observe.overhead import run_telemetry_check
+
+        return run_telemetry_check
+    if name == "donation":
+        from metrics_tpu_torch.analysis.donation_contracts import run_donation_check
+
+        return run_donation_check
+    if name == "interleave":
+        from metrics_tpu_torch.analysis.interleave_contracts import run_interleave_check
+
+        return run_interleave_check
+    if name == "aot":
+        from metrics_tpu_torch.analysis.aot_contracts import run_aot_check
+
+        return run_aot_check
+    if name == "perf":
+        from metrics_tpu_torch.observe.profile import run_perf_check
+
+        return run_perf_check
     if name == "merge":
         from metrics_tpu_torch.analysis.merge_contracts import run_merge_check
 
@@ -85,14 +142,15 @@ def _dynamic_runner(name: str) -> Callable[..., int]:
 def _build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="metrics_tpu_torch.analysis.cli",
-        description="Static and dynamic analysis of metrics_tpu_torch: hotlint (HL001-HL006), numlint "
-                    "(NL001-NL006), and the merge, transfer, precision, fleet and chaos contracts.",
+        description="Static and dynamic analysis of metrics_tpu_torch: jitlint (JL001-JL006), distlint "
+                    "(DL001-DL005), donlint (ML001-ML006), hotlint (HL001-HL006), numlint (NL001-NL006), "
+                    "racelint (RC001-RC006), and the dynamic contracts.",
     )
     p.add_argument("targets", nargs="*", default=None,
                    help="files or directories to lint (default: the metrics_tpu_torch package)")
     p.add_argument("--root", default=None, help="root the lint paths are relative to (default: the repository)")
     p.add_argument("--pass", dest="passes", action="append", choices=sorted([*_PASSES, *_DYNAMIC]),
-                   help="which pass to run (repeatable; default: hotlint)")
+                   help="which pass to run (repeatable; default: jitlint)")
     p.add_argument("--all", action="store_true", dest="run_all", help="run every pass in one invocation")
     p.add_argument("--list-rules", action="store_true", dest="list_rules",
                    help="print every rule code with its one-line summary (and the dynamic passes) and exit 0")
@@ -113,7 +171,7 @@ def _selected_passes(args: argparse.Namespace) -> List[str]:
         return sorted(_PASSES) + list(_DYNAMIC)
     if args.passes:
         return list(dict.fromkeys(args.passes))
-    return ["hotlint"]
+    return ["jitlint"]
 
 
 def _pass_rules(name: str, explicit: Optional[List[str]]) -> List[str]:
@@ -122,9 +180,10 @@ def _pass_rules(name: str, explicit: Optional[List[str]]) -> List[str]:
 
 
 def _list_rules(fmt: str) -> int:
-    from metrics_tpu_torch.analysis import num_rules, sync_rules
+    from metrics_tpu_torch.analysis import dist_rules, mem_rules, num_rules, race_rules, rules, sync_rules
 
-    summaries = {"hotlint": sync_rules.SUMMARIES, "numlint": num_rules.SUMMARIES}
+    summaries = {"jitlint": rules.SUMMARIES, "distlint": dist_rules.SUMMARIES, "donlint": mem_rules.SUMMARIES,
+                 "hotlint": sync_rules.SUMMARIES, "numlint": num_rules.SUMMARIES, "racelint": race_rules.SUMMARIES}
     if fmt == "json":
         print(json.dumps({"passes": summaries, "dynamic": list(_DYNAMIC)}, indent=2))
         return 0
@@ -236,6 +295,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     return exit_code
 
 
+def main_distlint(argv: Optional[Sequence[str]] = None) -> int:
+    """The DL rules."""
+    return main(["--pass", "distlint", *(sys.argv[1:] if argv is None else argv)])
+
+
+def main_donlint(argv: Optional[Sequence[str]] = None) -> int:
+    """The ML rules and the donation cross-check."""
+    return main(["--pass", "donlint", "--pass", "donation", *(sys.argv[1:] if argv is None else argv)])
+
+
 def main_hotlint(argv: Optional[Sequence[str]] = None) -> int:
     """The HL rules and the transfer cross-check."""
     return main(["--pass", "hotlint", "--pass", "transfer", *(sys.argv[1:] if argv is None else argv)])
@@ -244,6 +313,11 @@ def main_hotlint(argv: Optional[Sequence[str]] = None) -> int:
 def main_numlint(argv: Optional[Sequence[str]] = None) -> int:
     """The NL rules and the precision cross-check."""
     return main(["--pass", "numlint", "--pass", "precision", *(sys.argv[1:] if argv is None else argv)])
+
+
+def main_racelint(argv: Optional[Sequence[str]] = None) -> int:
+    """The RC rules and the interleaving harness."""
+    return main(["--pass", "racelint", "--pass", "interleave", *(sys.argv[1:] if argv is None else argv)])
 
 
 def main_chaoslint(argv: Optional[Sequence[str]] = None) -> int:

@@ -59,12 +59,21 @@ class ModuleInfo:
     is_package_init: bool
 
     _contexts: Optional[List[TracedContext]] = field(default=None, repr=False)
+    _nodes: Optional[List[ast.AST]] = field(default=None, repr=False)
+    memo: Dict[str, object] = field(default_factory=dict, repr=False)  # per-module results rules share
 
     @property
     def traced_contexts(self) -> List[TracedContext]:
         if self._contexts is None:
             self._contexts = find_traced_contexts(self.tree, self.is_functional)
         return self._contexts
+
+    @property
+    def nodes(self) -> List[ast.AST]:
+        """Every node of the tree, in ``ast.walk`` order (walked once per module)."""
+        if self._nodes is None:
+            self._nodes = list(ast.walk(self.tree))
+        return self._nodes
 
 
 def _v(mod: ModuleInfo, node: ast.AST, rule: str, msg: str, context: str = "<module>") -> Violation:
@@ -91,11 +100,16 @@ def _dotted(e: ast.expr) -> str:
 
 
 def _registry() -> Dict[str, Callable[[ModuleInfo], List[Violation]]]:
-    """Every ported rule by code (imported here, not at the top: the rule modules import this one)."""
+    """Every rule by code, across the six packs (imported here, not at the top: the rule modules import this
+    one); the codes are unique, so ``--rules JL001,DL004,ML002`` selects across packs."""
+    from metrics_tpu_torch.analysis.dist_rules import DIST_RULES
+    from metrics_tpu_torch.analysis.mem_rules import MEM_RULES
     from metrics_tpu_torch.analysis.num_rules import NUM_RULES
+    from metrics_tpu_torch.analysis.race_rules import RACE_RULES
+    from metrics_tpu_torch.analysis.rules import ALL_RULES
     from metrics_tpu_torch.analysis.sync_rules import SYNC_RULES
 
-    return {**SYNC_RULES, **NUM_RULES}
+    return {**ALL_RULES, **DIST_RULES, **MEM_RULES, **SYNC_RULES, **NUM_RULES, **RACE_RULES}
 
 
 class SourceMarkers:
@@ -169,26 +183,38 @@ def _relpath(path: str, root: Optional[str]) -> str:
     return path.replace(os.sep, "/")
 
 
+# parsed modules by (path, repo-relative path, mtime, size): the six passes over one tree parse each file once
+_PARSED: Dict[Tuple[str, str, int, int], Tuple[ModuleInfo, SourceMarkers]] = {}
+
+
+def _parsed(path: str, rel: str) -> Tuple[ModuleInfo, SourceMarkers]:
+    st = os.stat(path)
+    key = (os.path.abspath(path), rel, st.st_mtime_ns, st.st_size)
+    hit = _PARSED.get(key)
+    if hit is None:
+        with open(path, "r", encoding="utf-8") as fh:
+            source = fh.read()
+        mod = ModuleInfo(
+            path=rel,
+            tree=ast.parse(source, filename=path),
+            source=source,
+            is_functional=any(rel.startswith(r) or f"/{r.split('/')[-1]}/" in rel for r in _FUNCTIONAL_ROOTS),
+            is_package_init=os.path.basename(path) == "__init__.py",
+        )
+        hit = _PARSED[key] = (mod, SourceMarkers(source))
+    return hit
+
+
 def lint_file(path: str, root: Optional[str] = None, rules: Optional[Sequence[str]] = None) -> LintResult:
     """Lint one Python source file; ``root`` anchors the repo-relative path. ``rules`` defaults to
     hotlint's codes."""
     result = LintResult(files_scanned=1)
     rel = _relpath(path, root)
     try:
-        with open(path, "r", encoding="utf-8") as fh:
-            source = fh.read()
-        tree = ast.parse(source, filename=path)
+        mod, suppress = _parsed(path, rel)
     except (OSError, SyntaxError) as exc:
         result.parse_errors.append(f"{rel}: {exc}")
         return result
-    mod = ModuleInfo(
-        path=rel,
-        tree=tree,
-        source=source,
-        is_functional=any(rel.startswith(r) or f"/{r.split('/')[-1]}/" in rel for r in _FUNCTIONAL_ROOTS),
-        is_package_init=os.path.basename(path) == "__init__.py",
-    )
-    suppress = SourceMarkers(source)
     registry = _registry()
     for code in rules or SYNC_RULE_CODES:
         rule = registry.get(code.upper())

@@ -142,7 +142,7 @@ def _fold_shards(case: MergeCase, shard_batches: Sequence[Sequence[Tuple[Any, ..
         state = template._merge_state_dicts(state, m.metric_state, count, m._update_count)
         count += m._update_count
     holder = case.ctor(device)
-    holder.__dict__["_state"] = dict(state)
+    holder.__dict__["_state"] = dict(state)  # donlint: disable=ML001 — the replicas are dropped after the fold
     holder._update_count = count
     return holder.compute()
 

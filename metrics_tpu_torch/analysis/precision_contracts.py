@@ -256,7 +256,8 @@ def _regime_counter_overflow(device: Device) -> Tuple[str, str]:
         if m.confmat.dtype != torch.int64:
             return f"DRIFT:dtype={m.confmat.dtype}", "confmat not int64: counter still pinned narrow"
         seed = 2**31 - 3
-        m.__dict__["_state"]["confmat"] = torch.full((2, 2), seed, dtype=torch.int64, device=device)
+        seeded = torch.full((2, 2), seed, dtype=torch.int64, device=device)
+        m.__dict__["_state"]["confmat"] = seeded  # donlint: disable=ML001 — a fresh tensor, held by nothing else
         preds = torch.tensor([0, 1, 1, 0, 1, 0, 1, 1], device=device)
         target = torch.tensor([0, 1, 0, 0, 1, 1, 1, 0], device=device)
         m.update(preds, target)

@@ -245,7 +245,8 @@ class MetricCollection:
             leader = self._modules[cg[0]]
             for name in cg[1:]:
                 member = self._modules[name]
-                member.__dict__["_state"].update({
+                # compute-group members share their leader's tensors by design (no update mutates one in place)
+                member.__dict__["_state"].update({  # donlint: disable=ML001
                     k: (list(leader._state[k]) if isinstance(leader._state[k], list) else leader._state[k])
                     for k in member._defaults
                 })

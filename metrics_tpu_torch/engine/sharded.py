@@ -77,6 +77,7 @@ from metrics_tpu_torch.engine.stream import StreamEngine, _device_key
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.observe import recorder as _observe
 from metrics_tpu_torch.observe import tracing as _trace
+from metrics_tpu_torch.parallel.sync import _all_reduce_in_place
 from metrics_tpu_torch.resilience.checkpoint import (
     CheckpointError,
     CorruptCheckpointError,
@@ -494,7 +495,7 @@ class ShardedStreamEngine:
         local = self._fold(template, grouped) if grouped else None
         device = template.device
         count = torch.tensor([local[1] if local else 0], dtype=torch.int64, device=device)
-        dist.all_reduce(count, op=dist.ReduceOp.SUM, group=group)
+        _all_reduce_in_place(count, "SUM", group)
         state: Dict[str, Any] = {}
         for k, fx in template._reductions.items():
             op = _MESH_OPS[fx]
@@ -506,7 +507,7 @@ class ShardedStreamEngine:
                 d = template._defaults[k]
                 fill = (torch.finfo(d.dtype) if d.is_floating_point() else torch.iinfo(d.dtype))
                 v = torch.full_like(d, fill.min if op == "MAX" else fill.max)
-            dist.all_reduce(v, op=getattr(dist.ReduceOp, op), group=group)
+            _all_reduce_in_place(v, op, group)
             state[k] = v
         # hotlint: intentional-transfer: the folded session count, read once after the all-reduce
         n = int(count.item())

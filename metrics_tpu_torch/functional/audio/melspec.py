@@ -18,6 +18,10 @@ its conventions are reproduced:
   the maximum of the whole given array: batched callers loop per item.
 """
 
+# Mel filterbank construction and STFT framing run on the host in float64 for librosa parity; the results
+# are cast to float32 on the device at the boundary.
+# jitlint: disable-file=JL004
+
 from __future__ import annotations
 
 from typing import Optional

@@ -42,7 +42,7 @@ def _erb_center_freqs(low_freq: float, high_freq: float, n: int, device) -> Tens
     c = _EAR_Q * _MIN_BW
     # the float32 step -log(high + c) + log(low + c) on the host, so that nothing is copied to the device
     ends = torch.log(torch.tensor([high_freq + c, low_freq + c], dtype=torch.float32))
-    step = float(-ends[0] + ends[1])
+    step = float(-ends[0] + ends[1])  # jitlint: disable=JL001 — a CPU tensor of two Python floats
     idx = torch.arange(1, n + 1, dtype=torch.float32, device=device)
     return -c + torch.exp(idx * step / n) * (high_freq + c)
 

@@ -86,7 +86,7 @@ def np_vals(x: Tensor) -> list:
     """The values of ``x`` as a host list (a validation helper, as in the JAX package)."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy().tolist()
-    return np.asarray(x).tolist()
+    return np.asarray(x).tolist()  # jitlint: disable=JL004 — x is a host value here
 
 
 # --------------------------------------------------------------------------- binary

@@ -11,6 +11,8 @@ from typing import Any, Callable, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.utils.checks import _is_traced
+
 __all__ = ["learned_perceptual_image_patch_similarity", "perceptual_path_length"]
 
 
@@ -38,7 +40,10 @@ def learned_perceptual_image_patch_similarity(
 
 
 def _validate_lpips_images(img1: torch.Tensor, img2: torch.Tensor, normalize: bool) -> None:
-    """(N, 3, H, W) inputs in [0, 1] when ``normalize`` else [-1, 1] (one host read of each batch's range)."""
+    """(N, 3, H, W) inputs in [0, 1] when ``normalize`` else [-1, 1] (one host read of each batch's range).
+
+    Traced inputs (under ``vmap`` or a fake-tensor trace) are held to the shape check only: their values cannot
+    be read on the host, as in the JAX package."""
 
     def bounds(img: torch.Tensor) -> Tuple[float, float]:
         lo, hi = torch.aminmax(img)
@@ -47,12 +52,14 @@ def _validate_lpips_images(img1: torch.Tensor, img2: torch.Tensor, normalize: bo
     def ok(img: torch.Tensor) -> bool:
         if img.ndim != 4 or img.shape[1] != 3:
             return False
+        if _is_traced(img):
+            return True
         lo, hi = bounds(img)
         return (hi <= 1.0 and lo >= 0.0) if normalize else lo >= -1.0
 
     if not (ok(img1) and ok(img2)):
         ranges = ""
-        if img1.numel() and img2.numel():
+        if img1.numel() and img2.numel() and not _is_traced(img1, img2):
             ranges = f" and values in range {list(bounds(img1))} and {list(bounds(img2))}"
         raise ValueError(
             "Expected both input arguments to be normalized tensors with shape [N, 3, H, W]."

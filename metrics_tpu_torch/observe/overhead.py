@@ -382,7 +382,7 @@ def run_telemetry_check(
         report["disabled_mode"] = measured
         report["enabled_watchdog"] = wd_measured
         report["enabled_metering"] = mt_measured
-    if not quiet:
+    if not quiet and report is None:  # with a report the caller owns stdout (one JSON document)
         verdict = "ok" if ok else "FAIL"
         print(
             f"telemetry: disabled-mode overhead {measured['overhead_pct']:.3f}% "

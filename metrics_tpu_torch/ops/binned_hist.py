@@ -255,6 +255,23 @@ def _binned_counts_labels_vmap(info, in_dims, preds, labels, thresholds):
     return _batched_columns(preds, target01, valid, thresholds, batch)
 
 
+def _counts_like(preds: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    """Empty (C, T), (C, T), (C,), (C,) int32 counts: the shapes and types of both ops' outputs."""
+    num_c, len_t = preds.shape[1], thresholds.shape[0]
+    return (preds.new_empty((num_c, len_t), dtype=torch.int32), preds.new_empty((num_c, len_t), dtype=torch.int32),
+            preds.new_empty((num_c,), dtype=torch.int32), preds.new_empty((num_c,), dtype=torch.int32))
+
+
+@_binned_counts_op.register_fake
+def _binned_counts_fake(preds, target01, valid, thresholds):
+    return _counts_like(preds, thresholds)
+
+
+@_binned_counts_labels_op.register_fake
+def _binned_counts_labels_fake(preds, labels, thresholds):
+    return _counts_like(preds, thresholds)
+
+
 def _check_device(preds: torch.Tensor, what: str) -> None:
     """Before the op's dispatch: a tensor on another device (``meta``) would reach no implementation of it."""
     if preds.device.type not in ("cpu", "cuda"):

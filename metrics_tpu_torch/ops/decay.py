@@ -22,12 +22,13 @@ functions say which form they reproduce.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from metrics_tpu_torch.utils.checks import device_constant_cache
 
 __all__ = [
     "cusum_compose",
@@ -53,10 +54,11 @@ def _fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
     return (a.to(torch.float64) * b + c).to(torch.float32)
 
 
-@functools.lru_cache(maxsize=8)
+@device_constant_cache(maxsize=8)
 def _poly_f64(device: torch.device) -> Tuple[torch.Tensor, ...]:
     """The polynomial's float32 coefficients as float64 tensors on ``device``, made once."""
-    return tuple(torch.full((), _f32(c), dtype=torch.float64, device=device) for c in _EXP_POLY)
+    # float64 by design: the products of the float32 polynomial are exact
+    return tuple(torch.full((), _f32(c), dtype=torch.float64, device=device) for c in _EXP_POLY)  # jitlint: disable=JL004
 
 
 def _exp_f32(x: torch.Tensor) -> torch.Tensor:

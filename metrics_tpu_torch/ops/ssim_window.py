@@ -107,6 +107,11 @@ def _ssim_window_vmap(info, in_dims, x, kh, kw):
     return out.reshape(rows, planes, *out.shape[1:]), 0
 
 
+@_ssim_window_op.register_fake
+def _ssim_window_fake(x, kh, kw):
+    return x.new_empty((x.shape[0], x.shape[1] - len(kh) + 1, x.shape[2] - len(kw) + 1))
+
+
 _THROUGH_OP = [0]
 
 
@@ -125,7 +130,7 @@ def ssim_window(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> to
     """Windowed sum of (N, H_pad, W_pad) float32 planes: the kernel on CUDA, the plain version on the CPU.
 
     Under ``torch.func.vmap`` (or :func:`through_custom_op`) it calls the custom op, whose rule makes one call
-    of the batch's planes.
+    of the batch's planes; on a fake tensor (a shape trace) the op's fake implementation gives the shape.
     """
     if _is_traced(x) or _THROUGH_OP[0]:
         return _ssim_window_op(x, [float(v) for v in kh], [float(v) for v in kw])

@@ -370,6 +370,13 @@ def _all_reduce(value: torch.Tensor, fx: Any, group: Any) -> torch.Tensor:
     return work
 
 
+def _all_reduce_in_place(tensor: torch.Tensor, op: str, group: Any) -> torch.Tensor:
+    """``tensor`` all-reduced over ``group`` by ``op`` (``"SUM"``, ``"MAX"`` or ``"MIN"``), in place: the sharded
+    engine's cross-group stage, whose operands are fresh tensors of its own."""
+    dist.all_reduce(tensor, op=getattr(dist.ReduceOp, op), group=group)
+    return tensor
+
+
 def sync_states(
     state: Dict[str, Any],
     reductions: Dict[str, Any],

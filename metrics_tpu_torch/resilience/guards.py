@@ -130,7 +130,8 @@ def run_guarded_update(metric: Any, args: Tuple[Any, ...], kwargs: Dict[str, Any
         after = metric.__dict__["_state"]
         for key, old in snapshot.items():
             after[key] = torch.where(bad, old, after[key])
-    metric.__dict__["_state"][GUARD_STATE] = prev_counter + bad.to(prev_counter.dtype)
+    counter = prev_counter + bad.to(prev_counter.dtype)
+    metric.__dict__["_state"][GUARD_STATE] = counter  # donlint: disable=ML001 — a fresh sum, held by nothing else
 
 
 def poisoned_count(metric: Any) -> int:

@@ -51,7 +51,9 @@ class ReservoirSample(Metric):
 
     def update(self, value: torch.Tensor) -> None:
         value = torch.as_tensor(value, device=self.device)
-        self.packed = reservoir_fold(
+        # bottom-k is a rank filter — an order-invariant fold the static rule cannot recognize; the dynamic merge
+        # harness verifies the claim
+        self.packed = reservoir_fold(  # distlint: disable=DL002
             self.packed, value, torch.ones(value.shape, dtype=torch.bool, device=self.device), seed=self.seed
         )
 

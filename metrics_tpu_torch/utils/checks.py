@@ -2,23 +2,54 @@
 
 :func:`_is_traced` is the port's traced mode: an update body runs under
 ``torch.func.vmap`` when the fleet engine or a replica wrapper batches it, and
-its tensors are then functorch wrappers, which cannot be read on the host.
-Value checks that the JAX package skips under tracing are skipped there too,
-and the ones it refuses raise :class:`~metrics_tpu_torch.utils.exceptions.TraceIneligibleError`.
+its tensors are then functorch wrappers, which cannot be read on the host; a
+shape trace (``torch._subclasses.FakeTensorMode``, the abstract contracts) holds
+fake tensors, which have no values at all. Value checks that the JAX package
+skips under tracing are skipped there too, and the ones it refuses raise
+:class:`~metrics_tpu_torch.utils.exceptions.TraceIneligibleError`.
 """
 
 from __future__ import annotations
 
+import functools
 from time import perf_counter
-from typing import Any, Optional, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 
 def _is_traced(*xs: Any) -> bool:
-    """True when any input is a tensor wrapped by ``torch.func`` (inside ``vmap`` or ``grad``): skip value checks."""
-    return any(isinstance(x, torch.Tensor) and torch._C._functorch.is_functorch_wrapped_tensor(x) for x in xs)
+    """True when any input is a tensor wrapped by ``torch.func`` (inside ``vmap`` or ``grad``) or a fake tensor
+    (a shape trace): skip value checks."""
+    return any(isinstance(x, torch.Tensor)
+               and (isinstance(x, FakeTensor) or torch._C._functorch.is_functorch_wrapped_tensor(x)) for x in xs)
+
+
+def _shape_trace_active() -> bool:
+    """Is a ``FakeTensorMode`` on the dispatch stack (a shape trace, where every new tensor is fake)?"""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    return any(isinstance(mode, FakeTensorMode) for mode in _get_current_dispatch_mode_stack())
+
+
+def device_constant_cache(maxsize: int) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    """``functools.lru_cache`` for functions that build per-device constant tensors, bypassed under a shape trace: a fake
+    constant kept there would reach the next real call on the same device."""
+
+    def decorate(fn: Callable[..., Any]) -> Callable[..., Any]:
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def wrapper(*args: Any) -> Any:
+            return fn(*args) if _shape_trace_active() else cached(*args)
+
+        wrapper.cache_clear = cached.cache_clear  # type: ignore[attr-defined]
+        return wrapper
+
+    return decorate
 
 
 def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:

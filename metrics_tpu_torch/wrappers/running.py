@@ -65,7 +65,7 @@ class Running(WrapperMetric):
         for i, st in enumerate(states[1:], start=1):
             # the accumulator holds i updates against the incoming one: mean states weigh so
             merged = fns.merge(merged, st, i, 1)
-        self.base_metric.__dict__["_state"].update(merged)
+        self.base_metric.__dict__["_state"].update(merged)  # donlint: disable=ML001 — the window's own fold
         self.base_metric._update_count = len(states)
         self.base_metric._computed = None
 

@@ -1,14 +1,12 @@
 """The port's static analysis against the JAX package's: hotlint (HL001-HL006) and numlint (NL001-NL006) on a
 torch rewrite of every snippet of this package's rule tests, the lint engine's baseline arithmetic and
-suppression grammar on identical inputs, and both passes clean over the port's own source against the port's
-baselines (each entry with its reason)."""
+suppression grammar on identical inputs, and all six passes clean over the port's own source against the port's
+baselines (each entry with its reason). The other four packs' snippets are in ``test_torch_analysis_rules.py``."""
 
 from __future__ import annotations
 
-import ast
 import json
 import os
-import re
 import textwrap
 
 import pytest
@@ -17,69 +15,10 @@ from metrics_tpu.analysis import contexts as jctx
 from metrics_tpu.analysis import engine as jeng
 from metrics_tpu_torch.analysis import cli, contexts as tctx, engine as teng
 
+from _torch_lint_snippets import lint, snippets, to_torch
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-# ---------------------------------------------------------------------------------------- the snippets
-# the JAX spellings of the rule tests and their torch counterparts, applied in order; `jax.device_get` is the
-# JAX package's explicit fetch (HL001-HL003, HL006) and its blocking call (HL005), which are two calls here
-_COMMON = [
-    (r"import jax\.numpy as jnp", "import torch"),
-    (r"from jax import Array", "from torch import Tensor"),
-    (r"\bArray\b", "Tensor"),
-    (r"import jax\b", "import torch"),
-    (r"jnp\.maximum\(d, jnp\.finfo\(x\.dtype\)\.tiny\)", "torch.clamp(d, min=torch.finfo(x.dtype).tiny)"),
-    (r"jnp\.clip\(", "torch.clamp("),
-    (r"jnp\.divide\(", "torch.div("),
-    (r"jnp\.zeros\(\(([^()]*)\), jnp\.(\w+)\)", r"torch.zeros((\1), dtype=torch.\2)"),
-    (r"\.astype\(", ".to("),
-    (r"jnp\.", "torch."),
-    (r"@jax\.jit", "@torch.compile"),
-    (r"jax\.jit\(", "torch.compile("),
-    (r"(\w+)\.block_until_ready\(\)", r"torch.cuda.synchronize(\1.device)"),
-    (r"metrics_tpu\.", "metrics_tpu_torch."),
-]
-_FETCH = [(r"jax\.device_get\(([^()]*(?:\([^()]*\))?[^()]*)\)", r"_host_fetch(\1, 'test')")]
-_BLOCK = [(r"jax\.device_get\(", "torch.cuda.synchronize(")]
-
-
-def _to_torch(source: str, rules) -> str:
-    table = (_BLOCK if rules == ["HL005"] else _FETCH) + _COMMON
-    for pattern, repl in table:
-        source = re.sub(pattern, repl, source)
-    return source
-
-
-def _snippets(test_file: str, default_rel: str, codes):
-    """Every ``run_lint(tmp_path, <source>, rel=..., rules=[...])`` of a JAX rule-test file."""
-    tree = ast.parse(open(os.path.join(ROOT, "tests", test_file)).read())
-    class_consts = {st.targets[0].id: st.value.value for node in ast.walk(tree) if isinstance(node, ast.ClassDef)
-                    for st in node.body if isinstance(st, ast.Assign) and isinstance(st.value, ast.Constant)}
-    mod_consts = {st.targets[0].id: st.value.value for st in tree.body
-                  if isinstance(st, ast.Assign) and isinstance(st.value, ast.Constant)}
-    out = []
-    for fn in (n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef) and n.name.startswith("test_")):
-        for call in ast.walk(fn):
-            if not (isinstance(call, ast.Call) and isinstance(call.func, ast.Name) and call.func.id == "run_lint"):
-                continue
-            src = call.args[1]
-            source = src.value if isinstance(src, ast.Constant) else class_consts.get(getattr(src, "attr", ""))
-            kw = {k.arg: k.value for k in call.keywords}
-            rel = default_rel
-            if "rel" in kw:
-                rel = kw["rel"].value if isinstance(kw["rel"], ast.Constant) else mod_consts[kw["rel"].id]
-            rules = [e.value for e in kw["rules"].elts] if isinstance(kw.get("rules"), ast.List) else None
-            if source is not None:
-                out.append(pytest.param(source, rel, rules or list(codes), id=f"{fn.name}:{rel.rsplit('/', 1)[-1]}"))
-    return out
-
-
-def _lint(engine, tmp_path, source, rel, rules):
-    path = tmp_path / rel
-    path.parent.mkdir(parents=True, exist_ok=True)
-    path.write_text(textwrap.dedent(source))
-    res = engine.lint_file(str(path), root=str(tmp_path), rules=rules)
-    return [v.rule for v in res.violations], res.suppressed
-
+_to_torch, _snippets, _lint = to_torch, snippets, lint
 
 SNIPPETS = (_snippets("test_sync_rules.py", "metrics_tpu/engine/mod.py", jctx.SYNC_RULE_CODES)
             + _snippets("test_num_rules.py", "metrics_tpu/functional/kern.py", jctx.NUM_RULE_CODES))
@@ -149,7 +88,7 @@ def test_baseline_sections_round_trip_between_packages(tmp_path):
 
 
 # ---------------------------------------------------------------------------------------- the port's source
-@pytest.mark.parametrize("name", ["hotlint", "numlint"])
+@pytest.mark.parametrize("name", ["jitlint", "distlint", "donlint", "hotlint", "numlint", "racelint"])
 def test_the_port_is_clean_against_its_baselines(name, capsys):
     """Each pass over the whole package: no new violation, no stale entry, every entry with a reason; the
     baselines live inside the package."""
@@ -165,11 +104,19 @@ def test_the_port_is_clean_against_its_baselines(name, capsys):
 
 
 def test_list_rules_names_every_code(capsys):
+    """Every code of the six packs, and the JAX package's dynamic passes in its cheap-first order (the port's
+    merge pass, which the JAX command line lacks, before transfer)."""
+    from metrics_tpu.analysis import cli as jcli
+
     assert cli.main(["--list-rules", "--format", "json"]) == 0
     listing = json.loads(capsys.readouterr().out)
-    assert sorted(listing["passes"]["hotlint"]) == list(tctx.SYNC_RULE_CODES)
-    assert sorted(listing["passes"]["numlint"]) == list(tctx.NUM_RULE_CODES)
-    assert listing["dynamic"] == ["merge", "transfer", "precision", "fleet", "chaos"]
+    for name, codes in (("jitlint", tctx.RULE_CODES), ("distlint", tctx.DIST_RULE_CODES),
+                        ("donlint", tctx.MEM_RULE_CODES), ("hotlint", tctx.SYNC_RULE_CODES),
+                        ("numlint", tctx.NUM_RULE_CODES), ("racelint", tctx.RACE_RULE_CODES)):
+        assert sorted(listing["passes"][name]) == list(codes), name
+    assert [p for p in listing["dynamic"] if p != "merge"] == list(jcli._DYNAMIC)
+    assert listing["dynamic"].index("merge") == listing["dynamic"].index("transfer") - 1
+    assert sorted(cli._PASSES) == sorted(jcli._PASSES)
 
 
 def test_a_planted_host_read_fails_hotlint(tmp_path, capsys):

@@ -1627,3 +1627,36 @@ def test_the_eager_and_vmapped_gap_on_the_card_is_inside_the_fleet_tolerance(cud
     gaps = fleet_contracts.eager_vs_bucket_gap(case, "cuda")
     print(name, gaps)
     assert len(gaps) == 4 and max(g for tick in gaps.values() for g in tick.values()) <= fleet_contracts._RTOL, gaps
+
+
+@pytest.mark.cuda
+def test_abstract_contracts_on_fake_cuda_tensors_equal_the_cpu_s(cuda_device):
+    """Every functional kernel traces on fake CUDA tensors (the wrappers' card branch, through the three ops'
+    fake implementations) to the shapes and dtypes of its fake CPU trace, and launches nothing."""
+    from metrics_tpu_torch.analysis.abstract_contracts import verify_contracts
+
+    before = (binned_counts.launches, binned_counts_labels.launches, ssim_window.launches)
+    card, cpu = verify_contracts(device="cuda"), verify_contracts(device="cpu")
+    assert [r.error for r in card if not r.ok] == []
+    assert [r.outputs for r in card] == [r.outputs for r in cpu]
+    assert (binned_counts.launches, binned_counts_labels.launches, ssim_window.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,kernel", [("BinaryAUROC", "binned_counts"), ("MulticlassAUROC", "binned_counts_labels"),
+                                         ("StructuralSimilarityIndexMeasure", "ssim_window")])
+def test_a_donation_case_per_kernel_on_the_card(cuda_device, name, kernel):
+    """The 3-update lifecycle on the card launches the class's kernel and gives the CPU's verdict."""
+    from metrics_tpu_torch.analysis.donation_contracts import check_donation_case, donation_cases
+
+    case = next(c for c in donation_cases() if c.name == name)
+    wrapper = {"binned_counts": binned_counts, "binned_counts_labels": binned_counts_labels,
+               "ssim_window": ssim_window}[kernel]
+    before = wrapper.launches
+    card = check_donation_case(case, "cuda")
+    torch.cuda.synchronize()
+    assert wrapper.launches - before >= 3
+    cpu = check_donation_case(case, "cpu")
+    assert card.agree and card.runtime == "EAGER", card.render()
+    assert (card.static_eligible, card.costs_eligible, card.runtime) == (cpu.static_eligible, cpu.costs_eligible,
+                                                                         cpu.runtime)

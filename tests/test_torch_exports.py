@@ -406,15 +406,11 @@ JAX_ONLY = {
     "metrics_tpu.aot.runtime": {"AotBinding"},
 }
 
-# names of shared modules still to port (ROADMAP.md section A, the next analysis slice): the jitlint, distlint,
-# donlint and racelint rule packs and the passes that run them; a name that lands must leave this map
-PENDING = {
-    "metrics_tpu.analysis": {"ALL_RULES", "DIST_RULES", "MEM_RULES", "RACE_RULES"},
-    "metrics_tpu.analysis.cli": {"main_distlint", "main_donlint", "main_racelint"},
-}
-# JAX analysis modules with no port module yet, the same slice
-PENDING_MODULES = ["abstract_contracts", "aot_contracts", "dist_rules", "donation_contracts", "interleave_contracts",
-                   "mem_rules", "race_rules", "rules"]
+# names of shared modules still to port (ROADMAP.md section A): none — the analysis slice landed the last of
+# them; a name the JAX package adds must be ported or listed here
+PENDING: dict = {}
+# JAX analysis modules with no port module yet: none
+PENDING_MODULES: list = []
 
 
 def _shared_modules():

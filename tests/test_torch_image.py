@@ -166,12 +166,13 @@ def test_avg_pool2d_drops_an_odd_last_row_or_column(shape):
 
 # ----------------------------------------------------------------------------- MS-SSIM
 BETAS3 = (0.3, 0.4, 0.3)
+_MS_SHAPE = (2, 3, 47, 53)  # non-square, odd: every scale's pooling drops a row or a column
 
 
 @pytest.mark.parametrize("normalize", ["relu", "simple", None])
 @pytest.mark.parametrize("reduction", ["elementwise_mean", "sum", "none"])
 def test_functional_ms_ssim_matches_reference(normalize, reduction):
-    a, b = _images(30, shape=(2, 3, 47, 53))
+    a, b = _images(30, shape=_MS_SHAPE)
     kw = {"betas": BETAS3, "normalize": normalize, "reduction": reduction, "data_range": 1.0}
     _close(tfi.multiscale_structural_similarity_index_measure(torch.from_numpy(a), torch.from_numpy(b), **kw),
            jfi.multiscale_structural_similarity_index_measure(jnp.asarray(a), jnp.asarray(b), **kw))
@@ -189,9 +190,10 @@ def test_functional_ms_ssim_matches_reference(normalize, reduction):
 )
 def test_functional_ms_ssim_options_match_reference(kwargs):
     # dissimilar images: some contrast terms go negative, which the relu normalisation clips
+    # the shape of the reductions' test above, so that the reference's per-shape programs serve both
     rng = np.random.RandomState(31)
-    a = rng.rand(2, 2, 50, 46).astype(np.float32)
-    b = np.where(rng.rand(2, 2, 50, 46) < 0.5, a, rng.rand(2, 2, 50, 46)).astype(np.float32)
+    a = rng.rand(*_MS_SHAPE).astype(np.float32)
+    b = np.where(rng.rand(*_MS_SHAPE) < 0.5, a, rng.rand(*_MS_SHAPE)).astype(np.float32)
     kw = {"betas": BETAS3, **kwargs}
     _close(tfi.multiscale_structural_similarity_index_measure(torch.from_numpy(a), torch.from_numpy(b), **kw),
            jfi.multiscale_structural_similarity_index_measure(jnp.asarray(a), jnp.asarray(b), **kw))
@@ -209,7 +211,7 @@ def test_ms_ssim_metric_over_several_updates(reduction):
     port = ti.MultiScaleStructuralSimilarityIndexMeasure(device="cpu", **kw)
     ref = ji.MultiScaleStructuralSimilarityIndexMeasure(**kw)
     for seed in range(3):
-        a, b = _images(seed + 33, shape=(2, 1, 45, 48), scale=1.0 + seed)
+        a, b = _images(seed + 33, shape=_MS_SHAPE, scale=1.0 + seed)
         port.update(torch.from_numpy(a), torch.from_numpy(b))
         ref.update(jnp.asarray(a), jnp.asarray(b))
     assert int(port.total) == int(ref.total) == 6
