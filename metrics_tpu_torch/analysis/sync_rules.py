@@ -533,10 +533,11 @@ def class_sync_hazards(cls: ast.ClassDef) -> List[str]:
 
 def _callees(fn_node: ast.AST, fn_obj: Callable[..., object], cls: Optional[type] = None) -> List[Callable[..., object]]:
     """The package's functions a body calls: ``f(...)`` and ``module.f(...)`` resolved in the function's
-    module globals, and ``self.m(...)`` resolved on ``cls`` (a method of a class below ``Metric``)."""
+    module globals (a decorated function's own, past its wrapper), and ``self.m(...)`` resolved on ``cls`` (a
+    method of a class below ``Metric``)."""
     import inspect
 
-    glb = getattr(fn_obj, "__globals__", {})
+    glb = getattr(inspect.unwrap(fn_obj), "__globals__", {})
     out = []
     for node in ast.walk(fn_node):
         if not isinstance(node, ast.Call):

@@ -559,52 +559,50 @@ def replay_wal(engine: Any, wal_path: Union[str, os.PathLike], device: DeviceLik
     n_replayed = 0
     if not os.path.exists(wal_path):
         return 0
-    t0_replay = _observe.clock()
-    records, torn = IngestWAL.read_records_detailed(wal_path)
-    if torn is not None:
-        engine._wal_torn = (torn["frame_index"], torn["byte_offset"])
-        _observe.note_wal_torn_tail(name, torn["frame_index"], torn["byte_offset"])
-    engine._replaying = True
-    try:
-        for kind, seq, sid, payload in records:
-            engine._seq = max(engine._seq, seq)
-            if engine._is_applied(seq):
-                continue
-            if kind == "submit":
-                sess = engine._sessions.get(sid)
-                if sess is None:
-                    raise CorruptCheckpointError(
-                        f"{wal_path}: journal submit seq={seq} targets unknown "
-                        f"session {sid!r} (journal/checkpoint mismatch)"
-                    )
-                args, kwargs = payload
-                dev = _session_device(sess)
-                engine._route(
-                    sess, seq, tuple(_on_device(a, dev) for a in args), {k: _on_device(v, dev) for k, v in kwargs.items()}
-                )
-            elif kind == "add":
-                if isinstance(payload, tuple) and len(payload) == 2 and payload[0] == "__metric__":
-                    payload = _unpack(payload[1], f"journal add seq={seq} metric", wal_path, device)
-                engine._apply_add(sid, payload)
-                if isinstance(sid, int) and sid >= engine._next_auto:
-                    engine._next_auto = sid + 1  # auto-assigned ids must not recycle
-                engine._mark_applied(seq)
-            elif kind == "expire":
-                engine._apply_expire(sid)
-                engine._mark_applied(seq)
-            elif kind == "reset":
-                engine._apply_reset(sid)
-                engine._mark_applied(seq)
-            elif kind == "serve_mark":
-                # remote producer watermark: sid is the producer name, payload its highest applied pseq
-                marks = engine._serve_marks
-                marks[sid] = max(marks.get(sid, 0), int(payload))
-                engine._mark_applied(seq)
-            else:
-                raise CorruptCheckpointError(f"{wal_path}: journal record seq={seq} has unknown kind {kind!r}")
-            n_replayed += 1
-    finally:
-        engine._replaying = False
-    _trace.record_complete("wal", "replay", t0_replay, _observe.clock())
+    with _trace.span("wal", "replay"):
+        records, torn = IngestWAL.read_records_detailed(wal_path)
+        if torn is not None:
+            engine._wal_torn = (torn["frame_index"], torn["byte_offset"])
+            _observe.note_wal_torn_tail(name, torn["frame_index"], torn["byte_offset"])
+        engine._replaying = True
+        try:
+            for kind, seq, sid, payload in records:
+                engine._seq = max(engine._seq, seq)
+                if engine._is_applied(seq):
+                    continue
+                if kind == "submit":
+                    sess = engine._sessions.get(sid)
+                    if sess is None:
+                        raise CorruptCheckpointError(
+                            f"{wal_path}: journal submit seq={seq} targets unknown "
+                            f"session {sid!r} (journal/checkpoint mismatch)"
+                        )
+                    args, kwargs = payload
+                    dev = _session_device(sess)
+                    engine._route(sess, seq, tuple(_on_device(a, dev) for a in args),
+                                  {k: _on_device(v, dev) for k, v in kwargs.items()})
+                elif kind == "add":
+                    if isinstance(payload, tuple) and len(payload) == 2 and payload[0] == "__metric__":
+                        payload = _unpack(payload[1], f"journal add seq={seq} metric", wal_path, device)
+                    engine._apply_add(sid, payload)
+                    if isinstance(sid, int) and sid >= engine._next_auto:
+                        engine._next_auto = sid + 1  # auto-assigned ids must not recycle
+                    engine._mark_applied(seq)
+                elif kind == "expire":
+                    engine._apply_expire(sid)
+                    engine._mark_applied(seq)
+                elif kind == "reset":
+                    engine._apply_reset(sid)
+                    engine._mark_applied(seq)
+                elif kind == "serve_mark":
+                    # remote producer watermark: sid is the producer name, payload its highest applied pseq
+                    marks = engine._serve_marks
+                    marks[sid] = max(marks.get(sid, 0), int(payload))
+                    engine._mark_applied(seq)
+                else:
+                    raise CorruptCheckpointError(f"{wal_path}: journal record seq={seq} has unknown kind {kind!r}")
+                n_replayed += 1
+        finally:
+            engine._replaying = False
     _observe.note_wal_replay(name, n_replayed)
     return n_replayed

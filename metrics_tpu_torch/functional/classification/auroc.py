@@ -32,7 +32,7 @@ from metrics_tpu_torch.functional.classification.roc import (
     _multiclass_roc_compute,
     _multilabel_roc_compute,
 )
-from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.checks import _host_bool, _is_traced
 from metrics_tpu_torch.utils.exceptions import TraceIneligibleError
 from metrics_tpu_torch.utils.compute import _auc_compute_without_check, _safe_divide, _searchsorted_right
 from metrics_tpu_torch.utils.data import bincount
@@ -55,7 +55,7 @@ def _reduce_scores(res: Tensor, average: Optional[str], weights: Optional[Tensor
     if average is None or average == "none":
         return res
     nan = torch.isnan(res)
-    if not _is_traced(res) and bool(nan.any()):
+    if not _is_traced(res) and _host_bool(nan.any(), "reduce_scores.any_nan"):
         rank_zero_warn(
             f"Average precision score for one or more classes was `nan`. Ignoring these classes in {average}-average",
             UserWarning,

@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values, traced_validation
 from metrics_tpu_torch.utils.compute import _safe_divide, normalize_logits_if_needed
 from metrics_tpu_torch.utils.data import bincount
 from metrics_tpu_torch.utils.enums import ClassificationTask
@@ -47,6 +47,7 @@ def _binary_confusion_matrix_arg_validation(
         raise ValueError(f"Argument `normalize` needs to one of the following: ('true','pred','all','none',None)")
 
 
+@traced_validation("binary_confusion_matrix")
 def _binary_confusion_matrix_tensor_validation(
     preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
 ) -> None:
@@ -55,14 +56,14 @@ def _binary_confusion_matrix_tensor_validation(
     if _is_traced(preds, target):
         return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
-    uniq = set(_unique_values(target))
+    uniq = set(_unique_values(target, "binary_confusion_matrix.target"))
     if not uniq.issubset(allowed):
         raise RuntimeError(
             f"Detected the following values in `target`: {sorted(uniq)} but expected only"
             f" the following values {sorted(allowed)}."
         )
     if not preds.is_floating_point():
-        uniq_p = set(_unique_values(preds))
+        uniq_p = set(_unique_values(preds, "binary_confusion_matrix.preds"))
         if not uniq_p.issubset({0, 1}):
             raise RuntimeError(
                 f"Detected the following values in `preds`: {sorted(uniq_p)} but expected only binary values."
@@ -135,6 +136,7 @@ def _multiclass_confusion_matrix_arg_validation(
         raise ValueError(f"Argument `normalize` needs to one of the following: ('true','pred','all','none',None)")
 
 
+@traced_validation("multiclass_confusion_matrix")
 def _multiclass_confusion_matrix_tensor_validation(
     preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int] = None
 ) -> None:
@@ -163,7 +165,7 @@ def _multiclass_confusion_matrix_tensor_validation(
     if not preds.is_floating_point():
         to_check.append((preds, "preds"))
     for t, name in to_check:
-        found = len(_unique_values(t))
+        found = len(_unique_values(t, f"multiclass_confusion_matrix.{name}"))
         if found > check_value:
             raise RuntimeError(
                 f"Detected more unique values in `{name}` than expected. Expected only {check_value} but found"
@@ -236,6 +238,7 @@ def _multilabel_confusion_matrix_arg_validation(
         raise ValueError(f"Argument `normalize` needs to one of the following: ('true','pred','all','none',None)")
 
 
+@traced_validation("multilabel_confusion_matrix")
 def _multilabel_confusion_matrix_tensor_validation(
     preds: Tensor, target: Tensor, num_labels: int, ignore_index: Optional[int] = None
 ) -> None:
@@ -249,7 +252,7 @@ def _multilabel_confusion_matrix_tensor_validation(
     if _is_traced(preds, target):
         return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
-    uniq = set(_unique_values(target))
+    uniq = set(_unique_values(target, "multilabel_confusion_matrix.target"))
     if not uniq.issubset(allowed):
         raise RuntimeError(
             f"Detected the following values in `target`: {sorted(uniq)} but expected only"

@@ -20,7 +20,15 @@ import numpy as np
 import torch
 
 from metrics_tpu_torch.ops.binned_hist import binned_counts, binned_counts_labels
-from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
+from metrics_tpu_torch.observe import recorder as _observe
+from metrics_tpu_torch.observe import tracing as _tracing
+from metrics_tpu_torch.utils.checks import (
+    _check_same_shape,
+    _host_bool,
+    _is_traced,
+    _unique_values,
+    traced_validation,
+)
 from metrics_tpu_torch.utils.compute import _safe_divide, interp, normalize_logits_if_needed
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -44,7 +52,9 @@ def _binary_clf_curve(
     desc = torch.argsort(-preds, stable=True)
     preds = preds[desc]
     target = target[desc]
-    distinct_value_indices = torch.nonzero(preds[1:] - preds[:-1])[:, 0]
+    with _tracing.span("host_read", "binary_clf_curve.distinct"):  # nonzero reads its count on the host
+        distinct_value_indices = torch.nonzero(preds[1:] - preds[:-1])[:, 0]
+    _observe.note_explicit_transfer("binary_clf_curve.distinct")
     threshold_idxs = torch.cat(
         [distinct_value_indices, torch.tensor([target.shape[0] - 1], device=preds.device)]
     )
@@ -113,13 +123,13 @@ def _binary_precision_recall_curve_arg_validation(
         raise ValueError(f"Expected argument `ignore_index` to either be `None` or an integer, but got {ignore_index}")
 
 
-def _check_binary_target_values(target: Tensor, ignore_index: Optional[int]) -> None:
+def _check_binary_target_values(target: Tensor, ignore_index: Optional[int], task: str) -> None:
     """Raise unless every target is 0, 1 or ``ignore_index`` (one host read of the distinct values; skipped
     under vmap)."""
     if _is_traced(target):
         return
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
-    found = _unique_values(target)
+    found = _unique_values(target, f"{task}.target")
     if not set(found).issubset(allowed):
         raise RuntimeError(
             f"Detected the following values in `target`: {found} but expected only"
@@ -127,6 +137,7 @@ def _check_binary_target_values(target: Tensor, ignore_index: Optional[int]) -> 
         )
 
 
+@traced_validation("binary_precision_recall_curve")
 def _binary_precision_recall_curve_tensor_validation(
     preds: Tensor, target: Tensor, ignore_index: Optional[int] = None
 ) -> None:
@@ -139,7 +150,7 @@ def _binary_precision_recall_curve_tensor_validation(
         )
     if target.is_floating_point():
         raise ValueError("Expected argument `target` to be an int tensor, but got float")
-    _check_binary_target_values(target, ignore_index)
+    _check_binary_target_values(target, ignore_index, "binary_precision_recall_curve")
 
 
 # --------------------------------------------------------------------------- binary
@@ -263,7 +274,9 @@ def _binary_precision_recall_curve_compute(
     fps, tps, thres = _binary_clf_curve(state[0], state[1], pos_label=pos_label)
     precision = _safe_divide(tps, tps + fps)
     recall = _safe_divide(tps, tps[-1])
-    if not _is_traced(state[1]) and not bool((state[1] == pos_label).any()):
+    if not _is_traced(state[1]) and not _host_bool(
+        (state[1] == pos_label).any(), "binary_precision_recall_curve.any_positive"
+    ):
         rank_zero_warn(
             "No positive samples found in target, recall is undefined. Setting recall to one for all thresholds.",
             UserWarning,
@@ -312,6 +325,7 @@ def _multiclass_precision_recall_curve_arg_validation(
     _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
 
 
+@traced_validation("multiclass_precision_recall_curve")
 def _multiclass_precision_recall_curve_tensor_validation(
     preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int] = None
 ) -> None:
@@ -332,7 +346,7 @@ def _multiclass_precision_recall_curve_tensor_validation(
         )
     if _is_traced(preds, target):
         return
-    found = np.asarray(_unique_values(target))
+    found = np.asarray(_unique_values(target, "multiclass_precision_recall_curve.target"))
     counted = found >= 0 if ignore_index is None else (found >= 0) & (found != ignore_index)
     num_unique = int(counted.sum())
     if num_unique > num_classes or (found.min() < 0 and ignore_index is None):
@@ -458,6 +472,7 @@ def _multilabel_precision_recall_curve_arg_validation(
     _binary_precision_recall_curve_arg_validation(thresholds, ignore_index)
 
 
+@traced_validation("multilabel_precision_recall_curve")
 def _multilabel_precision_recall_curve_tensor_validation(
     preds: Tensor, target: Tensor, num_labels: int, ignore_index: Optional[int] = None
 ) -> None:
@@ -470,7 +485,7 @@ def _multilabel_precision_recall_curve_tensor_validation(
         )
     if not preds.is_floating_point():
         raise ValueError(f"Expected `preds` to be a float tensor, but got {preds.dtype}")
-    _check_binary_target_values(target, ignore_index)
+    _check_binary_target_values(target, ignore_index, "multilabel_precision_recall_curve")
 
 
 def _multilabel_precision_recall_curve_format(

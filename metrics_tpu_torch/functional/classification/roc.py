@@ -30,7 +30,7 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     _multilabel_precision_recall_curve_tensor_validation,
     _multilabel_precision_recall_curve_update,
 )
-from metrics_tpu_torch.utils.checks import _is_traced
+from metrics_tpu_torch.utils.checks import _host_bool, _is_traced
 from metrics_tpu_torch.utils.compute import _safe_divide, interp
 from metrics_tpu_torch.utils.enums import ClassificationTask
 from metrics_tpu_torch.utils.prints import rank_zero_warn
@@ -58,14 +58,14 @@ def _binary_roc_compute(
     tps = torch.cat([tps.new_zeros(1), tps])
     fps = torch.cat([fps.new_zeros(1), fps])
     thres = torch.cat([thres.new_ones(1), thres])
-    if not _is_traced(fps) and bool(fps[-1] <= 0):
+    if not _is_traced(fps) and _host_bool(fps[-1] <= 0, "binary_roc.no_negatives"):
         rank_zero_warn(
             "No negative samples in targets, false positive value should be meaningless."
             " Returning zero tensor in false positive score",
             UserWarning,
         )
     fpr = _safe_divide(fps, fps[-1])
-    if not _is_traced(tps) and bool(tps[-1] <= 0):
+    if not _is_traced(tps) and _host_bool(tps[-1] <= 0, "binary_roc.no_positives"):
         rank_zero_warn(
             "No positive samples in targets, true positive value should be meaningless."
             " Returning zero tensor in true positive score",

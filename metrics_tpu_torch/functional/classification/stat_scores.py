@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values
+from metrics_tpu_torch.utils.checks import _check_same_shape, _is_traced, _unique_values, traced_validation
 from metrics_tpu_torch.utils.compute import normalize_logits_if_needed
 from metrics_tpu_torch.utils.data import _topk_indices, bincount
 
@@ -45,11 +45,11 @@ def _check_average(average: Optional[str]) -> None:
         )
 
 
-def _check_binary_values(x: Tensor, name: str, ignore_index: Optional[int]) -> None:
+def _check_binary_values(x: Tensor, name: str, ignore_index: Optional[int], task: str) -> None:
     if _is_traced(x):
         return  # under vmap the values cannot be read: skipped, as the JAX package skips them under tracing
     allowed = {0, 1} | ({ignore_index} if ignore_index is not None else set())
-    found = _unique_values(x)
+    found = _unique_values(x, f"{task}.{name}")
     if not set(found).issubset(allowed):
         raise RuntimeError(
             f"Detected the following values in `{name}`: {found} but expected only"
@@ -68,6 +68,7 @@ def _binary_stat_scores_arg_validation(
     _check_average_args(multidim_average, ignore_index, zero_division)
 
 
+@traced_validation("binary_stat_scores")
 def _binary_stat_scores_tensor_validation(
     preds: Tensor, target: Tensor, multidim_average: str = "global", ignore_index: Optional[int] = None
 ) -> None:
@@ -75,9 +76,9 @@ def _binary_stat_scores_tensor_validation(
     _check_same_shape(preds, target)
     if target.is_floating_point():
         raise ValueError("Expected argument `target` to be an int tensor, but got a float tensor.")
-    _check_binary_values(target, "target", ignore_index)
+    _check_binary_values(target, "target", ignore_index, "binary_stat_scores")
     if not preds.is_floating_point():
-        _check_binary_values(preds, "preds", None)
+        _check_binary_values(preds, "preds", None, "binary_stat_scores")
     if multidim_average != "global" and preds.ndim < 2:
         raise ValueError("Expected input to be at least 2D when multidim_average is set to `samplewise`")
 
@@ -176,6 +177,7 @@ def _multiclass_stat_scores_arg_validation(
     _check_average_args(multidim_average, ignore_index, zero_division)
 
 
+@traced_validation("multiclass_stat_scores")
 def _multiclass_stat_scores_tensor_validation(
     preds: Tensor,
     target: Tensor,
@@ -225,7 +227,7 @@ def _multiclass_stat_scores_tensor_validation(
     if not preds.is_floating_point():
         to_check.append((preds, "preds"))
     for t, name in to_check:
-        found = _unique_values(t)
+        found = _unique_values(t, f"multiclass_stat_scores.{name}")
         if len(found) > check_value:
             raise RuntimeError(
                 f"Detected more unique values in `{name}` than expected. Expected only {check_value} but found"
@@ -366,6 +368,7 @@ def _multilabel_stat_scores_arg_validation(
     _check_average_args(multidim_average, ignore_index, zero_division)
 
 
+@traced_validation("multilabel_stat_scores")
 def _multilabel_stat_scores_tensor_validation(
     preds: Tensor, target: Tensor, num_labels: int, multidim_average: str = "global", ignore_index: Optional[int] = None
 ) -> None:
@@ -378,7 +381,7 @@ def _multilabel_stat_scores_tensor_validation(
         )
     if multidim_average != "global" and preds.ndim < 3:
         raise ValueError("Expected input to be at least 3D when multidim_average is set to `samplewise`")
-    _check_binary_values(target, "target", ignore_index)
+    _check_binary_values(target, "target", ignore_index, "multilabel_stat_scores")
 
 
 def _multilabel_stat_scores_format(

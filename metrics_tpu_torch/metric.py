@@ -389,24 +389,23 @@ class Metric(ABC):
         """Run the subclass update; on any exception every state, the update
         count and the compute cache are left as they were before the call.
 
-        With telemetry on, the call is timed on the host (``update`` timer,
-        span and ``update_eager`` count), inside a profiler range while a
-        profiler records; a rolled-back update is an ``update_rolled_back``
-        event. A ``raise_on_host`` guard reads its counter after the update
-        (one host read, its documented cost).
+        With telemetry on, the call is an ``update:<Class>`` span (timer and
+        ``update_eager`` count), which the validations, host reads and kernel
+        calls inside it nest under; while only a profiler records, it is that
+        span's profiler range alone. A rolled-back update is an
+        ``update_rolled_back`` event. A ``raise_on_host`` guard reads its
+        counter after the update (one host read, its documented cost).
         """
         if self._is_synced:
             raise TPUMetricsUserError("The Metric has already been synced and cannot be updated.")
         if _observe.ENABLED:
             name = type(self).__name__
-            t0 = _observe.clock()
-            with _tracing.profiler_range("update", name):
+            with _tracing.timed_span("update", name):
                 self._update_transactional(args, kwargs)
-            t1 = _observe.clock()
-            rec = _observe.RECORDER
-            rec.add_time("update", name, t1 - t0)
-            _tracing.record_complete("update", name, t0, t1)
-            rec.add_count("update_eager", name)
+            _observe.RECORDER.add_count("update_eager", name)
+        elif _tracing.profiling():
+            with _tracing.profiler_range("update", type(self).__name__):
+                self._update_transactional(args, kwargs)
         else:
             self._update_transactional(args, kwargs)
         if self.__dict__.get("_guard_policy") == "raise_on_host":
@@ -450,13 +449,11 @@ class Metric(ABC):
                 _observe.RECORDER.add_count("compute_cached", type(self).__name__)
             return self._computed
         if _observe.ENABLED:
-            name = type(self).__name__
-            t0 = _observe.clock()
-            with _tracing.profiler_range("compute", name):
+            with _tracing.timed_span("compute", type(self).__name__):
                 value = self._synced_compute()
-            t1 = _observe.clock()
-            _observe.RECORDER.add_time("compute", name, t1 - t0)
-            _tracing.record_complete("compute", name, t0, t1)
+        elif _tracing.profiling():
+            with _tracing.profiler_range("compute", type(self).__name__):
+                value = self._synced_compute()
         else:
             value = self._synced_compute()
         if self.compute_with_cache:
@@ -563,13 +560,12 @@ class Metric(ABC):
         own_count = self._update_count
         if _observe.ENABLED:
             name = type(self).__name__
-            t0 = _observe.clock()
-            with _tracing.profiler_range("merge", name):
+            with _tracing.timed_span("merge", name):
                 merged = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
-            t1 = _observe.clock()
-            _observe.RECORDER.add_time("merge", name, t1 - t0)
-            _tracing.record_complete("merge", name, t0, t1)
             _observe.RECORDER.add_count("merge", name)
+        elif _tracing.profiling():
+            with _tracing.profiler_range("merge", type(self).__name__):
+                merged = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
         else:
             merged = self._merge_state_dicts(incoming_state, self.metric_state, incoming_count, own_count)
         self.__dict__["_state"] = merged
@@ -654,40 +650,32 @@ class Metric(ABC):
         self._cache = self._copy_state()
         name = type(self).__name__
         timed = _observe.ENABLED
-        t0 = _observe.clock() if timed else 0.0
         policy = _sync_mod.get_sync_policy()
-        try:
-            with _tracing.profiler_range("sync", name):
+        degraded = False
+        with _tracing.timed_span("sync", name) if timed else _tracing.profiler_range("sync", name):
+            try:
                 _sync_mod.run_with_retries(
                     lambda: self._sync_dist(dist_sync_fn or self.dist_sync_fn, process_group or self.process_group),
                     label=name,
                     policy=policy,
                 )
-        except Exception as exc:
-            if not policy.partial_merge or isinstance(exc, TPUMetricsUserError):
-                self._cache = None
-                raise
-            # degraded mode: fold the survivors the failure carried into the intact local state,
-            # count-weighted as merge_state folds
-            merged = self._copy_state()
-            merged_count = self._update_count
-            survivors = getattr(exc, "survivors", None) or []
-            counts = getattr(exc, "survivor_counts", None) or [1] * len(survivors)
-            for peer_state, peer_count in zip(survivors, counts):
-                merged = self._merge_state_dicts(merged, peer_state, merged_count, peer_count)
-                merged_count += peer_count
-            self.__dict__["_state"].update(merged)
-            self._is_synced = True
-            _observe.note_sync_degraded(name, exc, len(survivors))
-            if timed:
-                t1 = _observe.clock()
-                _observe.RECORDER.add_time("sync", name, t1 - t0)
-                _tracing.record_complete("sync", name, t0, t1)
-            return
-        if timed:
-            t1 = _observe.clock()
-            _observe.RECORDER.add_time("sync", name, t1 - t0)
-            _tracing.record_complete("sync", name, t0, t1)
+            except Exception as exc:
+                if not policy.partial_merge or isinstance(exc, TPUMetricsUserError):
+                    self._cache = None
+                    raise
+                # degraded mode: fold the survivors the failure carried into the intact local state,
+                # count-weighted as merge_state folds
+                merged = self._copy_state()
+                merged_count = self._update_count
+                survivors = getattr(exc, "survivors", None) or []
+                counts = getattr(exc, "survivor_counts", None) or [1] * len(survivors)
+                for peer_state, peer_count in zip(survivors, counts):
+                    merged = self._merge_state_dicts(merged, peer_state, merged_count, peer_count)
+                    merged_count += peer_count
+                self.__dict__["_state"].update(merged)
+                _observe.note_sync_degraded(name, exc, len(survivors))
+                degraded = True
+        if timed and not degraded:
             _observe.RECORDER.add_count("sync", name)
         self._is_synced = True
 

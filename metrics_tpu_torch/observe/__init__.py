@@ -4,13 +4,18 @@
   counters/timers/structured events the runtime reports into: per-metric
   update/compute/merge/sync host wall time, rolled-back updates, sync retries
   and degraded merges, per-state sync bytes, checkpoint saves and restores,
-  guard quarantines. Off by default; one flag check per hot path when off.
+  guard quarantines. Off by default; one flag check per counter hook when off.
 * **flight recorder** (:mod:`metrics_tpu_torch.observe.tracing` +
   :mod:`metrics_tpu_torch.observe.latency`) — host-side spans in a bounded
-  ring, each folded into per-(phase, label) DDSketch latency histograms and
-  each inside a ``torch.profiler.record_function`` range. Export as
-  Chrome-trace JSON (:func:`timeline`), Prometheus quantile families
-  (:func:`prometheus`), or fleet-merged quantiles (:func:`sync_telemetry`).
+  ring, each with its parent's id, folded into per-(phase, label) DDSketch
+  latency histograms: the runtime's ``update:``/``compute:``/``merge:``/
+  ``sync:``, the collectives, ``validate:``, ``host_read:`` and ``kernel:``.
+  While a ``torch.profiler`` capture records, each span is also a
+  ``record_function`` range, recorder on or off. Off, with no profiler, a span
+  site costs one flag check and one profiler check and allocates nothing.
+  Export as Chrome-trace JSON on the profiler's clock (:func:`timeline`),
+  Prometheus quantile families (:func:`prometheus`), or fleet-merged
+  quantiles (:func:`sync_telemetry`).
 * **watchdog rung** (:mod:`metrics_tpu_torch.observe.watchdog` +
   :mod:`metrics_tpu_torch.observe.explain`) — host-side twins of the
   package's own metric designs (TimeDecayed rates, DDSketch quantiles, CUSUM,

@@ -11,16 +11,16 @@ The runtime's hot paths report into one process-wide :class:`Recorder`:
   which exception rolled an update back, which sync attempt was retried.
 
 Overhead contract: with observability **disabled (the default)** every
-instrumented hot path pays a single module-flag check (``ENABLED``) and
-allocates nothing. Timers measure *host-side* wall time around the call, which
+counter hook pays a single module-flag check (``ENABLED``) and allocates
+nothing; a span site (:mod:`metrics_tpu_torch.observe.tracing`) adds one check
+of whether a ``torch.profiler`` capture records. Timers measure *host-side* wall time around the call, which
 on a CUDA device is the time to enqueue its kernels, not their device time: no
 timed section synchronizes with the card.
 
 The schema of :func:`snapshot` is the JAX package's, ``SCHEMA_VERSION``
-included, so that one consumer reads both. Its jit, AOT, fused-update and
-engine counters have no producer in an eager port yet; their ``note_*`` hooks
-stay, so that later parts of the port (the stream engines) report through the
-same names.
+included, so that one consumer reads both. The port updates eagerly, so its
+jit and fused-update counters have no producer and read zero; the engines'
+compiles, hits and evictions report through ``note_engine_*``.
 
 Everything here is stdlib only, so the core runtime can import it
 unconditionally.
@@ -62,16 +62,8 @@ __all__ = [
     "note_fleet_sample",
     "note_fleet_session",
     "note_fleet_tick",
-    "note_fused_compile",
-    "note_fused_fallback",
-    "note_jit_cache_cleared",
-    "note_jit_cache_hit",
-    "note_jit_compile",
-    "note_jit_eviction",
-    "note_replica_compile",
     "note_replica_dispatch",
     "note_replica_fallback",
-    "note_replica_hit",
     "note_serve_admission",
     "note_serve_bytes",
     "note_serve_connect",
@@ -117,15 +109,9 @@ _METER: Optional[Any] = None
 
 clock: Callable[[], float] = time.perf_counter
 
-# counter names owned by the compiled-update caches (per-metric shared cache,
-# fused collection cache, replica/fleet engine program caches) — cleared
-# together with them so `clear_jit_cache()` leaves counters consistent with
-# the (now empty) caches
-_JIT_CACHE_COUNTERS = (
-    "jit_compile", "jit_compile_unshared", "jit_cache_hit", "jit_cache_eviction",
-    "fused_compile", "fused_hit", "replica_compile", "replica_hit", "replica_evict",
-    "fleet_compile", "fleet_hit", "fleet_evict",
-)
+# one reading of the hot path's clock and of the Unix clock, taken together (at import, and again by
+# enable()): the span export maps a clock() reading t to Unix nanoseconds as unix_ns + (t - perf) * 1e9
+_CLOCK_ANCHOR: Tuple[float, int] = (clock(), time.time_ns())
 
 # one warning per metric class across the process, independent of ENABLED —
 # losing compiled updates is user-facing even when telemetry is off
@@ -138,7 +124,7 @@ class Recorder:
 
     __slots__ = (
         "counters", "timers", "events", "gauges", "spans", "series", "latency",
-        "max_events", "max_spans", "_seq", "_span_total", "_compiled", "_evicted", "_lock",
+        "max_events", "max_spans", "_seq", "_span_total", "_lock",
     )
 
     def __init__(self, max_events: int = 1024, max_spans: int = 4096) -> None:
@@ -156,8 +142,6 @@ class Recorder:
         self.max_spans = max_spans
         self._seq = 0
         self._span_total = 0
-        self._compiled: Dict[str, int] = {}  # metric class -> distinct shared compiles
-        self._evicted: set = set()  # metric classes whose executables were evicted
         self._lock = threading.Lock()
 
     # ------------------------------------------------------------------ primitives
@@ -198,22 +182,12 @@ class Recorder:
             self.latency.clear()
             self._seq = 0
             self._span_total = 0
-            self._compiled.clear()
-            self._evicted.clear()
         # the recompile-attribution key history resets with the telemetry it
-        # explains (scope/test isolation) — but NOT on clear_jit_cache(), so a
-        # post-clear miss still attributes as "rebuild" rather than "first"
+        # explains (scope/test isolation)
         explain = sys.modules.get("metrics_tpu_torch.observe.explain")
         if explain is not None:
             explain.clear_history()
 
-    def clear_jit_cache_stats(self) -> None:
-        """Reset the shared-jit-cache counters (the cache itself was just cleared)."""
-        with self._lock:
-            for key in [k for k in self.counters if k[0] in _JIT_CACHE_COUNTERS]:
-                del self.counters[key]
-            self._compiled.clear()
-            self._evicted.clear()
 
 
 RECORDER = Recorder()
@@ -230,9 +204,10 @@ def enable(max_events: int = 1024, reset: bool = False, max_spans: int = 4096) -
     assertions at random). ``max_spans`` bounds the flight-recorder span ring
     (observe/tracing.py) the same way ``max_events`` bounds the event log.
     """
-    global ENABLED
+    global ENABLED, _CLOCK_ANCHOR
     if reset:
         RECORDER.clear()
+    _CLOCK_ANCHOR = (clock(), time.time_ns())
     RECORDER.max_events = max_events
     if RECORDER.events.maxlen != max_events:
         RECORDER.events = deque(RECORDER.events, maxlen=max_events)
@@ -289,6 +264,11 @@ def enabled() -> bool:
     return ENABLED
 
 
+def clock_anchor() -> Tuple[float, int]:
+    """``(clock(), time.time_ns())`` read together at the last :func:`enable` (or at import)."""
+    return _CLOCK_ANCHOR
+
+
 def reset(include_warnings: bool = False) -> None:
     """Drop all recorded telemetry; optionally re-arm the one-time fallback warnings."""
     RECORDER.clear()
@@ -305,54 +285,22 @@ def record_event(kind: str, **fields: Any) -> None:
 # ------------------------------------------------------------------- runtime hooks
 # Called by metric.py / collections.py / parallel/sync.py. All are no-ops while
 # disabled except note_eager_fallback's one-time user warning.
-def note_jit_compile(metric: str, shared: bool = True) -> None:
-    if not ENABLED:
-        return
-    if not shared:
-        RECORDER.add_count("jit_compile_unshared", metric)
-        RECORDER.add_event("jit_compile", metric=metric, shared=False)
-        return
-    RECORDER.add_count("jit_compile", metric)
-    prior = RECORDER._compiled.get(metric, 0)
-    RECORDER._compiled[metric] = prior + 1
-    if metric in RECORDER._evicted:
-        RECORDER.add_event("recompile", metric=metric, cause="after_eviction")
-    elif prior:
-        RECORDER.add_event("recompile", metric=metric, cause="new_config")
-    else:
-        RECORDER.add_event("jit_compile", metric=metric, shared=True)
-
-
-def note_jit_cache_hit(metric: str) -> None:
-    if ENABLED:
-        RECORDER.add_count("jit_cache_hit", metric)
-
-
 def note_explicit_transfer(site: str) -> None:
     """One intentional device-to-host transfer executed.
 
     Each site that reads the card on purpose (the collection's one read that
-    settles its compute groups, a guard's ``raise_on_host`` check) bumps this
-    counter when it actually moves data, so the snapshot carries the run's
-    explicit-transfer budget; a transfer not counted here is implicit.
+    settles its compute groups, a guard's ``raise_on_host`` check, each
+    ``host_read:<site>`` span of the validations, the curves' computes and the
+    gather's size table) bumps this counter when it actually moves data, so the
+    snapshot carries the run's explicit-transfer budget; a transfer not counted
+    here is implicit.
     """
     if ENABLED:
         RECORDER.add_count("explicit_transfer", site)
 
 
-def note_jit_eviction(metric: str) -> None:
-    if ENABLED:
-        RECORDER.add_count("jit_cache_eviction", metric)
-        RECORDER._evicted.add(metric)
-        RECORDER.add_event("jit_cache_evict", metric=metric)
 
 
-def note_jit_cache_cleared() -> None:
-    """The shared cache was dropped: its counters reset with it so hit rates and
-    compile counts keep describing the cache that actually exists."""
-    RECORDER.clear_jit_cache_stats()
-    if ENABLED:
-        RECORDER.add_event("jit_cache_clear")
 
 
 def note_compile_miss(kind: str, label: str, components: Any) -> None:
@@ -427,9 +375,7 @@ def note_eager_fallback(metric: str, exc: BaseException) -> None:
         RECORDER.add_event("eager_fallback", metric=metric, error=type(exc).__name__, detail=str(exc)[:200])
 
 
-# AOT disk-cache hooks (aot/cache.py + aot/runtime.py). Deliberately NOT in
-# _JIT_CACHE_COUNTERS: clear_jit_cache() drops the in-memory caches, but the
-# disk cache (and the counters describing its traffic) outlives them.
+# AOT disk-cache hooks (aot/cache.py + aot/runtime.py)
 def note_aot_hit(label: str) -> None:
     """A serialized executable was loaded from disk instead of compiling."""
     if ENABLED:
@@ -455,16 +401,8 @@ def note_aot_store(label: str, nbytes: int) -> None:
         RECORDER.add_event("aot_store", metric=label, bytes=nbytes)
 
 
-def note_fused_compile(n_leaders: int, shared: bool) -> None:
-    if ENABLED:
-        RECORDER.add_count("fused_compile", str(n_leaders))
-        RECORDER.add_event("fused_compile", leaders=n_leaders, shared=shared)
 
 
-def note_fused_fallback(n_leaders: int, exc: BaseException) -> None:
-    if ENABLED:
-        RECORDER.add_count("fused_fallback", str(n_leaders))
-        RECORDER.add_event("fused_fallback", leaders=n_leaders, error=type(exc).__name__)
 
 
 # engine hooks (engine/core.py ProgramCache + its two users): kind is
@@ -493,14 +431,6 @@ def note_engine_dispatch(kind: str, label: str) -> None:
 
 
 # replica-shaped conveniences kept for the wrapper call sites
-def note_replica_compile(label: str, n_replicas: int) -> None:
-    note_engine_compile("replica", label, n_replicas)
-
-
-def note_replica_hit(label: str) -> None:
-    note_engine_hit("replica", label)
-
-
 def note_replica_dispatch(label: str) -> None:
     note_engine_dispatch("replica", label)
 

@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -47,6 +48,10 @@ build_logs: Dict[str, str] = {}  # the compiler's output of each library built b
 # how the last build() found each library: "hit" (its manifest validated, nothing built), "built" (no
 # manifest) or "refreshed" (a stale or corrupt manifest, or bytes that differ from it: rebuilt)
 build_outcomes: Dict[str, str] = {}
+# host seconds of each kernel library's first launch in this process, once loaded: its wrapper's launch call
+# from after the load to the launch function's return, with no synchronize added (the card's module loading
+# and the first launch's set-up, not the kernel's run)
+first_launch_s: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -138,6 +143,12 @@ def load(name: str) -> ctypes.CDLL:
             lib.kernel_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def note_launch(name: str, t0: float) -> None:
+    """Keep ``perf_counter() - t0`` as library ``name``'s first launch, the first time only."""
+    if name not in first_launch_s:
+        first_launch_s[name] = time.perf_counter() - t0
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str) -> None:

@@ -14,7 +14,11 @@ that type; any other pairing raises.
 On a CUDA tensor each launches the kernel of ``csrc/binned_hist.cu``; on a CPU
 tensor it runs its plain version, which is also the kernel's oracle: the
 labels mode's plain version builds the one-hot and calls
-:func:`binned_counts_plain`, so both modes share one oracle.
+:func:`binned_counts_plain`, so both modes share one oracle. Either runs inside
+a ``kernel:binned_counts`` (or ``kernel:binned_counts_labels``) span, whose
+profiler range holds the kernel in a capture; a kernel launch counts in the
+wrapper's ``launches``, and the library's first launch's host seconds are kept
+in ``ops._native.first_launch_s``.
 
 Each wrapper calls its ``torch.library`` custom op
 (``metrics_tpu_torch::binned_counts`` and ``::binned_counts_labels``), whose
@@ -31,10 +35,12 @@ R rows of classes; its launch counts under :func:`binned_counts`.
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Tuple
 
 import torch
 
+from metrics_tpu_torch.observe import tracing as _tracing
 from metrics_tpu_torch.ops import _native
 from metrics_tpu_torch.utils.data import bincount, bincount_fixed
 
@@ -138,6 +144,7 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
             what: str) -> Counts:
     """One kernel launch (after a memset of the tickets); outputs and workspace from ``torch.empty``."""
     lib = _library()
+    t0 = time.perf_counter()
     suffix = "_f64" if preds.dtype == torch.float64 else ""
     n, num_c = preds.shape
     len_t = thresholds.shape[0]
@@ -156,11 +163,19 @@ def _launch(preds: torch.Tensor, target: torch.Tensor, valid, thresholds: torch.
             n, num_c, len_t, int(labels), workspace.data_ptr(), ws_ints, tp.data_ptr(), fp.data_ptr(),
             pos_tot.data_ptr(), neg_tot.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
+    _native.note_launch("binned_hist", t0)
     _native.check(lib, rc, f"{what} kernel")
     return tp, fp, pos_tot, neg_tot
 
 
 def _binned_counts_eager(
+    preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
+) -> Counts:
+    with _tracing.span("kernel", "binned_counts"):
+        return _binned_counts_call(preds, target01, valid, thresholds)
+
+
+def _binned_counts_call(
     preds: torch.Tensor, target01: torch.Tensor, valid: torch.Tensor, thresholds: torch.Tensor
 ) -> Counts:
     _check_score_types(preds, thresholds, "binned_counts")
@@ -179,6 +194,11 @@ def _binned_counts_eager(
 
 
 def _binned_counts_labels_eager(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
+    with _tracing.span("kernel", "binned_counts_labels"):
+        return _binned_counts_labels_call(preds, labels, thresholds)
+
+
+def _binned_counts_labels_call(preds: torch.Tensor, labels: torch.Tensor, thresholds: torch.Tensor) -> Counts:
     _check_score_types(preds, thresholds, "binned_counts_labels")
     if preds.device.type == "cpu":
         return binned_counts_labels_plain(preds, labels, thresholds)

@@ -4,7 +4,10 @@ Counterpart of ``metrics_tpu/ops/ssim_window.py``. :func:`ssim_window` maps
 (N, H + Kh - 1, W + Kw - 1) float32 planes to (N, H, W): ``Kh`` vertical taps,
 then ``Kw`` horizontal taps, VALID. On a CUDA tensor it launches the kernel of
 ``csrc/ssim_window.cu``; on a CPU tensor it runs :func:`ssim_window_plain`, the
-shifted-slice cascade, which is also the kernel's oracle.
+shifted-slice cascade, which is also the kernel's oracle. Either runs inside a
+``kernel:ssim_window`` span, whose profiler range holds the kernel in a
+capture; a launch counts in the wrapper's ``launches``, and the library's first
+launch's host seconds are kept in ``ops._native.first_launch_s``.
 
 It is also the ``torch.library`` custom op ``metrics_tpu_torch::ssim_window``
 with a ``vmap`` rule, which the wrapper calls when its planes are batched by
@@ -19,10 +22,12 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import time
 from typing import Iterator, List, Sequence
 
 import torch
 
+from metrics_tpu_torch.observe import tracing as _tracing
 from metrics_tpu_torch.ops import _native
 from metrics_tpu_torch.utils.checks import _is_traced
 
@@ -68,6 +73,11 @@ def _library() -> ctypes.CDLL:
 
 
 def _ssim_window_eager(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
+    with _tracing.span("kernel", "ssim_window"):
+        return _ssim_window_call(x, kh, kw)
+
+
+def _ssim_window_call(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]) -> torch.Tensor:
     if x.device.type == "cpu":
         return ssim_window_plain(x, kh, kw)
     if x.device.type != "cuda":
@@ -81,6 +91,7 @@ def _ssim_window_eager(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]
         raise ValueError(f"ssim_window takes 1 to {lib.ssim_window_max_taps()} taps per axis, got {len(kh)}, {len(kw)}")
     if hp < len(kh) or wp < len(kw):
         raise ValueError(f"ssim_window cannot window planes of shape {tuple(x.shape)} with {len(kh)}x{len(kw)} taps")
+    t0 = time.perf_counter()
     taps_v = (ctypes.c_float * len(kh))(*kh)
     taps_h = (ctypes.c_float * len(kw))(*kw)
     with torch.cuda.device(x.device):
@@ -89,6 +100,7 @@ def _ssim_window_eager(x: torch.Tensor, kh: Sequence[float], kw: Sequence[float]
             x.data_ptr(), out.data_ptr(), n, hp, wp, taps_v, len(kh), taps_h, len(kw),
             torch.cuda.current_stream(x.device).cuda_stream,
         )
+    _native.note_launch("ssim_window", t0)
     _native.check(lib, rc, "ssim_window kernel")
     ssim_window.launches += 1
     return out

@@ -278,8 +278,10 @@ def _gather_many(tensors: List[torch.Tensor], group: Any = None, rec: Any = None
     meta = torch.tensor([_meta(t) for t in tensors], dtype=torch.int64, device=device)
     metas = [torch.empty_like(meta) for _ in range(world)]
     dist.all_gather(metas, meta, group=group)
-    # hotlint: intentional-transfer: the one host read that settles every gathered size and dtype
-    table = torch.stack(metas).tolist()  # [rank][state][field]
+    with _tracing.span("host_read", "gather_meta"):
+        # hotlint: intentional-transfer: the one host read that settles every gathered size and dtype
+        table = torch.stack(metas).tolist()  # [rank][state][field]
+    _observe.note_explicit_transfer("gather_meta")
     out: List[List[torch.Tensor]] = []
     for i, t in enumerate(tensors):
         # every rank reads the same table, so every rank takes the same branch (or raises) below
@@ -338,14 +340,11 @@ def gather_all_states(states: List[Any], group: Any = None) -> List[List[Any]]:
     if not (dist.is_available() and dist.is_initialized()):
         return [[s] for s in states]
     rec = _observe.RECORDER if _observe.ENABLED else None
-    t0 = _observe.clock() if rec is not None else 0.0
-    device = _collective_device(group, next((s for s in states if isinstance(s, torch.Tensor)), None))
-    out = _gather_many([_concat_list_state(s, device) for s in states], group, rec)
+    world = str(dist.get_world_size(group))
+    with _tracing.timed_span("gather_all", world) if rec is not None else _tracing.profiler_range("gather_all", world):
+        device = _collective_device(group, next((s for s in states if isinstance(s, torch.Tensor)), None))
+        out = _gather_many([_concat_list_state(s, device) for s in states], group, rec)
     if rec is not None:
-        world = str(dist.get_world_size(group))
-        t1 = _observe.clock()
-        rec.add_time("gather_all", world, t1 - t0)
-        _tracing.record_complete("gather_all", world, t0, t1)
         rec.add_count("gather_all", world)
     return out
 
@@ -433,8 +432,17 @@ def allreduce_over_mesh(per_rank_states: Sequence[Dict[str, Any]], reductions: D
     state's stacked bytes (every rank at the largest leading size) count as
     ``sync_bytes``.
     """
-    rec = _observe.RECORDER if _observe.ENABLED else None
-    t0 = _observe.clock() if rec is not None else 0.0
+    if _observe.ENABLED:
+        with _tracing.timed_span("allreduce", "data"):
+            out = _fold_ranks(per_rank_states, reductions, _observe.RECORDER)
+        _observe.RECORDER.add_count("allreduce", "data")
+        return out
+    with _tracing.profiler_range("allreduce", "data"):
+        return _fold_ranks(per_rank_states, reductions, None)
+
+
+def _fold_ranks(per_rank_states: Sequence[Dict[str, Any]], reductions: Dict[str, Any], rec: Any) -> Dict[str, Any]:
+    """The body of :func:`allreduce_over_mesh`; with a recorder ``rec``, each state's stacked bytes count."""
     prepped: List[Dict[str, Any]] = []
     empty_slots: List[Tuple[int, str]] = []
     for i, st in enumerate(per_rank_states):
@@ -472,10 +480,6 @@ def allreduce_over_mesh(per_rank_states: Sequence[Dict[str, Any]], reductions: D
         for k in prepped[0]:
             values = [p[k] for p in prepped]
             rec.add_count("sync_bytes", k, len(values) * max(v.numel() for v in values) * values[0].element_size())
-        t1 = _observe.clock()
-        rec.add_time("allreduce", "data", t1 - t0)
-        _tracing.record_complete("allreduce", "data", t0, t1)
-        rec.add_count("allreduce", "data")
     return out
 
 

@@ -7,6 +7,11 @@ shape trace (``torch._subclasses.FakeTensorMode``, the abstract contracts) holds
 fake tensors, which have no values at all. Value checks that the JAX package
 skips under tracing are skipped there too, and the ones it refuses raise
 :class:`~metrics_tpu_torch.utils.exceptions.TraceIneligibleError`.
+
+A tensor validation that reads the card runs inside a ``validate:<task>`` span
+(:func:`traced_validation`), and its read inside a ``host_read:<site>`` span
+(:func:`_unique_values`), which the recorder's ``explicit_transfer`` counter
+counts by site (:mod:`metrics_tpu_torch.observe`).
 """
 
 from __future__ import annotations
@@ -18,6 +23,9 @@ from typing import Any, Callable, Optional, Tuple
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
+
+from metrics_tpu_torch.observe import recorder as _observe
+from metrics_tpu_torch.observe import tracing as _tracing
 
 
 def _is_traced(*xs: Any) -> bool:
@@ -61,9 +69,36 @@ def _check_same_shape(preds: torch.Tensor, target: torch.Tensor) -> None:
         )
 
 
-def _unique_values(x: torch.Tensor) -> list:
-    """Sorted distinct values of ``x`` as Python numbers (one host read)."""
-    return torch.unique(x).tolist()
+def traced_validation(task: str) -> Callable[[Callable[..., Any]], Callable[..., Any]]:
+    """Run the decorated tensor validation inside a ``validate:<task>`` span."""
+
+    def decorate(fn: Callable[..., Any]) -> Callable[..., Any]:
+        @functools.wraps(fn)
+        def wrapper(*args: Any, **kwargs: Any) -> Any:
+            with _tracing.span("validate", task):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return decorate
+
+
+def _unique_values(x: torch.Tensor, site: str) -> list:
+    """Sorted distinct values of ``x`` as Python numbers: one host read, inside a ``host_read:<site>`` span and
+    counted as an explicit transfer of ``site``."""
+    with _tracing.span("host_read", site):
+        found = torch.unique(x).tolist()
+    _observe.note_explicit_transfer(site)
+    return found
+
+
+def _host_bool(x: torch.Tensor, site: str) -> bool:
+    """``bool(x)`` of a one-element tensor: one host read, inside a ``host_read:<site>`` span and counted as an
+    explicit transfer of ``site``."""
+    with _tracing.span("host_read", site):
+        value = bool(x)
+    _observe.note_explicit_transfer(site)
+    return value
 
 
 def _is_integer(x: torch.Tensor) -> bool:

@@ -306,6 +306,42 @@ def case_retrieval_list_states_sync(rank: int, world: int) -> None:
     _close(local.compute().cpu(), whole.compute().cpu(), RTOL, "RetrievalMAP")
 
 
+def case_compute_sync_and_gather_are_ranges_and_nested_spans(rank: int, world: int) -> None:
+    """Under the profiler with the recorder off, a compute()'s sync, its ``gather_all`` and the gather's size
+    read are ranges of the capture; with the recorder on they are spans, each inside the one before, and the
+    gather keeps its ``gather_all`` timer."""
+    from metrics_tpu_torch import observe
+
+    metric = SumMetric(device=DEVICE)
+    metric.update(_t(np.arange(3.0 + rank)))
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        metric.compute()
+    names = {e.name for e in prof.events()}
+    expected = {"compute:SumMetric", "sync:SumMetric", f"gather_all:{world}", "host_read:gather_meta"}
+    if not expected <= names:
+        raise AssertionError(f"missing ranges {sorted(expected - names)}")
+    if observe.snapshot()["counters"]:
+        raise AssertionError("the recorder counted while off")
+    metric = SumMetric(device=DEVICE)
+    metric.update(_t(np.arange(3.0 + rank)))
+    observe.enable(reset=True)
+    try:
+        metric.compute()
+        spans = {s["id"]: s for s in observe.drain_spans()}
+        timers = observe.snapshot()["timers"]
+    finally:
+        observe.disable()
+        observe.reset()
+    [gather] = [s for s in spans.values() if s["phase"] == "gather_all"]
+    [read] = [s for s in spans.values() if s["phase"] == "host_read"]
+    sync = spans[gather["parent"]]
+    chain = [read["phase"], spans[read["parent"]]["phase"], sync["phase"], spans[sync["parent"]]["phase"]]
+    if chain != ["host_read", "gather_all", "sync", "compute"] or spans[sync["parent"]]["parent"] is not None:
+        raise AssertionError(f"nesting {chain}")
+    if timers["gather_all"][str(world)]["count"] != 1:
+        raise AssertionError(f"gather_all timer {timers['gather_all']}")
+
+
 CASES: Dict[str, Callable[[int, int], None]] = {
     name[len("case_"):]: fn for name, fn in sorted(globals().items()) if name.startswith("case_")
 }

@@ -372,6 +372,56 @@ def test_compute_groups_launch_the_binned_kernel_once_per_group(cuda_device, com
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-5, atol=1e-6)
 
 
+def _open_host_read():
+    from metrics_tpu_torch.observe import tracing
+
+    return next((s.label for s in reversed(tracing._stack()) if s.phase == "host_read"), None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thresholds", [200, None], ids=["binned", "exact"])
+def test_every_sync_of_a_curve_and_ece_update_is_inside_a_host_read_span(cuda_device, thresholds):
+    """Under CUDA's sync debug mode, each synchronizing call of an update of the Criteo evaluation's collection
+    happens while one of the program's ``host_read`` spans is open: one site a compute group, two syncs each
+    (``torch.unique``'s size, then the copy of its values)."""
+    import warnings
+
+    from metrics_tpu_torch import observe
+
+    col = MetricCollection(
+        {"auroc": tc.BinaryAUROC(thresholds=thresholds, device=cuda_device),
+         "ap": tc.BinaryAveragePrecision(thresholds=thresholds, device=cuda_device),
+         "ece": tc.BinaryCalibrationError(n_bins=15, norm="l1", device=cuda_device)},
+        compute_groups=[["auroc", "ap"], ["ece"]],
+    )
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(3)
+    preds = torch.rand(1 << 20, generator=g, device=cuda_device)
+    target = (torch.rand(1 << 20, generator=g, device=cuda_device) < 0.3).long()
+    col.update(preds, target)  # every kernel loaded before the counted update
+    torch.cuda.synchronize()
+    seen = []
+
+    def show(message, *args, **kwargs):
+        if "called a synchronizing CUDA operation" in str(message):
+            seen.append(_open_host_read())
+
+    observe.enable(reset=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                col.update(preds, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+    finally:
+        observe.disable()
+        observe.reset()
+    assert sorted(seen) == ["binary_confusion_matrix.target"] * 2 + ["binary_precision_recall_curve.target"] * 2
+
+
 def _regression_shards(ranks, seed=2):
     rng = np.random.RandomState(seed)
     out = []

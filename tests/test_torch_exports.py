@@ -390,6 +390,11 @@ JAX_ONLY = {
     # the compiled-update machinery: PyTorch runs eagerly, so there is no shared jit cache to clear and
     # nothing to jit or donate (``jit_update=``/``donate_states=`` are accepted and kept)
     "metrics_tpu.metric": {"clear_jit_cache", "donate_updates_enabled", "jit_update_enabled"},
+    # the compiled caches' recorder hooks: no port update compiles, so nothing would call them (the engines
+    # report their compiles and hits through ``note_engine_compile``/``note_engine_hit``)
+    "metrics_tpu.observe.recorder": {"note_fused_compile", "note_fused_fallback", "note_jit_cache_cleared",
+                                     "note_jit_cache_hit", "note_jit_compile", "note_jit_eviction",
+                                     "note_replica_compile", "note_replica_hit"},
     # jitted forms of the matching functions: the port's ``match_units``/``batched_box_iou`` are eager
     "metrics_tpu.functional.detection.map_matching": {"match_units_jit", "batched_box_iou_jit"},
     # the Pallas entry points and their planners; their CUDA counterparts are ``binned_counts``/``ssim_window``

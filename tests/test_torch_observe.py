@@ -127,6 +127,11 @@ def _drive(side: _Side) -> None:
     col.compute()
 
 
+# the port's own spans, which the JAX package has not: each validation that reads the card, the read itself
+# (also an ``explicit_transfer`` of its site) and each kernel wrapper's call
+PORT_ONLY_PHASES = ("validate", "host_read", "kernel")
+
+
 def _telemetry(side: _Side):
     snap = side.obs.snapshot()
     spans = [(s["phase"], s["label"], s["depth"]) for s in side.obs.drain_spans()]
@@ -136,10 +141,33 @@ def _telemetry(side: _Side):
     return snap, spans, events, timers, latency
 
 
+def _port_only(telemetry):
+    """Take the port's own validation, host-read and kernel telemetry out of ``telemetry`` and return it."""
+    snap, spans, _, _, latency = telemetry
+    own_spans = [s for s in spans if s[0] in PORT_ONLY_PHASES]
+    spans[:] = [s for s in spans if s[0] not in PORT_ONLY_PHASES]
+    reads = snap["counters"]["explicit_transfer"]
+    own_reads = {site: reads.pop(site) for site in list(reads) if site != "collection_state_equal"}
+    own_latency = {p: latency.pop(p) for p in PORT_ONLY_PHASES if p in latency}
+    for p in PORT_ONLY_PHASES:
+        snap["latency"].pop(p, None)
+    snap["derived"]["spans_total"] -= len(own_spans)
+    return own_spans, own_reads, own_latency
+
+
 def test_the_same_sequence_gives_the_same_telemetry_in_both_packages():
     for side in (PORT, JAX):
         _drive(side)
     port, ref = _telemetry(PORT), _telemetry(JAX)
+    own_spans, own_reads, own_latency = _port_only(port)
+    # the collection's first update validates both metrics, its second the group's leader: each validation
+    # reads the integer preds and the target
+    assert own_reads == {"multiclass_stat_scores.preds": 3, "multiclass_stat_scores.target": 3}
+    assert own_spans.count(("validate", "multiclass_stat_scores", 1)) == 3
+    assert sorted(s for s in own_spans if s[0] == "host_read") == (
+        [("host_read", "multiclass_stat_scores.preds", 2)] * 3 + [("host_read", "multiclass_stat_scores.target", 2)] * 3)
+    assert own_latency == {"validate": {"multiclass_stat_scores": 3},
+                           "host_read": {"multiclass_stat_scores.preds": 3, "multiclass_stat_scores.target": 3}}
     assert set(port[0]) == set(ref[0]) and set(port[0]["derived"]) == set(ref[0]["derived"])
     assert port[0]["counters"] == ref[0]["counters"]
     assert port[0]["counters"]["update_eager"]["SumMetric"] == 3
@@ -368,8 +396,8 @@ def _watchdog_stimuli(obs, rec_mod, wd):
     rec_mod.RECORDER.set_gauge("fleet_rows_capacity", "b", 4.0)
     for i in range(6):
         for j in range(i % 3):
-            rec_mod.note_jit_compile(f"m{i}_{j}")
-        rec_mod.note_jit_cache_hit("m")
+            rec_mod.note_engine_compile("fleet", f"m{i}_{j}", 1)
+        rec_mod.note_engine_hit("fleet", "m")
         rec_mod.RECORDER.set_gauge("wal_lag_records", "w", 5000.0 * i)
         obs.record_complete("tick", "engine", 0.0, 0.01 * (i + 1))
         rec_mod.RECORDER.add_count("fleet_dispatch", "b", 2)
@@ -432,7 +460,8 @@ def test_update_reads_one_flag_while_disabled(monkeypatch):
     proxy.reads.clear()
     tobs.enable()
     m.update(torch.tensor([1.0]))
-    assert proxy.reads["ENABLED"] == 1 and proxy.reads["clock"] == 2
+    # the update's span reads the clock itself (observe/tracing.py), twice
+    assert proxy.reads["ENABLED"] == 1 and proxy.reads["clock"] == 0 and proxy.reads["RECORDER"] == 1
 
 
 def test_disabled_span_is_the_preallocated_singleton_and_allocates_nothing():
@@ -593,8 +622,8 @@ def test_prometheus_text_format():
 
 
 def test_prometheus_label_values_escaped_per_exposition_format():
-    trec.note_jit_compile(metric='A\\B"C\nD')
-    trec.note_jit_compile(metric="A\\B\"C D")
+    trec.note_engine_compile("fleet", 'A\\B"C\nD', 1)
+    trec.note_engine_compile("fleet", "A\\B\"C D", 1)
     text = tobs.prometheus()
     assert 'metric="A\\\\B\\"C\\nD"' in text
     assert 'metric="A\\\\B\\"C D"' in text
@@ -627,7 +656,9 @@ def test_collection_updates_its_leaders_one_span_each_and_no_fused_span():
     assert snap["counters"]["update_eager"] == {"MulticlassPrecision": 3, "MulticlassAccuracy": 3,
                                                 "MulticlassRecall": 1}
     assert "fused_update" not in snap["timers"] and "fused_compile" not in snap["counters"]
-    assert snap["counters"]["explicit_transfer"] == {"collection_state_equal": 1}
+    # one validation a leader's update, each reading the integer preds and the target
+    assert snap["counters"]["explicit_transfer"] == {"collection_state_equal": 1, "multiclass_stat_scores.preds": 7,
+                                                     "multiclass_stat_scores.target": 7}
 
 
 def test_rolled_back_update_records_its_cause_and_keeps_the_state():
@@ -786,7 +817,7 @@ def test_recompile_storm_fires_within_for_ticks_and_resolves_after():
     fired_at = None
     for i in range(4):
         for j in range(4):
-            trec.note_jit_compile(f"storm_{i}_{j}")
+            trec.note_engine_compile("fleet", f"storm_{i}_{j}", 1)
         wd.sample()
         if not wd.health()["ok"]:
             fired_at = i + 1
@@ -832,7 +863,7 @@ def test_update_p99_rule_fires_below_the_measured_latency_and_resolves_when_rais
 def test_export_state_is_json_able_and_sync_merges_peer_shards():
     a, b = tobs.Watchdog(min_interval_s=0.0), tobs.Watchdog(min_interval_s=0.0)
     for i in range(3):
-        trec.note_jit_compile(f"a{i}")
+        trec.note_engine_compile("fleet", f"a{i}", 1)
         a.sample()
     state = json.loads(json.dumps(b.export_state()))
     before = a.health()["samples"]

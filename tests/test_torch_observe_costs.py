@@ -134,7 +134,7 @@ def test_the_committed_baseline_passes_the_cli_on_the_cpu(capsys):
 
 
 def test_the_telemetry_overhead_stays_under_its_budget_on_the_cpu(tmp_path):
-    assert (overhead.MAX_OVERHEAD_PCT, overhead.SPANS_PER_STEP, overhead.CHECKS_PER_STEP) == (2.0, 1, 2)
+    assert (overhead.MAX_OVERHEAD_PCT, overhead.SPANS_PER_STEP, overhead.CHECKS_PER_STEP) == (2.0, 3, 4)
     report = {}
     path = str(tmp_path / "telemetry_baseline.json")
     rc = overhead.run_telemetry_check(str(tmp_path), baseline_path=path, update_baseline=True, quiet=True,
